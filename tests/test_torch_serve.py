@@ -1,0 +1,143 @@
+"""The port's query service against the reference service.
+
+One mixed workload of 32 requests over a 512-series database goes through
+``repro_torch``'s ``SearchService`` on the CPU (both engines: the torch
+one, and the fused one running the kernels' plain versions) and through
+``repro``'s ``SearchService(backend="xla")``.  Batches form differently
+in each run, and every engine is exact, so every request's answer must
+be the same: ids equal, distances within the d² band of the engine tests
+(1e-3 + 1e-5·d², the matmul-form f32 noise).
+"""
+import json
+
+import numpy as np
+import pytest
+
+import repro.serve as jserve
+from repro_torch.core import engine as teng
+from repro_torch.data.timeseries import make_queries, make_wafer_like
+from repro_torch.serve import (OK, REJECTED_DEADLINE, SearchService,
+                               ServeConfig, WorkloadSpec, check_exactness,
+                               make_workload, run_closed_loop)
+
+B, N = 512, 128
+
+
+@pytest.fixture(scope="module")
+def db():
+    return make_wafer_like(B, N, seed=0)
+
+
+@pytest.fixture(scope="module")
+def workload(db):
+    qs = make_queries(db, 12, seed=1)
+    return make_workload(qs, WorkloadSpec(n_requests=32, knn_frac=0.5, k=5,
+                                          epsilon=2.0, seed=3))
+
+
+def serve(service, workload):
+    with service:
+        result = run_closed_loop(service, workload, clients=8)
+        mismatches = check_exactness(service, workload, result)
+    assert result.served == len(workload)
+    assert mismatches == 0
+    return result
+
+
+@pytest.fixture(scope="module")
+def reference(db, workload):
+    cfg = jserve.ServeConfig(max_batch=16, max_wait_ms=1.0,
+                             normalize_queries=False, backend="xla")
+    svc = jserve.SearchService.from_series(db, cfg, normalize=False)
+    with svc:
+        result = jserve.run_closed_loop(svc, workload, clients=8)
+    return result
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_service_matches_reference(db, workload, reference, backend):
+    cfg = ServeConfig(max_batch=16, max_wait_ms=1.0, normalize_queries=False,
+                      backend=backend)
+    svc = SearchService.from_series(db, cfg, normalize=False, device="cpu")
+    assert svc.backend.backend == backend
+    result = serve(svc, workload)
+    n_answers = 0
+    for (kind, _q, _e, k), got, want in zip(workload, result.requests,
+                                            reference.requests):
+        assert want.status == OK
+        np.testing.assert_array_equal(got.ids, want.ids)
+        d2g, d2w = got.distances ** 2, want.distances ** 2
+        assert np.all(np.abs(d2g - d2w) <= 1e-3 + 1e-5 * d2w)
+        if kind == "knn":
+            assert got.ids.size == k
+        n_answers += got.ids.size
+    assert n_answers > len(workload)
+    # The fused dispatch copies the dense (Q, B) layout to the host.
+    assert svc.backend.last_d2h_bytes > 0
+
+
+def test_service_default_config_on_cpu(db, workload):
+    # The published defaults (max_batch 32, normalised queries, auto
+    # backend), which pick the torch engine for a CPU index.
+    svc = SearchService.from_series(db, ServeConfig(), device="cpu")
+    assert svc.backend.backend == "torch"
+    svc.warmup(qs=(1, 32))
+    serve(svc, workload)
+    snap = svc.stats.snapshot()
+    assert snap["served"] == len(workload) and snap["failed"] == 0
+
+
+def test_deadline_expired_rejected_not_served(db):
+    svc = SearchService.from_series(db, ServeConfig(max_wait_ms=1.0),
+                                    device="cpu")
+    q = make_queries(db, 1, seed=5)[0]
+    with svc:
+        req = svc.submit_knn(q, 3, deadline_ms=-1.0)
+        assert req.wait(10) == REJECTED_DEADLINE
+        ids, dist = svc.knn(q, 3)
+    assert ids.size == 3 and np.all(np.diff(dist) >= 0)
+
+
+def test_later_slices_raise_not_implemented(db):
+    for kw, match in ((dict(quantization="int8"), "quantized"),
+                      (dict(failover_shards=2), "multi-device"),
+                      (dict(trace=True), "observability")):
+        with pytest.raises(NotImplementedError, match=match):
+            ServeConfig(**kw)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        SearchService.from_series(db, ServeConfig(), mesh=object(),
+                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="index-lifecycle"):
+        SearchService.from_store("/nonexistent")
+    with pytest.raises(NotImplementedError, match="index-lifecycle"):
+        teng.DeviceIndex.from_store("/nonexistent")
+
+
+def test_batch_and_replay_take_the_same_float_path(db):
+    # The fused engine's (query, row) results do not depend on the batch:
+    # a query alone and inside a batch of 16 give bit-equal rows, the
+    # query normalisation included.
+    svc = SearchService.from_series(db, ServeConfig(backend="cuda"),
+                                    normalize=False, device="cpu")
+    qs = make_queries(db, 16, seed=9).astype(np.float32)
+    eps = np.full(16, 2.5, np.float32)
+    is_knn = np.arange(16) % 2 == 0
+    idx, ans, d2 = svc.backend.dispatch(qs, eps, is_knn, 8)
+    for i in (0, 1, 15):
+        i1, a1, d1 = svc.backend.dispatch(qs[i:i + 1], eps[i:i + 1],
+                                          is_knn[i:i + 1], 8)
+        np.testing.assert_array_equal(a1[0], ans[i])
+        np.testing.assert_array_equal(d1[0], d2[i])
+
+
+def test_launcher_serve_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    main(["--serve", "--device", "cpu", "--db-size", "300",
+          "--bench-requests", "12", "--clients", "4", "--verify-exact"])
+    out = capsys.readouterr().out
+    assert "(torch backend)" in out
+    summary = [ln for ln in out.splitlines()
+               if ln.startswith("[serve] summary ")][-1]
+    s = json.loads(summary[len("[serve] summary "):])
+    assert s["served"] == 12 and s["exact_mismatches"] == 0
