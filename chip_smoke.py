@@ -8,7 +8,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 1. Environment: the card (nvidia-smi name and power limit), torch and CUDA
    versions, whether nvcc and triton exist, the TF32 flags (matmul TF32
    must be off: the engine's top-k tie window is sized for f32 noise).
-2. Build: compile ``kernels/csrc/fused_query.cu`` for sm_90a with nvcc.
+2. Build: compile ``kernels/csrc/fused_query.cu`` for sm_90a with nvcc;
+   print each kernel's registers and spills.
 3. Serving index: ``SearchService.from_series`` over
    ``make_wafer_like(1_048_576, 128, seed=0)`` with the default
    ``ServeConfig`` (levels (8, 16), alphabet 10, max_batch 32), then
@@ -23,12 +24,24 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    near-equal d².  Kernel, plain-version and yardstick times, and the
    least time the card could take (bytes over 3.35 TB/s or FLOPs over
    67 TFLOP/s f32, whichever is larger, for the data this run needs).
-5. The slice: with the launch counts set to 0, 64 requests from 16
-   closed-loop clients (k-NN fraction 0.5, k = 5, ε = 2); both kernels
-   must have launched.  Every request is replayed alone
+5. The full-precision slice: with the launch counts set to 0, 64 requests
+   from 16 closed-loop clients (k-NN fraction 0.5, k = 5, ε = 2); both
+   kernels must have launched.  Every request is replayed alone
    (``check_exactness``: 0 mismatches), and 16 of them are checked
    against an f64 brute force on the host.
 6. Where the time of one served micro-batch goes.
+7. The quantized resident tier: ``SearchService.from_series`` with
+   ``quantization="int8"`` over the same series, and a bf16 tier of the
+   same host index.  The quantized kernels (``fused_quant_range``,
+   ``fused_quant_topk``) against their plain versions in both modes at
+   the three shapes of phase 4: keep masks equal except on rows within
+   the band of the screen's thresh², d̂² within the band.
+8. The quantized slice: with the counts set to 0, the same 64 requests
+   through the int8 tier; ``fused_quant_range`` must have launched.  The
+   replay shows 0 mismatches, the answers equal phase 5's for the same
+   requests (rows within the f32 band of the boundary are counted, none
+   may be wrong), 16 agree with the f64 brute force; then where one
+   quantized micro-batch's time goes.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -52,7 +65,9 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_SERVE = 1_048_576
 SOURCE = "src/repro_torch/kernels/csrc/fused_query.cu"
 REPLACES = {"fused_range": "src/repro/kernels/fused_query.py:245",
-            "fused_topk": "src/repro/kernels/fused_query.py:291"}
+            "fused_topk": "src/repro/kernels/fused_query.py:291",
+            "fused_quant_range": "src/repro/kernels/fused_query.py:871",
+            "fused_quant_topk": "src/repro/kernels/fused_query.py:928"}
 
 
 def check(cond, msg: str) -> None:
@@ -150,26 +165,43 @@ def alive_by_level(torch, ref, args) -> list:
     return counts
 
 
-def bound_ms(torch, ref, args, outputs, topk: bool) -> tuple:
-    """Least time for the work: every input read once and every output
-    written once over the memory rate, or the operations these inputs
-    need over the f32 rate, whichever is larger."""
-    tensors = [args["series"], args["norms_sq"], args["q"], args["eps"],
-               *args["words"], *args["residuals"], *args["q_panels"],
-               *args["q_residuals"], *outputs]
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    counts = alive_by_level(torch, ref, args)
-    ops = 0.0
-    for li, N in enumerate(args["levels"]):
+def quant_alive_by_level(torch, ref, qdev, panels, q_res, eps) -> list:
+    """:func:`alive_by_level` for the quantized tier's widened cascade."""
+    import types
+    alive = torch.ones((eps.shape[0], qdev.size), dtype=torch.bool,
+                       device=eps.device)
+    counts = [int(alive.sum())]
+    for li, N in enumerate(qdev.levels):
+        one = types.SimpleNamespace(
+            series=qdev.series, n=qdev.n, levels=(N,),
+            words=qdev.words[li:li + 1], residuals=qdev.residuals[li:li + 1],
+            resid_scale=qdev.resid_scale[li:li + 1],
+            resid_zero=qdev.resid_zero[li:li + 1],
+            resid_err=qdev.resid_err[li:li + 1])
+        alive &= ref.quant_cascade_alive_ref(one, panels[li:li + 1],
+                                             q_res[li:li + 1], eps)
+        counts.append(int(alive.sum()))
+    return counts
+
+
+def bound_ms(tensors, levels, counts, n: int, topk: bool,
+             extra_ops: float = 0.0) -> tuple:
+    """Least time for the work: every input and output tensor moved once
+    over the memory rate, or the operations these inputs need (``counts``
+    from :func:`alive_by_level`, plus ``extra_ops``) over the f32 rate,
+    whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    ops = float(extra_ops)
+    for li, N in enumerate(levels):
         ops += counts[li] * (3 + 2 * N + 2)         # C9, C10 gather-FMA
-    n = args["n"]
     ops += counts[-1] * (2 * n + 4)                 # verify on survivors
     if topk:
         ops += counts[-1]                           # selection compares
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations"), nbytes, ops, counts
+                                 "operations"), nbytes, ops
 
 
 def compare_kernels(torch, engine, fq, ref, index, queries, label,
@@ -246,8 +278,12 @@ def compare_kernels(torch, engine, fq, ref, index, queries, label,
                  lambda: ref.fused_topk_ref(**ref_args, k=k,
                                             block_b=ttile["block_b"]),
                  fq.fused_topk(**args, **ttile), True)):
-            b_ms, b_by, nbytes, ops, counts = bound_ms(torch, ref, args,
-                                                       outputs, topk)
+            tensors = [args["series"], args["norms_sq"], args["q"],
+                       args["eps"], *args["words"], *args["residuals"],
+                       *args["q_panels"], *args["q_residuals"], *outputs]
+            counts = alive_by_level(torch, ref, args)
+            b_ms, b_by, nbytes, ops = bound_ms(tensors, args["levels"],
+                                               counts, args["n"], topk)
             out[name] = {"ms": cuda_ms(torch, fn, 20),
                          "plain_ms": cuda_ms(torch, plain, 3),
                          "library_ms": lib_ms, "bound_ms": b_ms,
@@ -258,6 +294,37 @@ def compare_kernels(torch, engine, fq, ref, index, queries, label,
                 f"of the verify {lib_ms:.4f} ms, bound {b_ms:.4f} ms by "
                 f"{b_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
     return out
+
+
+def ptxas_summary(log_text: str) -> list:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output:
+    its template arguments (queries per thread, top-k form, row loader),
+    registers and spills."""
+    import re
+    modes = {"0": "f32", "1": "int8", "2": "bf16"}
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"fused_query_kernelILi(\d+)ELb(\d)ELi(\d)E", line)
+        if m and "Compiling entry function" in line:
+            name = (f"QPT={m.group(1)} {'top-k' if m.group(2) == '1' else 'range'}"
+                    f" {modes[m.group(3)]}")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers; "
+                       f"{spill}")
+            name = None
+    return out
+
+
+def quant_resident_bytes(qdev) -> int:
+    """Device bytes of a quantized tier's columns."""
+    cols = [qdev.series, qdev.series_scale, qdev.series_zero,
+            qdev.series_err, qdev.norms_sq, *qdev.words, *qdev.residuals,
+            *qdev.resid_scale, *qdev.resid_zero, *qdev.resid_err]
+    return int(sum(t.numel() * t.element_size() for t in cols
+                   if t is not None))
 
 
 def exactness_details(service, workload, result, limit: int = 8) -> list:
@@ -281,13 +348,14 @@ def exactness_details(service, workload, result, limit: int = 8) -> list:
     return out
 
 
-def brute_force_check(service, workload, result, n_check: int) -> dict:
-    """f64 brute force on the host for ``n_check`` served requests (half
-    of each kind).  Range id sets and k-NN ids must be equal; a row whose
-    f64 d² lies within the f32 band of ε² (range) or of the k-th distance
-    (k-NN) may differ and is counted instead."""
+def brute_force_check(series, workload, result, n_check: int) -> dict:
+    """f64 brute force on the host over the (B, n) ``series`` the service
+    serves, for ``n_check`` served requests (half of each kind).  Range id
+    sets and k-NN ids must be equal; a row whose f64 d² lies within the
+    f32 band of ε² (range) or of the k-th distance (k-NN) may differ and
+    is counted instead."""
     from repro_torch.core.paa import znormalize_np
-    series = service.backend.index.series.cpu().numpy().astype(np.float64)
+    series = np.asarray(series, np.float64)
     picked = {"range": [], "knn": []}
     for i, (kind, *_rest) in enumerate(workload):
         if len(picked[kind]) < n_check // 2 and \
@@ -404,6 +472,309 @@ def breakdown(torch, engine, fq, service, queries) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The quantized resident tier (phases 7-8).
+# ---------------------------------------------------------------------------
+
+
+def quant_path_inputs(torch, engine, tindex, queries: np.ndarray,
+                      k: int = 8):
+    """The quantized kernels' inputs as ``quantized_mixed_query`` makes
+    them for one micro-batch: z-normalised queries, alternate k-NN rows at
+    their slacked raw-tier seed radius and range rows at ε = 2."""
+    qdev = tindex.dev
+    dev = qdev.device
+    Q = queries.shape[0]
+    qr = engine.represent_queries(
+        torch.as_tensor(queries, dtype=torch.float32, device=dev),
+        qdev.levels, qdev.alphabet)
+    knn = (torch.arange(Q, device=dev) % 2 == 0).reshape(Q, 1)
+    seed = engine._slacked(engine._tiered_seed_eps(tindex, qr, k))
+    eps = torch.where(knn, seed, torch.full_like(seed, 2.0)).reshape(-1)
+    panels = engine._query_panels(qr, qdev.alphabet)
+    args = (qdev, qr.q, panels, qr.residuals, eps.contiguous())
+    rq, rb = engine._fused_blocks(qdev, Q, quant=True)
+    tq, tb = engine._fused_blocks(qdev, Q, k, quant=True)
+    return args, dict(block_q=rq, block_b=rb), \
+        dict(block_q=tq, block_b=tb, k=k)
+
+
+def quant_tensors(qdev, args, outputs) -> list:
+    """Every tensor a quantized pass reads or writes."""
+    _, q, panels, q_res, eps = args
+    return [qdev.series, qdev.series_scale, qdev.series_zero,
+            qdev.series_err, qdev.norms_sq, *qdev.words, *qdev.residuals,
+            *qdev.resid_scale, *qdev.resid_zero, *qdev.resid_err, q, eps,
+            *panels, *q_res, *outputs]
+
+
+def compare_quant_kernels(torch, engine, fq, ref, tindex, queries, label,
+                          timing: bool) -> dict:
+    """Both quantized kernels against their plain versions on the same
+    tensors; with ``timing``, their times, bounds and the yardstick."""
+    args, rtile, ttile = quant_path_inputs(torch, engine, tindex, queries)
+    qdev, eps = args[0], args[4]
+    Q, B = args[1].shape[0], qdev.size
+    lim2 = ref.screen_limit_sq(eps, qdev.series_err).cpu().numpy()
+    out = {"Q": Q, "B": B, "mode": qdev.mode, "range_tile": rtile,
+           "topk_tile": ttile}
+
+    gk, gd = fq.fused_quant_range(*args, **rtile)
+    torch.cuda.synchronize()
+    wk, wd = ref.fused_quant_range_ref(*args)
+    gk, gd, wk, wd = (t.cpu().numpy() for t in (gk, gd, wk, wd))
+    d_ref = np.where(np.isfinite(wd), wd, gd)
+    in_band = np.abs(d_ref - lim2) <= band(lim2)
+    differ = gk != wk
+    both = gk & wk
+    err = float(np.abs(gd[both] - wd[both]).max()) if both.any() else 0.0
+    out["range"] = {
+        "kept": int(wk.sum()), "kernel_kept": int(gk.sum()),
+        "max_abs_err": err,
+        "mismatch_outside_band": int((differ & ~in_band).sum()),
+        "mismatch_in_band": int((differ & in_band).sum()),
+        "d2_outside_band": int((np.abs(gd[both] - wd[both])
+                                > band(wd[both])).sum()),
+        "inf_off_kept": bool(np.all(np.isinf(gd[~gk])))}
+    del gk, gd, wk, wd, d_ref, in_band, differ, both
+    check(out["range"]["mismatch_outside_band"] == 0
+          and out["range"]["d2_outside_band"] == 0
+          and out["range"]["inf_off_kept"] and out["range"]["kept"] > 0,
+          f"fused_quant_range disagrees with its plain version at {label}: "
+          f"{out['range']}")
+
+    k = ttile["k"]
+    gi, gdd = fq.fused_quant_topk(*args, **ttile)
+    torch.cuda.synchronize()
+    wi, wdd = ref.fused_quant_topk_ref(*args, k=k, block_b=ttile["block_b"])
+    mgi, mgd = (t.cpu().numpy() for t in fq.merge_topk_partials(gi, gdd, k))
+    mwi, mwd = (t.cpu().numpy() for t in fq.merge_topk_partials(wi, wdd, k))
+    gi, gdd, wi, wdd = (t.cpu().numpy() for t in (gi, gdd, wi, wdd))
+    same = gi == wi
+    fin = same & np.isfinite(wdd)
+    err_k = float(np.abs(gdd[fin] - wdd[fin]).max()) if fin.any() else 0.0
+    swaps = mgi != mwi
+    with np.errstate(invalid="ignore"):          # inf − inf on empty slots
+        near = np.abs(mgd - mwd) <= band(mwd)
+    fin_m = np.isfinite(mwd)
+    d2_ok = bool(np.array_equal(np.isfinite(mgd), fin_m)
+                 and np.all(np.abs(mgd[fin_m] - mwd[fin_m])
+                            <= band(mwd[fin_m])))
+    out["topk"] = {
+        "k_sel": k, "partial_slots_equal": float(same.mean()),
+        "max_abs_err": err_k, "merged_equal": bool(np.array_equal(mgi, mwi)),
+        "merged_swaps_near_tie": int((swaps & near).sum()),
+        "merged_mismatch": int((swaps & ~near).sum()),
+        "merged_d2_within_band": d2_ok}
+    check(out["topk"]["merged_mismatch"] == 0 and d2_ok,
+          f"fused_quant_topk disagrees with its plain version at {label}: "
+          f"{out['topk']}")
+    log(f"[quant-kernels] {label} {qdev.mode}: Q={Q} B={B} kept="
+        f"{out['range']['kept']} (kernel {out['range']['kernel_kept']}) "
+        f"max|Δd̂²|={err:.3g} outside-band="
+        f"{out['range']['mismatch_outside_band']} in-band="
+        f"{out['range']['mismatch_in_band']}; top-k merged equal="
+        f"{out['topk']['merged_equal']} near-tie swaps="
+        f"{out['topk']['merged_swaps_near_tie']} max|Δd̂²|={err_k:.3g}")
+
+    if timing:
+        u = ref.dequant_series(qdev.series, qdev.series_scale,
+                               qdev.series_zero)
+        q = args[1]
+        lib_ms = cuda_ms(torch, lambda: torch.matmul(q, u.T), 20)
+        del u
+        counts = quant_alive_by_level(torch, ref, qdev, args[2], args[3],
+                                      eps)
+        # Dequantizing the tile: a multiply and an add per int8 code.
+        deq_ops = 2.0 * B * qdev.n if qdev.mode == "int8" else 0.0
+        for name, fn, plain, topk in (
+                ("fused_quant_range",
+                 lambda: fq.fused_quant_range(*args, **rtile),
+                 lambda: ref.fused_quant_range_ref(*args), False),
+                ("fused_quant_topk",
+                 lambda: fq.fused_quant_topk(*args, **ttile),
+                 lambda: ref.fused_quant_topk_ref(
+                     *args, k=k, block_b=ttile["block_b"]), True)):
+            outputs = fn()
+            b_ms, b_by, nbytes, ops = bound_ms(
+                quant_tensors(qdev, args, outputs), qdev.levels, counts,
+                qdev.n, topk, extra_ops=deq_ops + 4.0 * counts[-1])
+            del outputs
+            out[name] = {"ms": cuda_ms(torch, fn, 20),
+                         "plain_ms": cuda_ms(torch, plain, 3),
+                         "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "bytes": nbytes, "ops": ops,
+                         "alive_by_level": counts}
+            log(f"[quant-kernels] {name} at {label} {qdev.mode}: "
+                f"{out[name]['ms']:.4f} ms (plain "
+                f"{out[name]['plain_ms']:.3f} ms, torch.matmul of the "
+                f"verify on û {lib_ms:.4f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+    return out
+
+
+def serve_phase(torch, fq, service, workload, label: str) -> tuple:
+    """The slice's main path: counts at 0, the closed loop, the counts."""
+    from repro_torch.serve import run_closed_loop
+    fq.reset_launch_counts()
+    t0 = time.perf_counter()
+    with service:
+        result = run_closed_loop(service, workload, clients=16)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in fq.KERNELS}
+    log(f"[{label}] closed loop in {time.perf_counter() - t0:.1f}s; "
+        f"launches {launches}")
+    return result, launches
+
+
+def replay_check(service, workload, result, label: str) -> tuple:
+    """Every served request replayed alone: 0 mismatches or fail."""
+    from repro_torch.serve import check_exactness
+    t0 = time.perf_counter()
+    mismatches = check_exactness(service, workload, result)
+    t_replay = time.perf_counter() - t0
+    if mismatches:
+        log(f"[{label}] exactness mismatches: " + json.dumps(
+            exactness_details(service, workload, result)))
+    check(mismatches == 0, f"{label}: {mismatches} exactness mismatches")
+    return mismatches, t_replay
+
+
+def cross_check(series, workload, got, want) -> dict:
+    """The tier's answers against the full-precision phase's for the same
+    requests.  Range id sets and k-NN ids must be equal; a differing row
+    whose f64 d² lies within the f32 band of ε² (range) or of the other's
+    k-th distance (k-NN) is counted as a boundary row, any other as
+    wrong."""
+    from repro_torch.core.paa import znormalize_np
+    stats = {"requests": 0, "equal": 0, "boundary_rows": 0, "wrong": 0}
+    for (kind, q, eps, k), g, w in zip(workload, got.requests,
+                                       want.requests):
+        stats["requests"] += 1
+        qz = znormalize_np(np.asarray(q, np.float32).astype(np.float64))
+        d2 = lambda ids: ((np.asarray(series[ids], np.float64) - qz) ** 2
+                          ).sum(-1)
+        if kind == "range":
+            sym = np.setxor1d(g.ids, w.ids)
+            gap = np.abs(d2(sym) - eps * eps) if sym.size else np.zeros(0)
+            bad = int((gap > band(eps * eps)).sum())
+        elif g.ids.size != w.ids.size:
+            sym = np.arange(max(g.ids.size, w.ids.size))
+            bad = int(sym.size)
+        else:
+            sym = np.flatnonzero(g.ids != w.ids)
+            dg, dw = d2(g.ids[sym]), d2(w.ids[sym])
+            bad = int((np.abs(dg - dw) > band(dw)).sum())
+        if sym.size == 0:
+            stats["equal"] += 1
+        stats["boundary_rows"] += int(sym.size) - bad
+        stats["wrong"] += bad
+    return stats
+
+
+def quant_breakdown(torch, engine, service, queries) -> dict:
+    """Where one quantized micro-batch (Q = 32, k bucket 8, half k-NN)
+    spends its time: the steps of ``engine.quantized_mixed_query`` on the
+    host clock around synchronised device work, then the device-to-host
+    copy and the host ``_finish``."""
+    from repro_torch.core.options import SearchOptions
+    from repro_torch.index import store
+    from repro_torch.serve.batcher import KIND_KNN, KIND_RANGE, Request
+    tindex, cfg = service.backend.tindex, service.cfg
+    qdev = tindex.dev
+    dev = qdev.device
+    Q, k = 32, 8
+    qs = queries[:Q].astype(np.float32)
+    is_knn = np.arange(Q) % 2 == 0
+    eps_np = np.where(is_knn, 0.0, 2.0).astype(np.float32)
+    opts = SearchOptions()
+    sync = torch.cuda.synchronize
+
+    def step(acc, key, fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        acc[key] = acc.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return r
+
+    def run(acc):
+        def represent():
+            qr = engine.represent_queries(
+                torch.as_tensor(qs, device=dev), qdev.levels, qdev.alphabet,
+                normalize=cfg.normalize_queries)
+            knn_col = torch.as_tensor(is_knn, device=dev).reshape(Q, 1)
+            eps_req = torch.as_tensor(eps_np, device=dev).reshape(Q, 1)
+            eps = torch.where(knn_col, engine._slacked(
+                engine._tiered_seed_eps(tindex, qr, k)), eps_req)
+            return qr, knn_col, eps_req, eps
+        qr, knn_col, eps_req, eps = step(acc, "query_repr_and_seed_ms",
+                                         represent)
+        keep, _ = step(acc, "screen_kernel_ms",
+                       lambda: engine._quantized_screen_backend(
+                           tindex, qr, eps, opts.backend))
+        idx, valid, overflow = step(
+            acc, "compaction_ms", lambda: engine._compact_escalated(
+                keep, max(4 * k, 64), opts.max_doublings))
+
+        def slots():
+            qi, si = torch.nonzero(valid, as_tuple=True)
+            return qi, si, idx[qi, si]
+        qi, si, ids = step(acc, "valid_slots_ms", slots)
+        rows = step(acc, "host_gather_ms",
+                    lambda: store.gather_rows(tindex.raw, ids.cpu().numpy()))
+
+        def verify():
+            d2v = engine._verify_gathered(torch.as_tensor(rows, device=dev),
+                                          qr.q[qi])
+            d2 = torch.full(valid.shape, float("inf"), device=dev)
+            d2[qi, si] = d2v
+            ans = torch.where(knn_col, valid,
+                              valid & (d2 <= eps_req * eps_req))
+            return ans, torch.where(ans, d2, float("inf"))
+        ans, d2 = step(acc, "upload_and_verify_ms", verify)
+        return (idx, ans, d2, overflow, rows.nbytes, int(ids.numel()),
+                valid, qr.q)
+
+    acc = {}
+    run(acc)
+    acc = {}
+    reps = 3
+    for _ in range(reps):
+        idx, ans, d2, overflow, gbytes, n_rows, valid, q_rows = run(acc)
+    out = {key: v / reps for key, v in acc.items()}
+    t0 = time.perf_counter()
+    host = [t.cpu().numpy() for t in (idx, ans, d2, overflow)]
+    out["d2h_copy_ms"] = (time.perf_counter() - t0) * 1e3
+    reqs = [Request(kind=KIND_KNN if is_knn[i] else KIND_RANGE, query=qs[i],
+                    epsilon=float(eps_np[i]), k=5) for i in range(Q)]
+    t0 = time.perf_counter()
+    for i, req in enumerate(reqs):
+        service._finish(req, host[0][i], host[1][i], host[2][i])
+    out["host_finish_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    service.backend.dispatch(qs, eps_np, is_knn, k)
+    out["dispatch_total_ms"] = (time.perf_counter() - t0) * 1e3
+    # The raw-tier verify, synchronous and double-buffered (pinned
+    # staging, non_blocking upload), on this batch's slots: the same d²,
+    # bit for bit, and each one's time.
+    d2s = {}
+    for pre in (False, True, False, True):
+        d2s[pre] = step(out, f"verify_tier_prefetch_{pre}_ms".lower(),
+                        lambda: engine._verify_tier(
+                            tindex.raw, idx, q_rows, valid,
+                            SearchOptions(verify_prefetch=pre)))
+    for pre in (False, True):
+        out[f"verify_tier_prefetch_{pre}_ms".lower()] /= 2
+    check(torch.equal(d2s[False], d2s[True]),
+          "verify_prefetch changed a distance")
+    out.update({"d2h_bytes": int(sum(a.nbytes for a in host)),
+                "capacity": int(idx.shape[1]), "gathered_rows": n_rows,
+                "host_gather_bytes": int(gbytes)})
+    log("[quant-breakdown] " + json.dumps(out, sort_keys=True))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -412,14 +783,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import engine
+    from repro_torch.core.fastsax import FastSAXConfig, build_index
     from repro_torch.data.timeseries import make_queries, make_wafer_like
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_query as fq
     from repro_torch.kernels import ref
     from repro_torch.serve import (SearchService, ServeConfig, WorkloadSpec,
-                                   check_exactness, make_workload,
-                                   run_closed_loop)
+                                   make_workload)
+    from repro_torch.serve.service import _QuantizedBackend
 
+    t_start = time.perf_counter()
     report = {"env": environment(torch)}
 
     t0 = time.perf_counter()
@@ -428,9 +801,9 @@ def main() -> int:
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "nvcc_seconds": info["seconds"], "log": info["log"]}
     log(f"[build] fused_query.cu in {report['build']['seconds']:.1f}s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("[build] " + line.strip())
+    report["build"]["kernels"] = ptxas_summary(info["log"])
+    for line in report["build"]["kernels"]:
+        log("[build] " + line)
 
     t0 = time.perf_counter()
     db = make_wafer_like(N_SERVE, 128, seed=0)
@@ -470,25 +843,16 @@ def main() -> int:
 
     spec = WorkloadSpec(n_requests=64, knn_frac=0.5, k=5, epsilon=2.0)
     workload = make_workload(queries, spec)
-    fq.reset_launch_counts()
-    with service:
-        result = run_closed_loop(service, workload, clients=16)
-        launches = {"fused_range": fq.fused_range.launches,
-                    "fused_topk": fq.fused_topk.launches}
+    result, launches = serve_phase(torch, fq, service, workload, "serve")
     d2h_batch = service.backend.last_d2h_bytes     # the last served batch
     snap = service.stats.snapshot()
     check(result.served == len(workload),
           f"served {result.served} of {len(workload)}")
-    check(all(v > 0 for v in launches.values()),
+    check(launches["fused_range"] > 0 and launches["fused_topk"] > 0,
           f"a kernel of the path did not launch: {launches}")
-    t0 = time.perf_counter()
-    mismatches = check_exactness(service, workload, result)
-    t_replay = time.perf_counter() - t0
-    if mismatches:
-        log("[serve] exactness mismatches: " + json.dumps(
-            exactness_details(service, workload, result)))
-    check(mismatches == 0, f"{mismatches} exactness mismatches")
-    bf = brute_force_check(service, workload, result, 16)
+    mismatches, t_replay = replay_check(service, workload, result, "serve")
+    bf = brute_force_check(service.backend.index.series.cpu().numpy(),
+                           workload, result, 16)
     check(bf["wrong"] == 0 and bf["checked"] >= 8,
           f"brute-force disagreement: {bf}")
     lat = snap["latency_ms"]
@@ -504,6 +868,96 @@ def main() -> int:
         f"bytes in the last batch")
 
     report["breakdown"] = breakdown(torch, engine, fq, service, queries)
+    log(f"[time] phases 1-6 in {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 7. the quantized resident tier: index and kernels
+    t0 = time.perf_counter()
+    qservice = SearchService.from_series(db, ServeConfig(quantization="int8"))
+    torch.cuda.synchronize()
+    t_qbuild = time.perf_counter() - t0
+    check(isinstance(qservice.backend, _QuantizedBackend)
+          and qservice.backend.backend == "cuda",
+          "the quantized service must serve through the tier's kernel")
+    tier8 = qservice.backend.tindex
+    t0 = time.perf_counter()
+    host = build_index(db, FastSAXConfig(n_segments=(8, 16), alphabet=10))
+    tier16 = engine.TieredIndex.from_host(host, "bf16")
+    del host
+    torch.cuda.synchronize()
+    t_bf16 = time.perf_counter() - t0
+    qhost_bytes = {m: quant_resident_bytes(t.dev)
+                   for m, t in (("int8", tier8), ("bf16", tier16))}
+    report["quant_index"] = {"int8_service_build_s": t_qbuild,
+                             "bf16_tier_build_s": t_bf16,
+                             "resident_bytes": qhost_bytes,
+                             "raw_tier_bytes": int(tier8.raw.nbytes)}
+    log(f"[quant-index] {N_SERVE} rows: int8 service (host build + "
+        f"quantize + upload) {t_qbuild:.1f}s, bf16 tier {t_bf16:.1f}s; "
+        f"resident bytes {qhost_bytes}, raw tier {tier8.raw.nbytes} bytes "
+        f"on the host")
+    small_host = build_index(small_db, FastSAXConfig(n_segments=(8, 16),
+                                                     alphabet=10))
+    ragged_host = build_index(ragged_db, FastSAXConfig(n_segments=(8, 16),
+                                                       alphabet=10))
+    qk = {}
+    small_q = make_queries(small_db, 32, seed=3)
+    ragged_q = make_queries(ragged_db, 27, seed=4)
+    for mode, tier in (("int8", tier8), ("bf16", tier16)):
+        qk[mode] = {
+            "serving": compare_quant_kernels(
+                torch, engine, fq, ref, tier, queries[:32],
+                "Q=32 B=1048576", timing=True),
+            "b65536": compare_quant_kernels(
+                torch, engine, fq, ref,
+                engine.TieredIndex.from_host(small_host, mode), small_q,
+                "Q=32 B=65536", timing=True),
+            "ragged": compare_quant_kernels(
+                torch, engine, fq, ref,
+                engine.TieredIndex.from_host(ragged_host, mode), ragged_q,
+                "Q=27 B=50001", timing=False)}
+    del tier16, small_host, ragged_host
+    report["quant_kernels"] = qk
+    kernel_phase_launches = {k.__name__: k.launches for k in fq.KERNELS}
+    log(f"[quant-kernels] launches in phases 4 and 7 (comparisons and "
+        f"timing, not serving): {kernel_phase_launches}")
+
+    # ---- 8. the quantized slice: the same 64 requests through the tier
+    qservice.warmup()
+    qresult, qlaunches = serve_phase(torch, fq, qservice, workload,
+                                     "quant-serve")
+    qsnap = qservice.stats.snapshot()
+    check(qresult.served == len(workload),
+          f"quantized: served {qresult.served} of {len(workload)}")
+    check(qlaunches["fused_quant_range"] >= qsnap["batches"] > 0,
+          f"the quantized screen kernel did not launch once per batch: "
+          f"{qlaunches}, {qsnap['batches']} batches")
+    q_d2h = qservice.backend.last_d2h_bytes
+    q_cap = qservice.backend.last_capacity
+    q_mismatches, q_replay = replay_check(qservice, workload, qresult,
+                                          "quant-serve")
+    vs_full = cross_check(tier8.raw, workload, qresult, result)
+    check(vs_full["wrong"] == 0,
+          f"quantized answers differ from full precision: {vs_full}")
+    q_bf = brute_force_check(tier8.raw, workload, qresult, 16)
+    check(q_bf["wrong"] == 0 and q_bf["checked"] >= 8,
+          f"quantized brute-force disagreement: {q_bf}")
+    qlat = qsnap["latency_ms"]
+    report["quant_serve"] = {
+        "summary": qresult.summary(qsnap), "launches": qlaunches,
+        "exact_mismatches": q_mismatches, "replay_s": q_replay,
+        "vs_full_precision": vs_full, "brute_force": q_bf,
+        "d2h_bytes_last_batch": q_d2h, "capacity_last_batch": q_cap}
+    log(f"[quant-serve] {qresult.served}/{len(workload)} served at "
+        f"{qresult.qps:.2f} qps; p50 {qlat['p50']} ms p99 {qlat['p99']} "
+        f"ms; mean batch {qsnap['mean_batch_size']} over "
+        f"{qsnap['batches']} batches; launches {qlaunches}; exactness "
+        f"mismatches {q_mismatches} ({q_replay:.1f}s); against the "
+        f"full-precision phase {vs_full}; brute force {q_bf}; "
+        f"device-to-host {q_d2h} bytes and capacity {q_cap} in the last "
+        f"batch")
+    report["quant_breakdown"] = quant_breakdown(torch, engine, qservice,
+                                                queries)
+    log(f"[time] phases 1-8 in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name in ("fused_range", "fused_topk"):
@@ -514,6 +968,20 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
                         "launches": launches[name], "max_abs_err": err,
+                        "ms": main["ms"], "plain_ms": main["plain_ms"],
+                        "bound_ms": main["bound_ms"],
+                        "bound_by": main["bound_by"],
+                        "library_ms": main["library_ms"]})
+    # The tier serves in int8 (the mode from_series was given); the
+    # launches are those of the quantized serving run, where the top-k
+    # form is on no path (0).
+    for name in ("fused_quant_range", "fused_quant_topk"):
+        main = qk["int8"]["serving"][name]
+        key = "range" if name == "fused_quant_range" else "topk"
+        err = max(qk[m][s][key]["max_abs_err"] for m in qk for s in qk[m])
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+                        "replaces": REPLACES[name],
+                        "launches": qlaunches[name], "max_abs_err": err,
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"],

@@ -1,6 +1,6 @@
 """Vectorised FAST_SAX query engine on PyTorch tensors.
 
-Counterpart of ``repro/core/engine.py`` (its whole-series part, up to the
+Counterpart of ``repro/core/engine.py`` (its whole-series part and the
 quantized tier).  The paper's CPU-sequential cascade runs as a masked
 dataflow over the whole database:
 
@@ -21,6 +21,10 @@ Two backends answer identically:
     gather.  On CPU tensors the kernel wrappers run their plain versions,
     so the fused engine is testable without a card.
 
+The tiered section at the end serves the same queries from the quantized
+resident tier (:class:`TieredIndex`, the ``quantized_*`` engines): the
+screen is the CUDA kernel ``fused_quant_range`` on the ``cuda`` backend.
+
 ``resolve_backend("auto", device)`` picks ``"cuda"`` for an index on a
 CUDA device and ``"torch"`` for one on the CPU.  All device math is
 float32, as the reference runs with x64 off; TF32 must stay off
@@ -29,6 +33,7 @@ because the top-k certificate's tie window is sized for f32 noise.
 """
 from __future__ import annotations
 
+import concurrent.futures as _futures
 import dataclasses
 import math
 from typing import Sequence
@@ -36,6 +41,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..index import quantized as _quant
+from ..index import store as _store
 from ..kernels import fused_query as _fused
 from ..kernels import ops as kernel_ops
 from ..kernels import ref as _ref
@@ -43,7 +50,7 @@ from . import cost_model as _cost_model
 from . import representation as repr_registry
 from .fastsax import FastSAXIndex
 from .options import SearchOptions, resolve_options
-from .paa import paa, znormalize
+from .paa import paa, row_sum, znormalize
 from .polyfit import linfit_residual
 from .representation import DEFAULT_STACK
 from .sax import discretize
@@ -548,18 +555,21 @@ def resolve_knn_backend(backend: str, k: int, device) -> str:
     return be
 
 
-def _fused_blocks(index: DeviceIndex, Q: int, k_sel: int = 0,
-                  block_q: int | None = None, block_b: int | None = None):
+def _fused_blocks(index, Q: int, k_sel: int = 0, block_q: int | None = None,
+                  block_b: int | None = None, quant: bool = False):
+    """Tiles of a fused pass over ``index`` (a :class:`DeviceIndex`, or a
+    :class:`QuantizedDeviceIndex` with ``quant``)."""
     if block_q is None or block_b is None:
         bq, bb = kernel_ops.choose_fused_blocks(
-            Q, index.size, index.n, index.levels, index.alphabet, k_sel=k_sel)
+            Q, index.size, index.n, index.levels, index.alphabet, k_sel=k_sel,
+            quant=quant)
         block_q, block_b = block_q or bq, block_b or bb
     if int(block_q) not in kernel_ops.FUSED_BLOCK_Q or int(block_b) % 64:
         raise ValueError(f"block_q must be one of {kernel_ops.FUSED_BLOCK_Q} "
                          f"and block_b a multiple of 64, got {block_q}, "
                          f"{block_b}")
     need = kernel_ops.fused_smem_bytes(int(block_q), index.n, index.levels,
-                                       index.alphabet, Q, k_sel)
+                                       index.alphabet, Q, k_sel, quant)
     if need > kernel_ops.SMEM_BYTES:
         raise ValueError(f"fused tile block_q={block_q} needs {need} bytes "
                          f"of shared memory (> {kernel_ops.SMEM_BYTES})")
@@ -788,3 +798,432 @@ def mixed_query_backend(index: DeviceIndex, qr: QueryReprDev, epsilon, is_knn,
                             capacity=opts.capacity, n_iters=opts.n_iters,
                             valid_mask=valid_mask,
                             max_doublings=opts.max_doublings)
+
+
+# ---------------------------------------------------------------------------
+# The quantized resident tier (``index/quantized.py``): the screen columns
+# stay on the device as int8 or bf16 with widened bounds, the raw rows
+# stay in host memory, and only the screen's survivors are fetched and
+# exactly verified, so the answers are set-identical to the
+# full-precision engine.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QuantizedDeviceIndex:
+    """The resident tier's columns on one device.
+
+    ``series``: (B, n) int8 codes or bf16; ``series_scale`` /
+    ``series_zero``: (B,) f32 per-row affine (int8 only, else None);
+    ``series_err``: (B,) f32 ‖u − û‖₂ bound; ``norms_sq``: (B,) f32 ‖û‖²
+    of the dequantized rows; per level ``words``: (B, N_l) int8,
+    ``residuals``: (B,) int8 codes or bf16, ``resid_scale`` /
+    ``resid_zero`` (int8 only, else None) and ``resid_err``: (nb,) f32
+    per block of ``index.quantized.RESID_BLOCK`` rows.
+    """
+
+    series: torch.Tensor
+    series_scale: torch.Tensor | None
+    series_zero: torch.Tensor | None
+    series_err: torch.Tensor
+    norms_sq: torch.Tensor
+    words: tuple
+    residuals: tuple
+    resid_scale: tuple
+    resid_zero: tuple
+    resid_err: tuple
+    levels: tuple = ()
+    alphabet: int = 10
+    mode: str = "int8"
+    stack: tuple = DEFAULT_STACK
+
+    @property
+    def n(self) -> int:
+        return self.series.shape[-1]
+
+    @property
+    def size(self) -> int:
+        return self.series.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.series.device
+
+
+def _upload_codes(codes, dev) -> torch.Tensor:
+    """A host quantized column on the device: uint16 bf16 bit patterns
+    become ``torch.bfloat16`` by a view (no rounding), int8 codes upload
+    as they are."""
+    codes = np.ascontiguousarray(codes)
+    if codes.dtype == np.uint16:
+        return torch.from_numpy(codes.view(np.int16)).view(
+            torch.bfloat16).to(dev)
+    if codes.dtype != np.int8:
+        raise _quant.QuantizationError(
+            f"quantized codes must be int8 or uint16 (bf16 bits), got "
+            f"{codes.dtype}")
+    return torch.from_numpy(codes).to(dev)
+
+
+def quantized_device_index(qhost, device=None) -> QuantizedDeviceIndex:
+    """Carry a resident tier to the device (default: CUDA, see
+    :func:`resolve_device`).  ``qhost`` is any object with the numpy
+    fields of ``index.quantized.QuantizedHostIndex`` — the port's, or the
+    reference's handed over as it is.  Per-block and per-row columns
+    become (m,) f32."""
+    dev = resolve_device(device)
+    int8 = _quant.check_mode(qhost.mode) == "int8"
+    if any(getattr(lv, "extra", None) for lv in qhost.levels):
+        raise NotImplementedError(
+            "quantized stack extensions (trend_slope) need the "
+            "representation slice of the port")
+
+    def col(a):
+        return torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
+                               device=dev)
+
+    return QuantizedDeviceIndex(
+        series=_upload_codes(qhost.series, dev),
+        series_scale=col(qhost.series_scale) if int8 else None,
+        series_zero=col(qhost.series_zero) if int8 else None,
+        series_err=col(qhost.series_err),
+        norms_sq=col(qhost.norms_sq),
+        words=tuple(_upload_codes(np.asarray(lv.words, np.int8), dev)
+                    for lv in qhost.levels),
+        residuals=tuple(_upload_codes(lv.residuals, dev)
+                        for lv in qhost.levels),
+        resid_scale=tuple(col(lv.scale) if int8 else None
+                          for lv in qhost.levels),
+        resid_zero=tuple(col(lv.zero) if int8 else None
+                         for lv in qhost.levels),
+        resid_err=tuple(col(lv.err) for lv in qhost.levels),
+        levels=tuple(int(lv.n_segments) for lv in qhost.levels),
+        alphabet=int(qhost.alphabet),
+        mode=qhost.mode,
+        stack=tuple(getattr(qhost, "stack", DEFAULT_STACK)))
+
+
+#: (nb,) per scale block -> (B,) per row.
+_expand_block_col = _ref.expand_block_col
+
+
+def _dequant_residuals_dev(qindex: QuantizedDeviceIndex, li: int):
+    """(B,) dequantized residuals of level ``li`` (``zero + scale · code``;
+    the sentinel code decodes to PAD_RESIDUAL)."""
+    return _ref.dequant_residuals(qindex.residuals[li],
+                                  qindex.resid_scale[li],
+                                  qindex.resid_zero[li])
+
+
+def _dequant_series_dev(qindex: QuantizedDeviceIndex) -> torch.Tensor:
+    """(B, n) dequantized rows û (f32)."""
+    return _ref.dequant_series(qindex.series, qindex.series_scale,
+                               qindex.series_zero)
+
+
+def _eps_vec(epsilon, Q: int, device) -> torch.Tensor:
+    return _eps_qcol(epsilon, Q, device).reshape(-1).contiguous()
+
+
+def quantized_cascade_mask(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
+                           epsilon) -> torch.Tensor:
+    """(Q, B) widened cascade over the quantized columns: C9 ``|r̂(u) −
+    r(q)| ≤ ε + e_blk``, C10 unwidened on the lossless int8 words."""
+    Q = qr.q.shape[0]
+    return _ref.quant_cascade_alive_ref(
+        qindex, _query_panels(qr, qindex.alphabet), qr.residuals,
+        _eps_vec(epsilon, Q, qindex.device))
+
+
+def quantized_screen(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
+                     epsilon):
+    """The whole quantized screen in plain tensor code: ``(keep (Q, B),
+    d̂² (Q, B))``.  ``keep`` marks rows that may be answers — a row with
+    d(û, q) > ε + e_u has d(u, q) > ε — and the caller verifies them
+    exactly against the raw tier.  The oracle the CUDA kernel
+    ``fused_quant_range`` is held against."""
+    Q = qr.q.shape[0]
+    return _ref.fused_quant_range_ref(
+        qindex, qr.q, _query_panels(qr, qindex.alphabet), qr.residuals,
+        _eps_vec(epsilon, Q, qindex.device))
+
+
+def _compact_mask(keep: torch.Tensor, capacity: int):
+    """Low-index compaction of a dense keep mask: ``(idx (Q, C) int32,
+    valid (Q, C), overflow (Q,))``.  Slot j of a row holds its j-th kept
+    row, so slot order is row order; dead slots hold row 0."""
+    Q, B = keep.shape
+    capacity = min(int(capacity), B)
+    count = keep.sum(dim=-1)
+    pos = torch.cumsum(keep, dim=-1) - 1
+    qi, bi = torch.nonzero(keep & (pos < capacity), as_tuple=True)
+    idx = torch.zeros((Q, capacity), dtype=torch.int32, device=keep.device)
+    idx[qi, pos[qi, bi]] = bi.to(torch.int32)
+    valid = _arange(capacity, keep.device)[None, :] < count[:, None]
+    return idx, valid, count > capacity
+
+
+def _compact_escalated(keep: torch.Tensor, capacity: int,
+                       max_doublings: int):
+    """:func:`_compact_mask` at the first capacity of ``capacity``,
+    4·capacity, … (capped at B) that no row overflows, or after
+    ``max_doublings`` escalations."""
+    B = keep.shape[-1]
+    most = int(keep.sum(dim=-1).max())
+    cap = min(B, int(capacity))
+    for _ in range(max_doublings):
+        if cap >= B or most <= cap:
+            break
+        cap = min(B, cap * 4)
+    return _compact_mask(keep, cap)
+
+
+@dataclasses.dataclass
+class TieredIndex:
+    """Two-tier serving index: the quantized screen on the device
+    (``dev``), the (B, n) full-precision rows in host memory (``raw``,
+    float32), read only for the rows the screen could not exclude.
+    ``ids`` (optional) maps row positions to external ids."""
+
+    dev: QuantizedDeviceIndex
+    raw: np.ndarray
+    ids: np.ndarray | None = None
+
+    @property
+    def size(self) -> int:
+        return self.dev.size
+
+    @property
+    def mode(self) -> str:
+        return self.dev.mode
+
+    @classmethod
+    def from_host(cls, index: FastSAXIndex, mode: str,
+                  ids: np.ndarray | None = None,
+                  device=None) -> "TieredIndex":
+        """Quantize a built host index into the tiered layout: the
+        resident tier on ``device`` (default: CUDA), the raw tier as one
+        f32 array."""
+        qhost = _quant.quantize_host_index(index, mode)
+        return cls(dev=quantized_device_index(qhost, device),
+                   raw=np.asarray(index.series, np.float32), ids=ids)
+
+    @classmethod
+    def from_store(cls, path, quantization: str | None = None,
+                   with_ids: bool = False):
+        raise NotImplementedError(
+            "TieredIndex.from_store needs the index-lifecycle slice of the "
+            "port (ROADMAP.md queue 1)")
+
+
+def _quantized_screen_backend(tindex: TieredIndex, qr: QueryReprDev,
+                              eps_col, backend: str):
+    """The dense quantized screen: the CUDA kernel ``fused_quant_range``
+    on the ``cuda`` backend (on a CUDA index it launches or raises), the
+    plain oracle :func:`quantized_screen` on ``torch``."""
+    qdev = tindex.dev
+    if resolve_backend(backend, qdev.device) == "torch":
+        return quantized_screen(qdev, qr, eps_col)
+    Q = qr.q.shape[0]
+    block_q, block_b = _fused_blocks(qdev, Q, quant=True)
+    return _fused.fused_quant_range(
+        qdev, qr.q, _query_panels(qr, qdev.alphabet), qr.residuals,
+        _eps_vec(eps_col, Q, qdev.device), block_q=block_q, block_b=block_b)
+
+
+def _raw_rows(raw, ids: torch.Tensor, device) -> torch.Tensor:
+    """Raw-tier rows of the (M,) row ids, uploaded as f32 — the only touch
+    of full-precision data on the query path."""
+    return torch.as_tensor(_store.gather_rows(raw, ids.cpu().numpy()),
+                           device=device)
+
+
+def _verify_gathered(rows: torch.Tensor, q_rows: torch.Tensor) -> torch.Tensor:
+    """Exact diff²-form distances of gathered raw rows against their
+    queries, (M,).  Summed with :func:`paa.row_sum`, so a row's distance
+    does not depend on how many rows were gathered with it (a request
+    served alone verifies a smaller capacity than in its batch)."""
+    diff = rows - q_rows
+    return row_sum(diff * diff)
+
+
+#: Chunks of the prefetched verify: chunk j+1's host gather runs on the
+#: worker thread while chunk j uploads and verifies on the device.
+_PREFETCH_CHUNKS = 2
+
+
+def _verify_prefetched(raw, ids: torch.Tensor, q: torch.Tensor,
+                       qi: torch.Tensor) -> torch.Tensor:
+    """Double-buffered raw-tier verify of the (M,) row ids against their
+    queries ``q[qi]``.
+
+    The ids split into :data:`_PREFETCH_CHUNKS` spans.  One worker thread
+    gathers span j+1 from the raw tier into a staging buffer (pinned on a
+    CUDA device) while span j uploads with a ``non_blocking`` copy on the
+    current stream and verifies.  The verify is row-local, so the result
+    is the synchronous path's, bit for bit.  A fault in the worker
+    re-raises here.
+    """
+    M, n = int(ids.shape[0]), int(raw.shape[1])
+    dev = q.device
+    if M == 0:
+        return torch.empty((0,), dtype=torch.float32, device=dev)
+    nchunks = max(1, min(_PREFETCH_CHUNKS, M))
+    bounds = [(M * i) // nchunks for i in range(nchunks + 1)]
+    spans = [(lo, hi) for lo, hi in zip(bounds, bounds[1:]) if hi > lo]
+    ids_np = ids.cpu().numpy()
+    pin = dev.type == "cuda"
+
+    def fetch(lo: int, hi: int) -> torch.Tensor:
+        buf = torch.empty((hi - lo, n), dtype=torch.float32, pin_memory=pin)
+        _store.gather_rows(raw, ids_np[lo:hi], out=buf.numpy())
+        return buf
+
+    parts = []
+    with _futures.ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(fetch, *spans[0])
+        for j, (lo, hi) in enumerate(spans):
+            buf = fut.result()
+            if j + 1 < len(spans):
+                fut = pool.submit(fetch, *spans[j + 1])
+            rows = buf.to(dev, non_blocking=True)
+            parts.append(_verify_gathered(rows, q[qi[lo:hi]]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _verify_tier(raw, idx: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
+                 opts: SearchOptions) -> torch.Tensor:
+    """The raw-tier exact verify behind every tiered engine: (Q, C) d²,
+    +inf on dead slots.  Only the valid slots' rows are fetched — the
+    reference gathers all Q·C slots — synchronously, or double-buffered
+    when ``opts.verify_prefetch`` (the same d², bit for bit)."""
+    qi, si = torch.nonzero(valid, as_tuple=True)
+    ids = idx[qi, si]
+    if opts.verify_prefetch:
+        d2v = _verify_prefetched(raw, ids, q, qi)
+    else:
+        d2v = _verify_gathered(_raw_rows(raw, ids, q.device), q[qi])
+    d2 = torch.full(valid.shape, INF, dtype=torch.float32, device=q.device)
+    d2[qi, si] = d2v
+    return d2
+
+
+def _quant_options(options, legacy: dict, caller: str) -> SearchOptions:
+    """The options of a ``quantized_*`` entry point; a legacy positional
+    ``capacity`` (int) in the ``options`` slot goes through the
+    deprecation shim, and unknown keywords raise."""
+    if isinstance(options, int):
+        legacy["capacity"], options = options, None
+    opts, rest = resolve_options(options, legacy, caller)
+    if rest:
+        raise TypeError(f"{caller}: unexpected kwargs {sorted(rest)}")
+    return opts
+
+
+def quantized_range_query(tindex: TieredIndex, qr: QueryReprDev, epsilon,
+                          options: SearchOptions | None = None, **legacy):
+    """Exact range query over the tiered index.
+
+    Screens the resident tier (widened bounds: no true answer is
+    excluded), compacts the survivors, fetches only their rows from the
+    raw tier and verifies them exactly in the diff² form.  Capacity
+    escalates 4× on overflow up to B, so the certificate is True on
+    return.  Returns ``(idx (Q, C), answer (Q, C), d2 (Q, C), exact
+    (Q,))``, set-identical to :func:`range_query_compact`.
+    """
+    opts = _quant_options(options, legacy, "quantized_range_query")
+    Q, dev = qr.q.shape[0], tindex.dev.device
+    eps = _eps_qcol(epsilon, Q, dev)
+    keep, _ = _quantized_screen_backend(tindex, qr, eps, opts.backend)
+    cap = 64 if opts.capacity is None else max(1, int(opts.capacity))
+    idx, valid, overflow = _compact_escalated(keep, cap, opts.max_doublings)
+    d2 = _verify_tier(tindex.raw, idx, qr.q, valid, opts)
+    answer = valid & (d2 <= eps * eps)
+    return idx, answer, torch.where(answer, d2, INF), ~overflow
+
+
+def _sample_eps(rows: torch.Tensor, q: torch.Tensor, k: int) -> torch.Tensor:
+    """Seed radius from verified sample rows: the (Q, 1) k-th sampled
+    distance, an upper bound of the true k-th distance.  A non-finite
+    radius becomes ``_SEED_EPS_MAX``."""
+    diff = rows[None, :, :] - q[:, None, :]
+    d2s = row_sum(diff * diff)                           # (Q, S)
+    eps = torch.sqrt(torch.clamp(_kth_smallest(d2s, k), min=0.0))
+    return torch.where(torch.isfinite(eps), eps,
+                       torch.full_like(eps, _SEED_EPS_MAX))
+
+
+def _tiered_seed_eps(tindex: TieredIndex, qr: QueryReprDev,
+                     k: int) -> torch.Tensor:
+    """k-NN seed radius of the tiered engine, from a strided sample of the
+    RAW tier (the positions of :func:`_seed_eps`).  The sample strides
+    over the raw tier's own row count: a screen tier padded beyond it
+    would otherwise sample a pad row and shrink the radius below the true
+    k-th distance."""
+    R = int(tindex.raw.shape[0])
+    dev = tindex.dev.device
+    if R == 0:
+        return torch.zeros((qr.q.shape[0], 1), dtype=torch.float32,
+                           device=dev)
+    S = min(R, max(k, _KNN_SEED_SAMPLE))
+    sample = (np.arange(S) * R) // S
+    rows = torch.as_tensor(np.asarray(tindex.raw[sample], np.float32),
+                           device=dev)
+    return _sample_eps(rows, qr.q, k)
+
+
+def quantized_knn_query(tindex: TieredIndex, qr: QueryReprDev, k: int,
+                        options: SearchOptions | None = None, **legacy):
+    """Exact k-NN over the tiered index: ``(nn_idx, nn_d2, exact)``.
+
+    Seeds each query's radius from a verified raw-tier sample, screens
+    the resident tier at the slacked radius (every true neighbour has
+    d ≤ ε and the widened screen never kills such a row), verifies the
+    survivors against the raw tier and takes their k smallest, ties to
+    the lowest row.  Capacity escalates up to B, so ``exact`` is True on
+    return.
+    """
+    opts = _quant_options(options, legacy, "quantized_knn_query")
+    B = tindex.size
+    k_eff = min(int(k), B)
+    eps = _tiered_seed_eps(tindex, qr, k_eff)
+    keep, _ = _quantized_screen_backend(tindex, qr, _slacked(eps),
+                                        opts.backend)
+    cap = max(4 * k_eff, 64) if opts.capacity is None else int(opts.capacity)
+    cap = max(min(B, cap), k_eff)
+    idx, valid, overflow = _compact_escalated(keep, cap, opts.max_doublings)
+    d2 = _verify_tier(tindex.raw, idx, qr.q, valid, opts)
+    nn_d2, pos = _bottom_k(d2, k_eff)
+    nn_idx = torch.gather(idx, -1, pos)
+    nn_idx = torch.where(torch.isfinite(nn_d2), nn_idx,
+                         torch.full_like(nn_idx, -1))
+    return nn_idx, nn_d2, ~overflow
+
+
+def quantized_mixed_query(tindex: TieredIndex, qr: QueryReprDev, epsilon,
+                          is_knn, k: int,
+                          options: SearchOptions | None = None, **legacy):
+    """Mixed range / k-NN batch over the tiered index, in the serving
+    layout of :func:`mixed_query`.
+
+    Range rows screen at the caller's ε (the widening is the screen's),
+    k-NN rows at their slacked seeded radius; one compaction and one
+    raw-tier verify serve both.  Returns ``(idx, answer, d2, overflow)``
+    with ``overflow`` all False after escalation; a k-NN row's ``answer``
+    marks its valid candidates, a verified superset of its top-k
+    (:func:`mixed_topk`).
+    """
+    opts = _quant_options(options, legacy, "quantized_mixed_query")
+    Q, B, dev = qr.q.shape[0], tindex.size, tindex.dev.device
+    k_eff = min(int(k), B)
+    knn_col = torch.as_tensor(is_knn, dtype=torch.bool,
+                              device=dev).reshape(Q, 1)
+    eps_req = _eps_qcol(epsilon, Q, dev)
+    eps = torch.where(knn_col,
+                      _slacked(_tiered_seed_eps(tindex, qr, k_eff)), eps_req)
+    keep, _ = _quantized_screen_backend(tindex, qr, eps, opts.backend)
+    cap = max(4 * k_eff, 64) if opts.capacity is None else int(opts.capacity)
+    cap = max(min(B, cap), k_eff)
+    idx, valid, overflow = _compact_escalated(keep, cap, opts.max_doublings)
+    d2 = _verify_tier(tindex.raw, idx, qr.q, valid, opts)
+    answer = torch.where(knn_col, valid, valid & (d2 <= eps_req * eps_req))
+    return idx, answer, torch.where(answer, d2, INF), overflow

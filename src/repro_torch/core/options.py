@@ -11,17 +11,22 @@ from __future__ import annotations
 import dataclasses
 import warnings
 
+from ..index.quantized import check_mode
+
 
 @dataclasses.dataclass(frozen=True)
 class SearchOptions:
     """Knobs of one search call.
 
     ``backend``: ``"auto" | "torch" | "cuda"`` (``engine.resolve_backend``;
-    the reference's ``"xla"`` and ``"pallas"``).  ``quantization``: only
-    ``"none"`` in this slice.  ``capacity``: initial compaction capacity
-    of the torch engine (``None`` = engine default); escalation from it is
-    automatic.  ``n_iters``: k-NN tightening passes.  ``max_doublings``:
-    cap on the 4× capacity-escalation loop.
+    the reference's ``"xla"`` and ``"pallas"``).  ``quantization``:
+    ``"none" | "bf16" | "int8"`` memory tier (``engine.TieredIndex``).
+    ``capacity``: initial compaction capacity (``None`` = engine default);
+    escalation from it is automatic.  ``n_iters``: k-NN tightening passes.
+    ``max_doublings``: cap on the 4× capacity-escalation loop.
+    ``verify_prefetch``: overlap the tiered engines' raw-tier row fetch
+    with the device's upload and verify (``engine._verify_prefetched``);
+    the distances are the same, bit for bit.
     """
 
     backend: str = "auto"
@@ -29,6 +34,7 @@ class SearchOptions:
     capacity: int | None = None
     n_iters: int = 2
     max_doublings: int = 8
+    verify_prefetch: bool = False
 
 
 _LEGACY_FIELDS = {
@@ -37,6 +43,7 @@ _LEGACY_FIELDS = {
     "capacity": "capacity",
     "n_iters": "n_iters",
     "max_doublings": "max_doublings",
+    "verify_prefetch": "verify_prefetch",
 }
 
 
@@ -59,8 +66,5 @@ def resolve_options(options: SearchOptions | None, legacy: dict,
             DeprecationWarning, stacklevel=3)
         opts = dataclasses.replace(
             opts, **{_LEGACY_FIELDS[k]: v for k, v in taken.items()})
-    if opts.quantization != "none":
-        raise NotImplementedError(
-            f"quantization={opts.quantization!r} needs the quantized-tier "
-            "slice of the port (ROADMAP.md queue 1)")
+    check_mode(opts.quantization)
     return opts, legacy

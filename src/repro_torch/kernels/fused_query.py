@@ -1,16 +1,19 @@
 """Wrappers of the fused FAST_SAX kernels (``csrc/fused_query.cu``).
 
-Counterpart of the whole-series part of ``repro/kernels/fused_query.py``
-(``fused_range_pallas``, ``fused_topk_pallas``, ``merge_topk_partials``).
-One pass evaluates every cascade level (C9, C10) and the Euclidean
-verify for a batch of queries while each database tile is resident
-(design and bound in the ``.cu`` file's header).
+Counterpart of the whole-series and quantized parts of
+``repro/kernels/fused_query.py`` (``fused_range_pallas``,
+``fused_topk_pallas``, ``merge_topk_partials``, ``fused_quant_range_pallas``,
+``fused_quant_topk_pallas``).  One pass evaluates every cascade level
+(C9, C10) and the Euclidean verify — on the quantized tier the widened
+screen over dequantized rows — for a batch of queries while each
+database tile is resident (design and bound in the ``.cu`` file's header).
 
 Each wrapper checks its inputs, then
 
   * on CUDA tensors launches the kernel on the current stream and adds
     one to its launch count (``fused_range.launches``,
-    ``fused_topk.launches``) — or raises; there is no fallback;
+    ``fused_topk.launches``, ``fused_quant_range.launches``,
+    ``fused_quant_topk.launches``) — or raises; there is no fallback;
   * on CPU tensors computes the same function with its plain PyTorch
     version in ``ref.py`` (no launch is counted).
 
@@ -47,8 +50,13 @@ def _lib():
             ci, vp, vp, ci, ci, ci, ctypes.POINTER(ci), pvp, pvp,
             vp, ci, pvp, pvp, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
         lib.fused_query_launch.restype = ci
+        lib.fused_quant_launch.argtypes = [
+            ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(ci), pvp,
+            pvp, pvp, pvp, pvp, vp, ci, pvp, pvp, vp, ci, ci, ci, vp, vp, ci,
+            vp, vp, vp]
+        lib.fused_quant_launch.restype = ci
         lib.fused_query_smem_bytes.argtypes = [
-            ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci]
+            ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci]
         lib.fused_query_smem_bytes.restype = ci
         lib.fused_query_error.argtypes = [ci]
         lib.fused_query_error.restype = ctypes.c_char_p
@@ -116,25 +124,38 @@ def _check_tiles(block_q: int, block_b: int):
                          f"got {block_b}")
 
 
+def _ptrs(ts) -> ctypes.Array:
+    """A C array of the tensors' device pointers (None -> null)."""
+    return (ctypes.c_void_p * len(ts))(
+        *[None if t is None else t.data_ptr() for t in ts])
+
+
+def _nullable(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(lib, code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.fused_query_error(code).decode())
+
+
 def _launch(topk, series, norms_sq, words, residuals, q, q_panels,
             q_residuals, eps, levels, alphabet, n, block_q, block_b,
             ans=None, d2=None, k_sel=0, out_idx=None, out_d2=None):
     lib = _lib()
     L = len(levels)
-    ptrs = lambda ts: (ctypes.c_void_p * L)(*[t.data_ptr() for t in ts])
     Ns = (ctypes.c_int * L)(*[int(N) for N in levels])
-    nullable = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(series.device):
         stream = torch.cuda.current_stream(series.device).cuda_stream
         code = lib.fused_query_launch(
             int(topk), series.data_ptr(), norms_sq.data_ptr(),
-            series.shape[0], n, L, Ns, ptrs(words), ptrs(residuals),
-            q.data_ptr(), q.shape[0], ptrs(q_panels), ptrs(q_residuals),
-            eps.data_ptr(), alphabet, block_q, block_b, nullable(ans),
-            nullable(d2), k_sel, nullable(out_idx), nullable(out_d2), stream)
-    if code != 0:
-        raise RuntimeError("fused_query kernel launch failed: "
-                           + lib.fused_query_error(code).decode())
+            series.shape[0], n, L, Ns, _ptrs(words), _ptrs(residuals),
+            q.data_ptr(), q.shape[0], _ptrs(q_panels), _ptrs(q_residuals),
+            eps.data_ptr(), alphabet, block_q, block_b, _nullable(ans),
+            _nullable(d2), k_sel, _nullable(out_idx), _nullable(out_d2),
+            stream)
+    _raise_on(lib, code, "fused_query")
 
 
 def fused_range(series, norms_sq, words, residuals, q, q_panels, q_residuals,
@@ -202,22 +223,167 @@ def fused_topk(series, norms_sq, words, residuals, q, q_panels, q_residuals,
     return out_idx, out_d2
 
 
-fused_range.launches = 0
-fused_topk.launches = 0
+# ---------------------------------------------------------------------------
+# The quantized resident tier.
+# ---------------------------------------------------------------------------
+
+_QUANT_MODES = {"int8": (1, torch.int8), "bf16": (2, torch.bfloat16)}
+
+
+def _check_quant_inputs(qdev, q, q_panels, q_residuals, eps):
+    """Validate a quantized index (an ``engine.QuantizedDeviceIndex`` or
+    any object with its fields) and the query pack; returns (B, Q, dev)."""
+    if qdev.mode not in _QUANT_MODES:
+        raise ValueError(f"quantized index mode must be one of "
+                         f"{tuple(_QUANT_MODES)}, got {qdev.mode!r}")
+    _, code_t = _QUANT_MODES[qdev.mode]
+    series = qdev.series
+    if not isinstance(series, torch.Tensor) or series.ndim != 2 \
+            or series.shape[0] < 1:
+        raise ValueError("series must be a non-empty (B, n) tensor")
+    (B, n), dev = series.shape, series.device
+    levels = tuple(int(N) for N in qdev.levels)
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"the fused kernels take 1 to {MAX_LEVELS} levels, "
+                         f"got {len(levels)}")
+    cols = (qdev.words, qdev.residuals, qdev.resid_scale, qdev.resid_zero,
+            qdev.resid_err, q_panels, q_residuals)
+    if any(len(c) != len(levels) for c in cols):
+        raise ValueError("words, residuals, resid_scale, resid_zero, "
+                         "resid_err, q_panels and q_residuals need one "
+                         "entry per level")
+    if not isinstance(q, torch.Tensor) or q.ndim != 2 or q.shape[0] < 1:
+        raise ValueError("q must be a non-empty (Q, n) tensor")
+    Q, nb = q.shape[0], -(-B // ref.RESID_BLOCK)
+    f32, int8 = torch.float32, qdev.mode == "int8"
+    _check("series", series, code_t, (B, n), dev)
+    for name, t in (("series_scale", qdev.series_scale),
+                    ("series_zero", qdev.series_zero)):
+        if int8:
+            _check(name, t, f32, (B,), dev)
+        elif t is not None:
+            raise ValueError(f"{name} must be None in bf16 mode")
+    _check("series_err", qdev.series_err, f32, (B,), dev)
+    _check("norms_sq", qdev.norms_sq, f32, (B,), dev)
+    _check("q", q, f32, (Q, n), dev)
+    _check("eps", eps, f32, (Q,), dev)
+    for li, N in enumerate(levels):
+        if n % N:
+            raise ValueError(f"level N={N} does not divide n={n}")
+        _check(f"words[{li}]", qdev.words[li], torch.int8, (B, N), dev)
+        _check(f"residuals[{li}]", qdev.residuals[li], code_t, (B,), dev)
+        for name, t in (("resid_scale", qdev.resid_scale[li]),
+                        ("resid_zero", qdev.resid_zero[li])):
+            if int8:
+                _check(f"{name}[{li}]", t, f32, (nb,), dev)
+            elif t is not None:
+                raise ValueError(f"{name}[{li}] must be None in bf16 mode")
+        _check(f"resid_err[{li}]", qdev.resid_err[li], f32, (nb,), dev)
+        _check(f"q_panels[{li}]", q_panels[li], f32,
+               (Q, qdev.alphabet, N), dev)
+        _check(f"q_residuals[{li}]", q_residuals[li], f32, (Q,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and series.data_ptr() % 16:
+        raise ValueError("series must be 16-byte aligned for the kernel")
+    return B, Q, dev
+
+
+def _launch_quant(topk, qdev, q, q_panels, q_residuals, eps, block_q,
+                  block_b, ans=None, d2=None, k_sel=0, out_idx=None,
+                  out_d2=None):
+    lib = _lib()
+    L = len(qdev.levels)
+    Ns = (ctypes.c_int * L)(*[int(N) for N in qdev.levels])
+    series = qdev.series
+    with torch.cuda.device(series.device):
+        stream = torch.cuda.current_stream(series.device).cuda_stream
+        code = lib.fused_quant_launch(
+            int(topk), _QUANT_MODES[qdev.mode][0], series.data_ptr(),
+            _nullable(qdev.series_scale), _nullable(qdev.series_zero),
+            qdev.series_err.data_ptr(), qdev.norms_sq.data_ptr(),
+            series.shape[0], series.shape[1], L, Ns, _ptrs(qdev.words),
+            _ptrs(qdev.residuals), _ptrs(qdev.resid_scale),
+            _ptrs(qdev.resid_zero), _ptrs(qdev.resid_err), q.data_ptr(),
+            q.shape[0], _ptrs(q_panels), _ptrs(q_residuals), eps.data_ptr(),
+            qdev.alphabet, block_q, block_b, _nullable(ans), _nullable(d2),
+            k_sel, _nullable(out_idx), _nullable(out_d2), stream)
+    _raise_on(lib, code, "fused_quant")
+
+
+def fused_quant_range(qdev, q, q_panels, q_residuals, eps, *,
+                      block_q: int = 32, block_b: int = 1024):
+    """One pass of the quantized screen: ``(keep (Q, B) bool, d̂² (Q, B)
+    float32)`` with +inf off the kept rows.
+
+    ``qdev`` is an ``engine.QuantizedDeviceIndex``: ``series`` (B, n)
+    int8 codes with ``series_scale``/``series_zero`` (B,) f32, or bf16;
+    ``series_err`` and ``norms_sq`` (B,) f32; per level ``words`` (B, N)
+    int8, ``residuals`` (B,) int8 or bf16, ``resid_scale``/``resid_zero``
+    (int8 only) and ``resid_err`` (⌈B/128⌉,) f32.  The query side is that
+    of :func:`fused_range`.  A row is kept when the widened cascade (C9
+    ``gap ≤ ε + e_blk``, C10 unwidened) and the series screen
+    ``d̂² ≤ ((ε + e_u)(1 + 1e-6) + 1e-6)²`` pass; kept rows still need
+    the raw tier's exact verify.  The tiles shape the kernel only.
+    """
+    B, Q, dev = _check_quant_inputs(qdev, q, q_panels, q_residuals, eps)
+    _check_tiles(block_q, block_b)
+    if dev.type == "cpu":
+        return ref.fused_quant_range_ref(qdev, q, q_panels, q_residuals, eps)
+    keep = torch.empty((Q, B), dtype=torch.bool, device=dev)
+    d2 = torch.empty((Q, B), dtype=torch.float32, device=dev)
+    _launch_quant(False, qdev, q, q_panels, q_residuals, eps, block_q,
+                  block_b, ans=keep, d2=d2)
+    with _count_lock:
+        fused_quant_range.launches += 1
+    return keep, d2
+
+
+def fused_quant_topk(qdev, q, q_panels, q_residuals, eps, *, k: int,
+                     block_q: int = 32, block_b: int = 1024):
+    """The quantized screen emitting block-local top-k partials of d̂²
+    among the kept rows: ``(idx (Q, nb·k) int32, d̂² (Q, nb·k) float32)``
+    in the layout of :func:`fused_topk`, merged by
+    :func:`merge_topk_partials`.  The candidates are screen-level
+    (distances to the dequantized rows); no engine of the port calls it,
+    as none of the reference calls its Pallas twin."""
+    B, Q, dev = _check_quant_inputs(qdev, q, q_panels, q_residuals, eps)
+    _check_tiles(block_q, block_b)
+    k = int(k)
+    if not 1 <= k <= min(block_b, KSEL_MAX):
+        raise ValueError(f"k={k} must be in [1, min(block_b={block_b}, "
+                         f"{KSEL_MAX})]")
+    if dev.type == "cpu":
+        return ref.fused_quant_topk_ref(qdev, q, q_panels, q_residuals, eps,
+                                        k, block_b)
+    nb = -(-B // block_b)
+    out_idx = torch.empty((Q, nb * k), dtype=torch.int32, device=dev)
+    out_d2 = torch.empty((Q, nb * k), dtype=torch.float32, device=dev)
+    _launch_quant(True, qdev, q, q_panels, q_residuals, eps, block_q,
+                  block_b, k_sel=k, out_idx=out_idx, out_d2=out_d2)
+    with _count_lock:
+        fused_quant_topk.launches += 1
+    return out_idx, out_d2
+
+
+KERNELS = (fused_range, fused_topk, fused_quant_range, fused_quant_topk)
+for _kernel in KERNELS:
+    _kernel.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set both launch counts to 0."""
+    """Set every kernel's launch count to 0."""
     with _count_lock:
-        fused_range.launches = 0
-        fused_topk.launches = 0
+        for kernel in KERNELS:
+            kernel.launches = 0
 
 
 def smem_bytes_of_kernel(topk: bool, n: int, levels, alphabet: int,
-                         block_q: int, Q: int = 0, k_sel: int = 0) -> int:
+                         block_q: int, Q: int = 0, k_sel: int = 0,
+                         quant: bool = False) -> int:
     """The kernel's own count of its shared memory (needs the built
     library); ``ops.fused_smem_bytes`` must agree with it."""
     L = len(levels)
     Ns = (ctypes.c_int * L)(*[int(N) for N in levels])
     return int(_lib().fused_query_smem_bytes(int(topk), n, L, Ns, alphabet,
-                                             block_q, Q, k_sel))
+                                             block_q, Q, k_sel, int(quant)))

@@ -49,13 +49,17 @@ def _r4(x: int) -> int:
 
 
 def fused_smem_bytes(block_q: int, n: int, levels, alphabet: int,
-                     Q: int = 0, k_sel: int = 0) -> int:
+                     Q: int = 0, k_sel: int = 0, quant: bool = False) -> int:
     """Dynamic shared memory of one thread block of the fused kernel
     (``k_sel > 0``: the top-k form, whose per-query lists for all Q
-    queries of the launch stay resident)."""
+    queries of the launch stay resident; ``quant``: the quantized tier's
+    form, which also stages each row's series error and each level's
+    residual error beside the dequantized f32 tile)."""
     levels = tuple(int(N) for N in levels)
     L, T = len(levels), ROW_TILE
     words = _r4(T * (n | 1)) + _r4(T) + _r4(L * T)
+    if quant:
+        words += _r4(T) + _r4(L * T)
     words += sum(_r4(T * (N | 1)) for N in levels)
     words += _r4(n * block_q) + 3 * _r4(block_q) + _r4(L * block_q)
     words += sum(_r4(block_q * N * alphabet) for N in levels)
@@ -65,20 +69,24 @@ def fused_smem_bytes(block_q: int, n: int, levels, alphabet: int,
 
 
 def choose_fused_blocks(Q: int, B: int, n: int, levels, alphabet: int,
-                        k_sel: int = 0, smem: int = SMEM_BYTES):
-    """Pick ``(block_q, block_b)`` for a fused pass.
+                        k_sel: int = 0, smem: int = SMEM_BYTES,
+                        quant: bool = False):
+    """Pick ``(block_q, block_b)`` for a fused pass (``quant``: over the
+    quantized tier).
 
     Feasible shapes fit ``smem``; among them the cheapest under
     ``core/cost_model.fused_pass_estimate`` wins (its memory term, the
     top-k re-verify gather that grows with the number of blocks, and the
-    wave efficiency of the blocks over the SMs).  Raises if nothing fits.
+    wave efficiency of the blocks over the SMs).  The estimate charges the
+    full-precision row bytes, an upper bound on the quantized tier's, as
+    the reference's chooser does.  Raises if nothing fits.
     """
     best = None
     for bq in FUSED_BLOCK_Q:
         for bb in FUSED_BLOCK_B:
             if k_sel > bb:
                 continue
-            need = fused_smem_bytes(bq, n, levels, alphabet, Q, k_sel)
+            need = fused_smem_bytes(bq, n, levels, alphabet, Q, k_sel, quant)
             if need > smem:
                 continue
             est = cost_model.fused_pass_estimate(

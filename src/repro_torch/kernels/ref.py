@@ -6,6 +6,10 @@ fused_query.cu``): the wrappers in ``fused_query.py`` run these on CPU
 tensors, and ``chip_smoke.py`` holds the kernels against them on the card.
 They spend memory freely — the (Q, B, N) MINDIST gather and a dense
 (Q, B) verify — which is fine for tests and checks, not for serving.
+
+The quantized forms are the reference's XLA oracle of the tiered screen
+(``repro/core/engine.py::quantized_cascade_mask`` and
+``quantized_screen``); the port's engine uses them as its own oracle.
 """
 from __future__ import annotations
 
@@ -13,7 +17,26 @@ import math
 
 import torch
 
+from ..index.quantized import PAD_RESIDUAL, RESID_BLOCK, SENTINEL_CODE
+
 INT32_MAX = 2 ** 31 - 1
+# f32 slack on the widened series screen's radius: d(û, q) is taken in
+# f32 while the stored error e_u was computed against the f64 source.
+# Widening only adds survivors.  The CUDA kernel uses the same constants.
+QUANT_SCREEN_REL = 1e-6
+QUANT_SCREEN_ABS = 1e-6
+
+
+def mindist_sq_ref(words, q_panels, N: int, n: int) -> torch.Tensor:
+    """(Q, B) C10 bound ``(n/N)·Σᵢ panel[q, wᵢ, i]²`` by gather from the
+    (Q, α, N) panels; ``words`` (B, N) of any integer type."""
+    Q, A, _ = q_panels.shape
+    B = words.shape[0]
+    flat = words.long() * N + torch.arange(N, device=words.device)[None, :]
+    cell = torch.gather(q_panels.reshape(Q, A * N), 1,
+                        flat.reshape(1, B * N).expand(Q, B * N))
+    cell = cell.reshape(Q, B, N)
+    return float(n // N) * torch.sum(cell * cell, dim=-1)
 
 
 def cascade_alive_ref(words, residuals, q_panels, q_residuals, eps, levels,
@@ -28,15 +51,7 @@ def cascade_alive_ref(words, residuals, q_panels, q_residuals, eps, levels,
         gap = torch.abs(residuals[li][None, :] - q_residuals[li][:, None])
         ok = gap <= eps_c
         alive = ok if alive is None else alive & ok
-        Q, A, _ = q_panels[li].shape
-        B = words[li].shape[0]
-        flat = (words[li].long() * N
-                + torch.arange(N, device=words[li].device)[None, :])
-        cell = torch.gather(q_panels[li].reshape(Q, A * N), 1,
-                            flat.reshape(1, B * N).expand(Q, B * N))
-        cell = cell.reshape(Q, B, N)
-        md_sq = float(n // N) * torch.sum(cell * cell, dim=-1)
-        alive &= md_sq <= eps2
+        alive &= mindist_sq_ref(words[li], q_panels[li], N, n) <= eps2
     return alive
 
 
@@ -76,7 +91,14 @@ def fused_topk_ref(series, norms_sq, words, residuals, q, q_panels,
     alive = cascade_alive_ref(words, residuals, q_panels, q_residuals, eps,
                               levels, n)
     d2 = verify_d2_ref(q, series, norms_sq)
-    d2m = torch.where(alive, d2, torch.full_like(d2, math.inf))
+    return block_topk(torch.where(alive, d2, torch.full_like(d2, math.inf)),
+                      k, block_b)
+
+
+def block_topk(d2m, k: int, block_b: int):
+    """Per block of ``block_b`` columns of (Q, B) values (+inf = not a
+    candidate), the k smallest, ascending with ties to the lower column:
+    ``(idx (Q, nb·k) int32, d2 (Q, nb·k))``, +inf / −1 on empty slots."""
     Q, B = d2m.shape
     nb = -(-B // block_b)
     if nb * block_b != B:
@@ -89,6 +111,85 @@ def fused_topk_ref(series, norms_sq, words, residuals, q, q_panels,
     idx = torch.where(torch.isfinite(vals), base + pos, torch.full_like(pos, -1))
     return (idx.reshape(Q, nb * k).to(torch.int32),
             vals.reshape(Q, nb * k).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# The quantized resident tier.  ``qdev`` is an ``engine.
+# QuantizedDeviceIndex`` (any object with its fields).
+# ---------------------------------------------------------------------------
+
+
+def expand_block_col(col, B: int) -> torch.Tensor:
+    """(nb,) per scale block of ``RESID_BLOCK`` consecutive rows -> (B,)
+    per row."""
+    return col.repeat_interleave(RESID_BLOCK)[:B]
+
+
+def dequant_residuals(codes, scale, zero) -> torch.Tensor:
+    """(B,) residuals of one level: bf16 widened, or int8 ``zero + scale ·
+    code`` with its block's scale and zero; code ``SENTINEL_CODE``
+    decodes to ``PAD_RESIDUAL`` whatever the scale."""
+    if codes.dtype == torch.bfloat16:
+        return codes.float()
+    B = codes.shape[0]
+    deq = expand_block_col(zero, B) + expand_block_col(scale, B) * codes.float()
+    return torch.where(codes == SENTINEL_CODE,
+                       torch.full_like(deq, PAD_RESIDUAL), deq)
+
+
+def dequant_series(codes, scale, zero) -> torch.Tensor:
+    """(B, n) dequantized rows û: bf16 widened, or int8 ``zero + scale ·
+    code`` with the row's scale and zero."""
+    if codes.dtype == torch.bfloat16:
+        return codes.float()
+    return zero[:, None] + scale[:, None] * codes.float()
+
+
+def quant_cascade_alive_ref(qdev, q_panels, q_residuals, eps) -> torch.Tensor:
+    """(Q, B) alive mask of the widened cascade: C9 ``|r̂ − r(q)| ≤ ε +
+    e_blk`` on the dequantized residuals, C10 unwidened on the int8
+    words."""
+    eps_c = eps.reshape(-1, 1)
+    eps2 = eps_c * eps_c
+    B = qdev.series.shape[0]
+    alive = None
+    for li, N in enumerate(qdev.levels):
+        res = dequant_residuals(qdev.residuals[li], qdev.resid_scale[li],
+                                qdev.resid_zero[li])
+        err = expand_block_col(qdev.resid_err[li], B)
+        gap = torch.abs(res[None, :] - q_residuals[li][:, None])
+        ok = gap <= eps_c + err[None, :]
+        alive = ok if alive is None else alive & ok
+        alive &= mindist_sq_ref(qdev.words[li], q_panels[li], N,
+                                qdev.n) <= eps2
+    return alive
+
+
+def screen_limit_sq(eps, series_err) -> torch.Tensor:
+    """(Q, B) squared radius of the widened series screen,
+    ``((ε + e_u)·(1 + QUANT_SCREEN_REL) + QUANT_SCREEN_ABS)²``."""
+    thresh = (eps.reshape(-1, 1) + series_err[None, :]) * \
+        (1.0 + QUANT_SCREEN_REL) + QUANT_SCREEN_ABS
+    return thresh * thresh
+
+
+def fused_quant_range_ref(qdev, q, q_panels, q_residuals, eps):
+    """The quantized screen: ``(keep (Q, B) bool, d̂² (Q, B))`` with +inf
+    off the kept rows.  d̂² is the matmul form against the dequantized
+    rows and their stored norms ‖û‖²."""
+    alive = quant_cascade_alive_ref(qdev, q_panels, q_residuals, eps)
+    u = dequant_series(qdev.series, qdev.series_scale, qdev.series_zero)
+    d2 = verify_d2_ref(q, u, qdev.norms_sq)
+    keep = alive & (d2 <= screen_limit_sq(eps, qdev.series_err))
+    return keep, torch.where(keep, d2, torch.full_like(d2, math.inf))
+
+
+def fused_quant_topk_ref(qdev, q, q_panels, q_residuals, eps, k: int,
+                         block_b: int):
+    """Block-local top-k partials of d̂² among the rows the quantized
+    screen keeps, in the layout of :func:`fused_topk_ref`."""
+    _, d2m = fused_quant_range_ref(qdev, q, q_panels, q_residuals, eps)
+    return block_topk(d2m, k, block_b)
 
 
 def merge_topk_partials(idx, d2, k: int):

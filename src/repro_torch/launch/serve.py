@@ -4,12 +4,14 @@ generator.
 Counterpart of the ``--serve`` path of ``repro/launch/serve.py``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --serve \\
-        --db-size 1048576 --bench-requests 64 --verify-exact
+        --db-size 1048576 --bench-requests 64 --verify-exact \\
+        [--quantization int8 [--verify-prefetch]]
 
 It builds a wafer-like database of ``--db-size`` series of length 128,
 serves a mixed range / k-NN workload and prints a final machine-readable
 line ``[serve] summary {...}`` with ``"exact_mismatches": 0`` when every
-replayed request matched.  Runs on CUDA unless ``--device cpu``.
+replayed request matched.  ``--quantization`` serves from the quantized
+resident tier.  Runs on CUDA unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -26,13 +28,16 @@ def serve_service(args) -> dict:
     cfg = ServeConfig(max_batch=args.max_batch, max_queue=args.max_queue,
                       max_wait_ms=args.max_wait_ms, alphabet=args.alphabet,
                       default_deadline_ms=args.deadline_ms or None,
-                      backend=args.backend)
+                      backend=args.backend, quantization=args.quantization,
+                      verify_prefetch=args.verify_prefetch)
     db = make_wafer_like(args.db_size, 128, seed=0)
     t0 = time.perf_counter()
     service = SearchService.from_series(db, cfg, device=args.device)
+    tier = ("" if args.quantization == "none"
+            else f", {args.quantization} resident tier")
     print(f"[serve] cold build: {args.db_size} rows on "
-          f"{service.backend.index.device} ({service.backend.backend} "
-          f"backend) in {time.perf_counter() - t0:.2f}s")
+          f"{service.backend.device} ({service.backend.backend} "
+          f"backend{tier}) in {time.perf_counter() - t0:.2f}s")
     queries = make_queries(db, max(args.queries, 16), seed=1)
 
     t0 = time.perf_counter()
@@ -79,6 +84,13 @@ def main(argv=None):
                     choices=("auto", "torch", "cuda"),
                     help="'auto' runs the fused CUDA kernels on a CUDA "
                          "device and the torch engine on the CPU")
+    ap.add_argument("--quantization", default="none",
+                    choices=("none", "bf16", "int8"),
+                    help="serve from the quantized resident tier (screen "
+                         "columns on the device, raw rows on the host)")
+    ap.add_argument("--verify-prefetch", action="store_true",
+                    help="with --quantization: overlap the raw-tier row "
+                         "fetch with the device's verify (same answers)")
     ap.add_argument("--bench-requests", type=int, default=256)
     ap.add_argument("--clients", type=int, default=16)
     ap.add_argument("--knn-frac", type=float, default=0.5)

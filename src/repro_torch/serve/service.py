@@ -8,12 +8,13 @@ Counterpart of the single-device part of ``repro/serve/service.py``
            → bucket       (Q padded to a power of two, k to a power of two)
            → dispatch     (one mixed range/k-NN device pass: the fused
                            CUDA kernels on a CUDA index, else the torch
-                           engine with capacity escalation)
+                           engine with capacity escalation; or, with
+                           ``quantization``, the tiered engine over the
+                           quantized resident tier)
            → respond      (per-request ids and distances, latency)
 
 Settings that need a later slice of the port raise NotImplementedError:
-quantization, failover shards, a mesh, tracing and warm starts from a
-store.
+failover shards, a mesh, tracing and warm starts from a store.
 """
 from __future__ import annotations
 
@@ -25,17 +26,20 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.engine import (DeviceIndex, build_device_index,
+from ..core.engine import (DeviceIndex, TieredIndex, build_device_index,
                            mixed_query, mixed_query_dense, mixed_query_fused,
-                           represent_queries, resolve_backend,
-                           resolve_device, resolve_knn_backend)
+                           quantized_mixed_query, represent_queries,
+                           resolve_backend, resolve_device,
+                           resolve_knn_backend)
+from ..core.fastsax import FastSAXConfig, build_index
+from ..core.options import SearchOptions
 from ..core.representation import DEFAULT_STACK
+from ..index.quantized import check_mode
 from .batcher import (FAILED, KIND_KNN, KIND_RANGE, OK,
                       REJECTED_SHED, CircuitBreaker, MicroBatcher, Request)
 from .stats import StatsTracker
 
 _LATER = {
-    "quantization": "the quantized-tier slice",
     "failover_shards": "the multi-device slice",
     "mesh": "the multi-device slice",
     "trace": "the observability slice",
@@ -57,7 +61,9 @@ class ServeConfig:
     stack: Sequence[str] = DEFAULT_STACK
     normalize_queries: bool = True
     backend: str = "auto"          # auto|torch|cuda (engine.resolve_backend)
-    quantization: str = "none"     # only "none" in this slice
+    quantization: str = "none"     # none|bf16|int8: tiered resident index
+    verify_prefetch: bool = False  # overlap the raw-tier verify fetch with
+    #                                the device's work (same answers)
     max_batch: int = 32            # micro-batch ceiling (and top Q bucket)
     max_queue: int = 256           # admission-control bound
     max_wait_ms: float = 2.0       # coalescing window after first request
@@ -72,8 +78,7 @@ class ServeConfig:
     trace: bool = False            # only False in this slice
 
     def __post_init__(self):
-        if self.quantization != "none":
-            raise _not_ported("quantization")
+        check_mode(self.quantization)
         if self.failover_shards:
             raise _not_ported("failover_shards")
         if self.trace:
@@ -88,6 +93,17 @@ def _pow2_at_least(n: int, cap: int) -> int:
 
 
 _DENSE = -1   # capacity-hint sentinel: dispatch densely from now on
+
+
+def _to_host(backend, out: tuple) -> tuple:
+    """Copy a dispatch's ``(idx, answer, d2, overflow)`` to the host,
+    note the bytes and the certificates, return ``(idx, answer, d2)``."""
+    out = tuple(t.cpu().numpy() for t in out)
+    backend.last_d2h_bytes = sum(a.nbytes for a in out)
+    if backend.stats is not None:
+        bad = int(out[3].sum())
+        backend.stats.on_certificates(out[3].size - bad, out[3].size)
+    return out[:3]
 
 
 class _SingleBackend:
@@ -116,13 +132,12 @@ class _SingleBackend:
         return self.index.n
 
     @property
+    def device(self) -> torch.device:
+        return self.index.device
+
+    @property
     def size(self) -> int:
         return self.index.size
-
-    def _note_certificates(self, overflow: np.ndarray):
-        if self.stats is not None:
-            bad = int(overflow.sum())
-            self.stats.on_certificates(overflow.size - bad, overflow.size)
 
     def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
                  k: int):
@@ -162,17 +177,64 @@ class _SingleBackend:
                 self._cap = _DENSE
                 idx, answer, d2, overflow = mixed_query_dense(
                     self.index, qr, eps_t, knn_t, k)
-        out = tuple(t.cpu().numpy() for t in (idx, answer, d2, overflow))
-        self.last_d2h_bytes = sum(a.nbytes for a in out)
-        self._note_certificates(out[3])
-        return out[:3]
+        return _to_host(self, (idx, answer, d2, overflow))
+
+
+class _QuantizedBackend:
+    """Tiered serving: the quantized screen stays on the device, the
+    full-precision rows stay in host memory and are fetched only for the
+    screen's survivors (``engine.quantized_mixed_query``, which escalates
+    its own capacity).  Answers are set-identical to the full-precision
+    backend: the widened screen keeps a superset and the verify is exact.
+    On the ``cuda`` backend the screen is the ``fused_quant_range``
+    kernel.  The answers come back compact, (Q, C) rather than (Q, B).
+    """
+
+    def __init__(self, tindex: TieredIndex, cfg: ServeConfig):
+        self.tindex = tindex
+        self.cfg = cfg
+        self.backend = resolve_backend(cfg.backend, tindex.dev.device)
+        self.stats: Optional[StatsTracker] = None   # set by SearchService
+        # Bytes the last dispatch copied from the device to the host, and
+        # the compaction capacity it reached.
+        self.last_d2h_bytes = 0
+        self.last_capacity = 0
+
+    @property
+    def n(self) -> int:
+        return self.tindex.dev.n
+
+    @property
+    def device(self) -> torch.device:
+        return self.tindex.dev.device
+
+    @property
+    def size(self) -> int:
+        return self.tindex.size
+
+    def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
+                 k: int):
+        qdev = self.tindex.dev
+        dev = qdev.device
+        qr = represent_queries(torch.as_tensor(q, dtype=torch.float32,
+                                               device=dev),
+                               qdev.levels, qdev.alphabet,
+                               normalize=self.cfg.normalize_queries)
+        cap = self.cfg.capacity0 or max(4 * k, 64)
+        idx, answer, d2, overflow = quantized_mixed_query(
+            self.tindex, qr, torch.as_tensor(eps, dtype=torch.float32,
+                                             device=dev),
+            torch.as_tensor(is_knn, dtype=torch.bool, device=dev), k,
+            options=SearchOptions(backend=self.cfg.backend, capacity=cap,
+                                  verify_prefetch=self.cfg.verify_prefetch))
+        self.last_capacity = int(idx.shape[-1])
+        return _to_host(self, (idx, answer, d2, overflow))
 
 
 class SearchService:
     """Online range / k-NN service with dynamic micro-batching."""
 
-    def __init__(self, backend: _SingleBackend,
-                 cfg: ServeConfig = ServeConfig()):
+    def __init__(self, backend, cfg: ServeConfig = ServeConfig()):
         self.cfg = cfg
         self.backend = backend
         self.stats = StatsTracker()
@@ -196,9 +258,20 @@ class SearchService:
                     mesh=None, normalize: bool = True,
                     device=None) -> "SearchService":
         """Cold start: build the device index from raw (B, n) series on
-        ``device`` (default: CUDA; raises without one)."""
+        ``device`` (default: CUDA; raises without one).  With
+        ``cfg.quantization`` the index is built on the host, quantized
+        into the resident tier on the device and served tiered."""
         if mesh is not None:
             raise _not_ported("mesh")
+        if cfg.quantization != "none":
+            host = build_index(
+                np.asarray(series),
+                FastSAXConfig(n_segments=tuple(cfg.levels),
+                              alphabet=cfg.alphabet, stack=tuple(cfg.stack)),
+                normalize=normalize)
+            tiered = TieredIndex.from_host(host, cfg.quantization,
+                                           device=resolve_device(device))
+            return cls(_QuantizedBackend(tiered, cfg), cfg)
         index = build_device_index(np.asarray(series), tuple(cfg.levels),
                                    cfg.alphabet, normalize=normalize,
                                    stack=tuple(cfg.stack),

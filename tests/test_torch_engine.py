@@ -222,5 +222,7 @@ def test_backend_dispatch_and_options():
         warnings.simplefilter("always")
         teng.knn_query_backend(tdev, tqr, 3, backend="torch", capacity=8)
     assert any(issubclass(x.category, DeprecationWarning) for x in w)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        teng.knn_query_backend(tdev, tqr, 3, SearchOptions(quantization="int8"))
+    # The quantized tier has its own engines (quantized_*); an unknown
+    # tier is refused by name.
+    with pytest.raises(ValueError, match="quantization"):
+        teng.knn_query_backend(tdev, tqr, 3, SearchOptions(quantization="int4"))

@@ -11,11 +11,14 @@ the card.  d² within 1e-3 + 1e-5·d²: the kernel sums the verify's dot
 product in another f32 order than the library's matrix-vector product,
 and the matmul form cancels terms of size ~n = 128.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core.paa import znormalize_np
 from repro_torch.data.timeseries import make_queries, make_wafer_like
 from repro_torch.kernels import fused_query as fq
 from repro_torch.kernels import ops, ref
@@ -193,3 +196,142 @@ def test_service_on_card_is_exact_and_uses_the_kernels(cuda):
         assert fq.fused_range.launches > 0 and fq.fused_topk.launches > 0
         assert check_exactness(svc, wl, result) == 0
     assert result.served == len(wl)
+
+
+# ---------------------------------------------------------------------------
+# The quantized resident tier: fused_quant_range / fused_quant_topk.
+# ---------------------------------------------------------------------------
+
+
+def quant_case(Q, B, mode, device, seed=5, levels=(8, 16)):
+    """A tiered index over B wafer-like rows with three planted blocks of
+    level 0's residuals — block 1 all sentinel codes (int8) or 1e30
+    (bf16), block 2 of span 0 (int8 scale 1) — plus one constant series
+    row (series scale 1), and the kernel inputs of Q queries."""
+    from repro_torch.core.fastsax import FastSAXConfig, build_index
+    from repro_torch.index import quantized as quant
+
+    db = make_wafer_like(B, 128, seed=seed)
+    host = build_index(db, FastSAXConfig(n_segments=levels, alphabet=10))
+    host.series[3] = 0.25
+    host.levels[0].residuals[256:384] = 1.5
+    qhost = quant.quantize_host_index(host, mode)
+    lv0 = qhost.levels[0]
+    codes = lv0.residuals.copy()
+    codes[128:256] = (quant.SENTINEL_CODE if mode == "int8"
+                      else quant.bf16_encode(np.full(128, 1e30)))
+    qhost = dataclasses.replace(qhost, levels=(
+        dataclasses.replace(lv0, residuals=codes),) + qhost.levels[1:])
+    if mode == "int8":
+        assert lv0.scale[2] == 1.0 and qhost.series_scale[3] == 1.0
+    qdev = engine.quantized_device_index(qhost, device)
+    qr = engine.represent_queries(
+        torch.as_tensor(make_queries(db, Q, seed=seed + 1),
+                        dtype=torch.float32, device=device), levels, 10)
+    eps = torch.linspace(1.0, 3.0, Q, device=device)
+    return qdev, qr, eps, engine._query_panels(qr, 10)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("shape", [(27, 50_001), (32, 65_536)])
+def test_quant_kernels_match_plain_versions(cuda, mode, shape):
+    Q, B = shape
+    qdev, qr, eps, panels = quant_case(Q, B, mode, cuda)
+    args = (qdev, qr.q, panels, qr.residuals, eps)
+    n0 = fq.fused_quant_range.launches
+    gk, gd = fq.fused_quant_range(*args, block_q=32, block_b=1024)
+    torch.cuda.synchronize()
+    assert fq.fused_quant_range.launches == n0 + 1
+    wk, wd = ref.fused_quant_range_ref(*args)
+    lim2 = ref.screen_limit_sq(eps, qdev.series_err).cpu().numpy()
+    gk, gd, wk, wd = (t.cpu().numpy() for t in (gk, gd, wk, wd))
+    assert not wk[:, 128:256].any() and not gk[:, 128:256].any()
+    d_ref = np.where(np.isfinite(wd), wd, gd)
+    differ = gk != wk
+    assert not (differ & (np.abs(d_ref - lim2) > band(lim2))).any()
+    both = gk & wk
+    assert both.sum() > 0
+    assert np.all(np.abs(gd[both] - wd[both]) <= band(wd[both]))
+    assert np.all(np.isinf(gd[~gk]))
+
+    for k, block_b in ((9, 1024), (64, 256)):
+        gi, gdd = fq.fused_quant_topk(*args, k=k, block_q=16,
+                                      block_b=block_b)
+        torch.cuda.synchronize()
+        wi, wdd = ref.fused_quant_topk_ref(*args, k=k, block_b=block_b)
+        mg = fq.merge_topk_partials(gi, gdd, 5)
+        mw = fq.merge_topk_partials(wi, wdd, 5)
+        gd_m, wd_m = mg[1].cpu().numpy(), mw[1].cpu().numpy()
+        fin = np.isfinite(wd_m)
+        np.testing.assert_array_equal(np.isfinite(gd_m), fin)
+        assert np.all(np.abs(gd_m[fin] - wd_m[fin]) <= band(wd_m[fin]))
+        differ = mg[0].cpu().numpy() != mw[0].cpu().numpy()
+        assert np.all(np.abs(gd_m[differ] - wd_m[differ])
+                      <= band(wd_m[differ]))
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_quant_shared_memory_layout_matches_chooser(cuda, mode):
+    for topk, k_sel in ((False, 0), (True, 12)):
+        for bq in ops.FUSED_BLOCK_Q:
+            assert fq.smem_bytes_of_kernel(topk, 128, (8, 16), 10, bq, 32,
+                                           k_sel, quant=True) == \
+                ops.fused_smem_bytes(bq, 128, (8, 16), 10, 32, k_sel,
+                                     quant=True)
+
+
+def test_tiered_service_on_card_is_exact_and_uses_the_kernel(cuda):
+    db = make_wafer_like(6000, 128, seed=0)
+    svc = SearchService.from_series(db, ServeConfig(quantization="int8"))
+    full = SearchService.from_series(db, ServeConfig())
+    assert svc.backend.backend == "cuda"
+    assert svc.backend.tindex.dev.series.dtype == torch.int8
+    wl = make_workload(make_queries(db, 16, seed=1),
+                       WorkloadSpec(n_requests=48, k=5, epsilon=2.0))
+    fq.reset_launch_counts()
+    with svc:
+        result = run_closed_loop(svc, wl, clients=8)
+        assert fq.fused_quant_range.launches > 0
+        assert check_exactness(svc, wl, result) == 0
+    with full:
+        want = run_closed_loop(full, wl, clients=8)
+    assert result.served == len(wl)
+    # The two indexes z-normalise in f64 (host) and f32 (device), and the
+    # tier verifies in the diff² form, the fused path in the matmul form:
+    # answers may differ only on rows within the band of the boundary.
+    series = svc.backend.tindex.raw.astype(np.float64)
+    for (kind, q, eps, k), got, exp in zip(wl, result.requests,
+                                          want.requests):
+        qz = znormalize_np(np.asarray(q, np.float64))
+        d2 = ((series - qz) ** 2).sum(-1)
+        if kind == "range":
+            sym = np.setxor1d(got.ids, exp.ids)
+            assert np.all(np.abs(d2[sym] - eps * eps) <= band(eps * eps))
+        else:
+            off = got.ids != exp.ids
+            assert np.all(np.abs(d2[got.ids[off]] - d2[exp.ids[off]])
+                          <= band(d2[exp.ids[off]]))
+
+
+def test_verify_prefetch_is_bit_identical_on_card(cuda):
+    # The double-buffered fetch (pinned staging, non_blocking upload on
+    # the current stream) verifies the same rows as the synchronous one.
+    from repro_torch.core.fastsax import FastSAXConfig, build_index
+    from repro_torch.core.options import SearchOptions
+
+    db = make_wafer_like(3000, 128, seed=7)
+    tier = engine.TieredIndex.from_host(
+        build_index(db, FastSAXConfig(n_segments=(8, 16))), "int8")
+    qr = engine.represent_queries(
+        torch.as_tensor(make_queries(db, 8, seed=8), dtype=torch.float32,
+                        device=cuda), (8, 16), 10)
+    eps = torch.full((8,), 2.0, device=cuda)
+    is_knn = torch.arange(8, device=cuda) % 2 == 0
+    n0 = fq.fused_quant_range.launches
+    sync = engine.quantized_mixed_query(tier, qr, eps, is_knn, 5)
+    pre = engine.quantized_mixed_query(tier, qr, eps, is_knn, 5,
+                                       SearchOptions(verify_prefetch=True))
+    assert fq.fused_quant_range.launches == n0 + 2
+    assert bool(sync[1].any())
+    for a, b in zip(sync, pre):
+        assert torch.equal(a, b)

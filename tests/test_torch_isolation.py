@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the reference
-package, and its entry points do not quietly fall back to the CPU."""
+"""The port stands alone: it imports neither JAX (nor ``ml_dtypes``,
+which ships with JAX) nor the reference package, and its entry points do
+not quietly fall back to the CPU."""
 import ast
 import pathlib
 import subprocess
@@ -12,7 +13,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def imported_modules(path: pathlib.Path) -> set:
@@ -33,6 +34,9 @@ def imported_modules(path: pathlib.Path) -> set:
 
 def test_port_files_import_neither_jax_nor_reference():
     assert len(PORT_FILES) > 15
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/index/quantized.py",
+            "src/repro_torch/index/store.py"} <= names
     offenders = {str(p.relative_to(ROOT)): sorted(
                      imported_modules(p) & set(FORBIDDEN))
                  for p in PORT_FILES}
@@ -46,8 +50,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.serve, repro_torch.launch.serve\n"
             "import repro_torch.kernels.fused_query\n"
+            "import repro_torch.index.quantized, repro_torch.index.store\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]\n"
+            "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
             "assert not bad, bad\n")
     env_path = str(ROOT / "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -77,3 +82,25 @@ def test_entry_points_without_a_device_raise_when_cuda_is_absent(monkeypatch):
     # Asking for the CPU works, and then the torch engine serves.
     svc = SearchService.from_series(db, ServeConfig(), device="cpu")
     assert svc.backend.backend == "torch"
+
+
+def test_tiered_entry_points_without_a_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    from repro_torch.core import engine
+    from repro_torch.core.fastsax import FastSAXConfig, build_index
+    from repro_torch.index.quantized import quantize_host_index
+    from repro_torch.serve import SearchService, ServeConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    db = np.random.default_rng(0).standard_normal((200, 64))
+    host = build_index(db, FastSAXConfig(n_segments=(4, 8)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.quantized_device_index(quantize_host_index(host, "int8"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.TieredIndex.from_host(host, "bf16")
+    cfg = ServeConfig(levels=(4, 8), quantization="int8")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SearchService.from_series(db, cfg)
+    svc = SearchService.from_series(db, cfg, device="cpu")
+    assert svc.backend.backend == "torch"
+    assert svc.backend.tindex.dev.device.type == "cpu"

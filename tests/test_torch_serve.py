@@ -99,8 +99,7 @@ def test_deadline_expired_rejected_not_served(db):
 
 
 def test_later_slices_raise_not_implemented(db):
-    for kw, match in ((dict(quantization="int8"), "quantized"),
-                      (dict(failover_shards=2), "multi-device"),
+    for kw, match in ((dict(failover_shards=2), "multi-device"),
                       (dict(trace=True), "observability")):
         with pytest.raises(NotImplementedError, match=match):
             ServeConfig(**kw)
@@ -111,6 +110,8 @@ def test_later_slices_raise_not_implemented(db):
         SearchService.from_store("/nonexistent")
     with pytest.raises(NotImplementedError, match="index-lifecycle"):
         teng.DeviceIndex.from_store("/nonexistent")
+    with pytest.raises(NotImplementedError, match="index-lifecycle"):
+        teng.TieredIndex.from_store("/nonexistent")
 
 
 def test_batch_and_replay_take_the_same_float_path(db):
