@@ -42,6 +42,29 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    requests (rows within the f32 band of the boundary are counted, none
    may be wrong), 16 agree with the f64 brute force; then where one
    quantized micro-batch's time goes.
+9. Subsequence search at subseq-1M: 16 wafer-like streams of 262,144
+   samples, windows of 128 at stride 4 (W = 1,048,080), levels (8, 16),
+   32 queries.  The streaming kernels (``fused_subseq_range``,
+   ``fused_subseq_topk``, ``fused_quant_subseq_range`` in int8 and bf16)
+   against their plain versions there and at a ragged Q = 27 over 3
+   streams of 5,000 at stride 3, on inputs made as the path makes them
+   (half the rows at the k-NN fetch's seed radius, half at ε = 2), with
+   the band rule of phase 4; kernel 3 bit-identical to ``fused_range``
+   over the materialised windows, kernel 4's merged top-k equal to
+   ``fused_topk``'s, kernel 7 set-identical to kernel 3.  Times, plain
+   times, the ``torch.matmul`` yardstick and the bounds, which count the
+   stream samples, not the window matrix.
+10. The subsequence slice: with the counts set to 0, ``subseq_range_query``
+   at ε = 2, ``subseq_knn_query`` at k = 3, excl = 64 (backend auto) and
+   ``subseq_range_query_quantized`` in int8; each streaming kernel must
+   have launched and kernels 1-2 not.  The answers against the torch
+   backend and against an f64 brute force with the exclusion-zone greedy
+   on 16 queries (band rule), every k-NN certificate True; where one
+   k-NN call's time goes.
+11. The subsequence service (``SubseqSearchService.from_streams`` over the
+   same streams), 64 requests from 16 clients (k-NN fraction 0.5, k = 3,
+   ε = 2): 0 replay mismatches and phase 10's answers.  As in the
+   reference, it serves windows as rows through kernels 1-2.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -67,7 +90,15 @@ SOURCE = "src/repro_torch/kernels/csrc/fused_query.cu"
 REPLACES = {"fused_range": "src/repro/kernels/fused_query.py:245",
             "fused_topk": "src/repro/kernels/fused_query.py:291",
             "fused_quant_range": "src/repro/kernels/fused_query.py:871",
-            "fused_quant_topk": "src/repro/kernels/fused_query.py:928"}
+            "fused_quant_topk": "src/repro/kernels/fused_query.py:928",
+            "fused_subseq_range": "src/repro/kernels/fused_query.py:509",
+            "fused_subseq_topk": "src/repro/kernels/fused_query.py:563",
+            "fused_quant_subseq_range":
+                "src/repro/kernels/fused_query.py:1035"}
+# subseq-1M: the launcher's subsequence defaults (window 128, stride 4,
+# excl 64, k 3) over as many windows as serve-1M has rows.
+SUBSEQ = dict(streams=16, stream_len=262_144, window=128, stride=4, excl=64,
+              k=3, eps=2.0, queries=32)
 
 
 def check(cond, msg: str) -> None:
@@ -165,21 +196,17 @@ def alive_by_level(torch, ref, args) -> list:
     return counts
 
 
-def quant_alive_by_level(torch, ref, qdev, panels, q_res, eps) -> list:
-    """:func:`alive_by_level` for the quantized tier's widened cascade."""
-    import types
-    alive = torch.ones((eps.shape[0], qdev.size), dtype=torch.bool,
-                       device=eps.device)
+def quant_alive_by_level(torch, ref, cols, levels, n, panels, q_res,
+                         eps) -> list:
+    """:func:`alive_by_level` for the widened cascade over quantized
+    columns ``cols`` = (words, residuals, scale, zero, err)."""
+    alive = torch.ones((eps.shape[0], cols[0][0].shape[0]),
+                       dtype=torch.bool, device=eps.device)
     counts = [int(alive.sum())]
-    for li, N in enumerate(qdev.levels):
-        one = types.SimpleNamespace(
-            series=qdev.series, n=qdev.n, levels=(N,),
-            words=qdev.words[li:li + 1], residuals=qdev.residuals[li:li + 1],
-            resid_scale=qdev.resid_scale[li:li + 1],
-            resid_zero=qdev.resid_zero[li:li + 1],
-            resid_err=qdev.resid_err[li:li + 1])
-        alive &= ref.quant_cascade_alive_ref(one, panels[li:li + 1],
-                                             q_res[li:li + 1], eps)
+    for li, N in enumerate(levels):
+        one = [c[li:li + 1] for c in cols]
+        alive &= ref.quant_meta_alive_ref(*one, panels[li:li + 1],
+                                          q_res[li:li + 1], eps, (N,), n)
         counts.append(int(alive.sum()))
     return counts
 
@@ -204,6 +231,46 @@ def bound_ms(tensors, levels, counts, n: int, topk: bool,
                                  "operations"), nbytes, ops
 
 
+def range_agreement(got, want, lim2) -> dict:
+    """A range pass (answers, d²) against another on the same inputs:
+    answers that differ outside the band around the limit ``lim2`` on d²
+    ((Q, 1) or (Q, B), e.g. ε²), d² outside the band."""
+    ga, gd, wa, wd = (t.cpu().numpy() for t in (*got, *want))
+    d_ref = np.where(np.isfinite(wd), wd, gd)
+    in_band = np.abs(d_ref - lim2) <= band(lim2)
+    differ = ga != wa
+    both = ga & wa
+    err = float(np.abs(gd[both] - wd[both]).max()) if both.any() else 0.0
+    return {"answers": int(wa.sum()), "kernel_answers": int(ga.sum()),
+            "max_abs_err": err,
+            "mismatch_outside_band": int((differ & ~in_band).sum()),
+            "mismatch_in_band": int((differ & in_band).sum()),
+            "d2_outside_band": int((np.abs(gd[both] - wd[both])
+                                    > band(wd[both])).sum()),
+            "inf_off_answers": bool(np.all(np.isinf(gd[~ga])))}
+
+
+def merged_agreement(fq, got, want, k: int) -> dict:
+    """Merged top-k of two partial sets: equal up to near-tie swaps."""
+    mgi, mgd = (t.cpu().numpy() for t in fq.merge_topk_partials(*got, k))
+    mwi, mwd = (t.cpu().numpy() for t in fq.merge_topk_partials(*want, k))
+    swaps = mgi != mwi
+    with np.errstate(invalid="ignore"):          # inf − inf on empty slots
+        near = np.abs(mgd - mwd) <= band(mwd)
+    fin = np.isfinite(mwd)
+    gi, gd, wi, wd = (t.cpu().numpy() for t in (*got, *want))
+    same = (gi == wi) & np.isfinite(wd)
+    return {"partial_slots_equal": float((gi == wi).mean()),
+            "merged_equal": bool(np.array_equal(mgi, mwi)),
+            "merged_swaps_near_tie": int((swaps & near).sum()),
+            "merged_mismatch": int((swaps & ~near).sum()),
+            "merged_d2_within_band": bool(
+                np.array_equal(np.isfinite(mgd), fin)
+                and np.all(np.abs(mgd[fin] - mwd[fin]) <= band(mwd[fin]))),
+            "max_abs_err": float(np.abs(gd[same] - wd[same]).max())
+            if same.any() else 0.0}
+
+
 def compare_kernels(torch, engine, fq, ref, index, queries, label,
                     timing: bool) -> dict:
     qr, args, rtile, ttile = path_inputs(torch, engine, index, queries)
@@ -212,60 +279,26 @@ def compare_kernels(torch, engine, fq, ref, index, queries, label,
     eps2 = (args["eps"] * args["eps"]).cpu().numpy()[:, None]
     out = {"Q": Q, "B": B, "range_tile": rtile, "topk_tile": ttile}
 
-    ga, gd = fq.fused_range(**args, **rtile)
-    torch.cuda.synchronize()
-    wa, wd = ref.fused_range_ref(**ref_args)
-    ga, gd, wa, wd = (t.cpu().numpy() for t in (ga, gd, wa, wd))
-    d_ref = np.where(np.isfinite(wd), wd, gd)
-    in_band = np.abs(d_ref - eps2) <= band(eps2)
-    differ = ga != wa
-    both = ga & wa
-    err = float(np.abs(gd[both] - wd[both]).max()) if both.any() else 0.0
-    out["range"] = {
-        "answers": int(wa.sum()), "max_abs_err": err,
-        "mismatch_outside_band": int((differ & ~in_band).sum()),
-        "mismatch_in_band": int((differ & in_band).sum()),
-        "d2_outside_band": int((np.abs(gd[both] - wd[both])
-                                > band(wd[both])).sum()),
-        "inf_off_answers": bool(np.all(np.isinf(gd[~ga])))}
-    check(out["range"]["mismatch_outside_band"] == 0
-          and out["range"]["d2_outside_band"] == 0
-          and out["range"]["inf_off_answers"],
-          f"fused_range disagrees with its plain version at {label}: "
-          f"{out['range']}")
+    out["range"] = range_agreement(fq.fused_range(**args, **rtile),
+                                   ref.fused_range_ref(**ref_args), eps2)
+    r = out["range"]
+    check(r["mismatch_outside_band"] == 0 and r["d2_outside_band"] == 0
+          and r["inf_off_answers"],
+          f"fused_range disagrees with its plain version at {label}: {r}")
 
     k = ttile["k"]
-    gi, gdd = fq.fused_topk(**args, **ttile)
-    torch.cuda.synchronize()
-    wi, wdd = ref.fused_topk_ref(**ref_args, k=k, block_b=ttile["block_b"])
-    mgi, mgd = (t.cpu().numpy() for t in fq.merge_topk_partials(gi, gdd, 8))
-    mwi, mwd = (t.cpu().numpy() for t in fq.merge_topk_partials(wi, wdd, 8))
-    gi, gdd, wi, wdd = (t.cpu().numpy() for t in (gi, gdd, wi, wdd))
-    same = gi == wi
-    fin = same & np.isfinite(wdd)
-    err_k = float(np.abs(gdd[fin] - wdd[fin]).max()) if fin.any() else 0.0
-    swaps = mgi != mwi
-    with np.errstate(invalid="ignore"):          # inf − inf on empty slots
-        near = np.abs(mgd - mwd) <= band(mwd)
-    fin_m = np.isfinite(mwd)
-    d2_ok = bool(np.array_equal(np.isfinite(mgd), fin_m)
-                 and np.all(np.abs(mgd[fin_m] - mwd[fin_m])
-                            <= band(mwd[fin_m])))
-    out["topk"] = {
-        "k_sel": k, "partial_slots_equal": float(same.mean()),
-        "max_abs_err": err_k, "merged_equal": bool(np.array_equal(mgi, mwi)),
-        "merged_swaps_near_tie": int((swaps & near).sum()),
-        "merged_mismatch": int((swaps & ~near).sum()),
-        "merged_d2_within_band": d2_ok}
-    check(out["topk"]["merged_mismatch"] == 0 and d2_ok,
-          f"fused_topk disagrees with its plain version at {label}: "
-          f"{out['topk']}")
-    log(f"[kernels] {label}: Q={Q} B={B} range answers="
-        f"{out['range']['answers']} max|Δd²|={err:.3g} outside-band="
-        f"{out['range']['mismatch_outside_band']} in-band="
-        f"{out['range']['mismatch_in_band']}; top-k merged equal="
-        f"{out['topk']['merged_equal']} near-tie swaps="
-        f"{out['topk']['merged_swaps_near_tie']} max|Δd²|={err_k:.3g}")
+    out["topk"] = dict(merged_agreement(
+        fq, fq.fused_topk(**args, **ttile),
+        ref.fused_topk_ref(**ref_args, k=k, block_b=ttile["block_b"]), 8),
+        k_sel=k)
+    t = out["topk"]
+    check(t["merged_mismatch"] == 0 and t["merged_d2_within_band"],
+          f"fused_topk disagrees with its plain version at {label}: {t}")
+    log(f"[kernels] {label}: Q={Q} B={B} range answers={r['answers']} "
+        f"max|Δd²|={r['max_abs_err']:.3g} outside-band="
+        f"{r['mismatch_outside_band']} in-band={r['mismatch_in_band']}; "
+        f"top-k merged equal={t['merged_equal']} near-tie swaps="
+        f"{t['merged_swaps_near_tie']} max|Δd²|={t['max_abs_err']:.3g}")
 
     if timing:
         lib_ms = cuda_ms(torch, lambda: torch.matmul(args["q"],
@@ -304,10 +337,12 @@ def ptxas_summary(log_text: str) -> list:
     modes = {"0": "f32", "1": "int8", "2": "bf16"}
     out, name, spill = [], None, ""
     for line in log_text.splitlines():
-        m = re.search(r"fused_query_kernelILi(\d+)ELb(\d)ELi(\d)E", line)
+        m = re.search(r"fused_query_kernelILi(\d+)ELb(\d)ELi(\d)ELb(\d)E",
+                      line)
         if m and "Compiling entry function" in line:
             name = (f"QPT={m.group(1)} {'top-k' if m.group(2) == '1' else 'range'}"
-                    f" {modes[m.group(3)]}")
+                    f" {modes[m.group(3)]}"
+                    f"{' streaming' if m.group(4) == '1' else ''}")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
@@ -519,63 +554,29 @@ def compare_quant_kernels(torch, engine, fq, ref, tindex, queries, label,
     out = {"Q": Q, "B": B, "mode": qdev.mode, "range_tile": rtile,
            "topk_tile": ttile}
 
-    gk, gd = fq.fused_quant_range(*args, **rtile)
-    torch.cuda.synchronize()
-    wk, wd = ref.fused_quant_range_ref(*args)
-    gk, gd, wk, wd = (t.cpu().numpy() for t in (gk, gd, wk, wd))
-    d_ref = np.where(np.isfinite(wd), wd, gd)
-    in_band = np.abs(d_ref - lim2) <= band(lim2)
-    differ = gk != wk
-    both = gk & wk
-    err = float(np.abs(gd[both] - wd[both]).max()) if both.any() else 0.0
-    out["range"] = {
-        "kept": int(wk.sum()), "kernel_kept": int(gk.sum()),
-        "max_abs_err": err,
-        "mismatch_outside_band": int((differ & ~in_band).sum()),
-        "mismatch_in_band": int((differ & in_band).sum()),
-        "d2_outside_band": int((np.abs(gd[both] - wd[both])
-                                > band(wd[both])).sum()),
-        "inf_off_kept": bool(np.all(np.isinf(gd[~gk])))}
-    del gk, gd, wk, wd, d_ref, in_band, differ, both
-    check(out["range"]["mismatch_outside_band"] == 0
-          and out["range"]["d2_outside_band"] == 0
-          and out["range"]["inf_off_kept"] and out["range"]["kept"] > 0,
+    out["range"] = range_agreement(fq.fused_quant_range(*args, **rtile),
+                                   ref.fused_quant_range_ref(*args), lim2)
+    r = out["range"]
+    check(r["mismatch_outside_band"] == 0 and r["d2_outside_band"] == 0
+          and r["inf_off_answers"] and r["answers"] > 0,
           f"fused_quant_range disagrees with its plain version at {label}: "
-          f"{out['range']}")
+          f"{r}")
 
     k = ttile["k"]
-    gi, gdd = fq.fused_quant_topk(*args, **ttile)
-    torch.cuda.synchronize()
-    wi, wdd = ref.fused_quant_topk_ref(*args, k=k, block_b=ttile["block_b"])
-    mgi, mgd = (t.cpu().numpy() for t in fq.merge_topk_partials(gi, gdd, k))
-    mwi, mwd = (t.cpu().numpy() for t in fq.merge_topk_partials(wi, wdd, k))
-    gi, gdd, wi, wdd = (t.cpu().numpy() for t in (gi, gdd, wi, wdd))
-    same = gi == wi
-    fin = same & np.isfinite(wdd)
-    err_k = float(np.abs(gdd[fin] - wdd[fin]).max()) if fin.any() else 0.0
-    swaps = mgi != mwi
-    with np.errstate(invalid="ignore"):          # inf − inf on empty slots
-        near = np.abs(mgd - mwd) <= band(mwd)
-    fin_m = np.isfinite(mwd)
-    d2_ok = bool(np.array_equal(np.isfinite(mgd), fin_m)
-                 and np.all(np.abs(mgd[fin_m] - mwd[fin_m])
-                            <= band(mwd[fin_m])))
-    out["topk"] = {
-        "k_sel": k, "partial_slots_equal": float(same.mean()),
-        "max_abs_err": err_k, "merged_equal": bool(np.array_equal(mgi, mwi)),
-        "merged_swaps_near_tie": int((swaps & near).sum()),
-        "merged_mismatch": int((swaps & ~near).sum()),
-        "merged_d2_within_band": d2_ok}
-    check(out["topk"]["merged_mismatch"] == 0 and d2_ok,
+    out["topk"] = dict(merged_agreement(
+        fq, fq.fused_quant_topk(*args, **ttile),
+        ref.fused_quant_topk_ref(*args, k=k, block_b=ttile["block_b"]), k),
+        k_sel=k)
+    t = out["topk"]
+    check(t["merged_mismatch"] == 0 and t["merged_d2_within_band"],
           f"fused_quant_topk disagrees with its plain version at {label}: "
-          f"{out['topk']}")
+          f"{t}")
     log(f"[quant-kernels] {label} {qdev.mode}: Q={Q} B={B} kept="
-        f"{out['range']['kept']} (kernel {out['range']['kernel_kept']}) "
-        f"max|Δd̂²|={err:.3g} outside-band="
-        f"{out['range']['mismatch_outside_band']} in-band="
-        f"{out['range']['mismatch_in_band']}; top-k merged equal="
-        f"{out['topk']['merged_equal']} near-tie swaps="
-        f"{out['topk']['merged_swaps_near_tie']} max|Δd̂²|={err_k:.3g}")
+        f"{r['answers']} (kernel {r['kernel_answers']}) max|Δd̂²|="
+        f"{r['max_abs_err']:.3g} outside-band={r['mismatch_outside_band']} "
+        f"in-band={r['mismatch_in_band']}; top-k merged equal="
+        f"{t['merged_equal']} near-tie swaps={t['merged_swaps_near_tie']} "
+        f"max|Δd̂²|={t['max_abs_err']:.3g}")
 
     if timing:
         u = ref.dequant_series(qdev.series, qdev.series_scale,
@@ -583,8 +584,10 @@ def compare_quant_kernels(torch, engine, fq, ref, tindex, queries, label,
         q = args[1]
         lib_ms = cuda_ms(torch, lambda: torch.matmul(q, u.T), 20)
         del u
-        counts = quant_alive_by_level(torch, ref, qdev, args[2], args[3],
-                                      eps)
+        counts = quant_alive_by_level(
+            torch, ref, (qdev.words, qdev.residuals, qdev.resid_scale,
+                         qdev.resid_zero, qdev.resid_err), qdev.levels,
+            qdev.n, args[2], args[3], eps)
         # Dequantizing the tile: a multiply and an add per int8 code.
         deq_ops = 2.0 * B * qdev.n if qdev.mode == "int8" else 0.0
         for name, fn, plain, topk in (
@@ -613,13 +616,16 @@ def compare_quant_kernels(torch, engine, fq, ref, tindex, queries, label,
     return out
 
 
-def serve_phase(torch, fq, service, workload, label: str) -> tuple:
-    """The slice's main path: counts at 0, the closed loop, the counts."""
+def serve_phase(torch, fq, service, workload, label: str,
+                front=None) -> tuple:
+    """The slice's main path: counts at 0, the closed loop (through
+    ``front``, the service's load-generator adapter, when given), the
+    counts."""
     from repro_torch.serve import run_closed_loop
     fq.reset_launch_counts()
     t0 = time.perf_counter()
     with service:
-        result = run_closed_loop(service, workload, clients=16)
+        result = run_closed_loop(front or service, workload, clients=16)
         torch.cuda.synchronize()
         launches = {k.__name__: k.launches for k in fq.KERNELS}
     log(f"[{label}] closed loop in {time.perf_counter() - t0:.1f}s; "
@@ -773,6 +779,528 @@ def quant_breakdown(torch, engine, service, queries) -> dict:
                 "host_gather_bytes": int(gbytes)})
     log("[quant-breakdown] " + json.dumps(out, sort_keys=True))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Subsequence search (phases 9-11).
+# ---------------------------------------------------------------------------
+
+
+def subseq_inputs(torch, engine, sidx, qr, kf: int) -> dict:
+    """The streaming kernels' inputs as the slice makes them: alternate
+    rows at the k-NN fetch's slacked seed radius and at ε = 2."""
+    Q = qr.q.shape[0]
+    knn = (torch.arange(Q, device=sidx.device) % 2 == 0).reshape(Q, 1)
+    seed = engine._slacked(engine._seed_eps(sidx.index, qr, kf, None))
+    eps = torch.where(knn, seed, torch.full_like(seed, SUBSEQ["eps"]))
+    return dict(streams=sidx.streams, mu=sidx.mu, sd=sidx.sd,
+                norms_sq=sidx.index.norms_sq, words=sidx.index.words,
+                residuals=sidx.index.residuals, q=qr.q,
+                q_panels=engine._query_panels(qr, sidx.alphabet),
+                q_residuals=qr.residuals, eps=eps.reshape(-1).contiguous(),
+                levels=sidx.levels, alphabet=sidx.alphabet,
+                window=sidx.window, stride=sidx.stride)
+
+
+def rows_of(sidx, args) -> dict:
+    """The whole-series kernels' inputs over the materialised windows."""
+    return dict(series=sidx.index.series, norms_sq=args["norms_sq"],
+                words=args["words"], residuals=args["residuals"],
+                q=args["q"], q_panels=args["q_panels"],
+                q_residuals=args["q_residuals"], eps=args["eps"],
+                levels=args["levels"], alphabet=args["alphabet"],
+                n=args["window"])
+
+
+def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
+                           kf: int, label: str, timing: bool) -> dict:
+    """Kernels 3, 4 and 7 against their plain versions and against the
+    whole-series kernels over the materialised windows; with ``timing``,
+    their times, bounds and the ``torch.matmul`` yardstick."""
+    args = subseq_inputs(torch, engine, sidx, qr, kf)
+    plain = {k: v for k, v in args.items() if k != "alphabet"}
+    Q, W = qr.q.shape[0], sidx.n_windows
+    k_sel = kf + engine._TOPK_GUARD
+    rq, rb = ss._subseq_blocks(sidx, Q, 0)
+    tq, tb = ss._subseq_blocks(sidx, Q, k_sel)
+    qq, qb = ss._subseq_blocks(sidx, Q, 0, quant=True)
+    rtile, ttile = dict(block_q=rq, block_b=rb), dict(block_q=tq, block_b=tb)
+    qtile = dict(block_q=qq, block_b=qb)
+    out = {"Q": Q, "W": W, "range_tile": rtile, "topk_tile": ttile,
+           "quant_tile": qtile, "k_sel": k_sel}
+    eps = args["eps"]
+    eps2 = (eps * eps).cpu().numpy()[:, None]
+
+    got = fq.fused_subseq_range(**args, **rtile)
+    torch.cuda.synchronize()
+    rows = fq.fused_range(**rows_of(sidx, args), **rtile)
+    bit = bool(torch.equal(got[0], rows[0]) and torch.equal(got[1], rows[1]))
+    del rows
+    out["range"] = dict(range_agreement(got,
+                                        ref.fused_subseq_range_ref(**plain),
+                                        eps2), bit_identical_to_rows=bit)
+    r = out["range"]
+    check(bit and r["mismatch_outside_band"] == 0
+          and r["d2_outside_band"] == 0 and r["inf_off_answers"],
+          f"fused_subseq_range disagrees at {label}: {r}")
+
+    gi = fq.fused_subseq_topk(**args, k=k_sel, **ttile)
+    torch.cuda.synchronize()
+    ri = fq.fused_topk(**rows_of(sidx, args), k=k_sel, **ttile)
+    wi = ref.fused_subseq_topk_ref(**plain, k=k_sel, block_b=tb)
+    out["topk"] = dict(
+        merged_agreement(fq, gi, wi, kf),
+        partials_equal_to_rows=bool(torch.equal(gi[0], ri[0])
+                                    and torch.equal(gi[1], ri[1])),
+        vs_rows=merged_agreement(fq, gi, ri, kf))
+    t = out["topk"]
+    check(t["merged_mismatch"] == 0 and t["merged_d2_within_band"]
+          and t["vs_rows"]["merged_equal"],
+          f"fused_subseq_topk disagrees at {label}: {t}")
+    del gi, ri, wi
+
+    for mode, qmeta in qmetas.items():
+        qargs = {k: v for k, v in args.items()
+                 if k not in ("words", "residuals")}
+        qa = fq.fused_quant_subseq_range(**qargs, qmeta=qmeta, **qtile)
+        torch.cuda.synchronize()
+        full = fq.fused_subseq_range(**args, **qtile)
+        qplain = ref.fused_quant_subseq_range_ref(
+            **{k: v for k, v in qargs.items() if k != "alphabet"},
+            qmeta=qmeta)
+        out[f"quant_{mode}"] = dict(
+            range_agreement(qa, qplain, eps2),
+            set_identical_to_full=bool(torch.equal(qa[0], full[0])),
+            d2_identical_to_full=bool(torch.equal(qa[1], full[1])))
+        m = out[f"quant_{mode}"]
+        check(m["set_identical_to_full"] and m["mismatch_outside_band"] == 0
+              and m["d2_outside_band"] == 0,
+              f"fused_quant_subseq_range ({mode}) disagrees at {label}: {m}")
+        del qa, full, qplain
+    log(f"[subseq-kernels] {label}: Q={Q} W={W} range answers="
+        f"{r['answers']} max|Δd²|={r['max_abs_err']:.3g} outside-band="
+        f"{r['mismatch_outside_band']} in-band={r['mismatch_in_band']}, "
+        f"bit-identical to fused_range {bit}; top-k (k_sel {k_sel}) merged "
+        f"equal={t['merged_equal']} near-tie swaps="
+        f"{t['merged_swaps_near_tie']}, partials equal to fused_topk "
+        f"{t['partials_equal_to_rows']}; quantized set-identical "
+        + str({m: out[f'quant_{m}']['set_identical_to_full']
+               for m in qmetas}))
+
+    if timing:
+        z = sidx.index.series
+        lib_ms = cuda_ms(torch, lambda: torch.matmul(args["q"], z.T), 20)
+        counts = alive_by_level(torch, ref, rows_of(sidx, args))
+        # Building the z tile: a subtract and a divide per window sample.
+        z_ops = 2.0 * W * sidx.window
+        common = [args["streams"], args["mu"], args["sd"], args["norms_sq"],
+                  args["q"], eps, *args["q_panels"], *args["q_residuals"]]
+        qargs = {k: v for k, v in args.items()
+                 if k not in ("words", "residuals")}
+        qplain = {k: v for k, v in qargs.items() if k != "alphabet"}
+
+        def quant_case(mode):
+            """Kernel 7 in ``mode``: its launcher, plain version, columns
+            and cascade counts (the int8 one is the path's)."""
+            qm = qmetas[mode]
+            cols = (qm.words, qm.residuals, qm.scale, qm.zero, qm.err)
+            cnt = quant_alive_by_level(torch, ref, cols, sidx.levels,
+                                       sidx.window, args["q_panels"],
+                                       args["q_residuals"], eps)
+            return (lambda: fq.fused_quant_subseq_range(**qargs, qmeta=qm,
+                                                        **qtile),
+                    lambda: ref.fused_quant_subseq_range_ref(**qplain,
+                                                             qmeta=qm),
+                    [c for col in cols for c in col], cnt, False)
+
+        for name, fn, plain_fn, cols, cnt, topk in (
+                ("fused_subseq_range",
+                 lambda: fq.fused_subseq_range(**args, **rtile),
+                 lambda: ref.fused_subseq_range_ref(**plain),
+                 [*args["words"], *args["residuals"]], counts, False),
+                ("fused_subseq_topk",
+                 lambda: fq.fused_subseq_topk(**args, k=k_sel, **ttile),
+                 lambda: ref.fused_subseq_topk_ref(**plain, k=k_sel,
+                                                   block_b=tb),
+                 [*args["words"], *args["residuals"]], counts, True),
+                ("fused_quant_subseq_range", *quant_case("int8")),
+                ("fused_quant_subseq_range_bf16", *quant_case("bf16"))):
+            outputs = fn()
+            b_ms, b_by, nbytes, ops = bound_ms(
+                common + cols + list(outputs), sidx.levels, cnt,
+                sidx.window, topk, extra_ops=z_ops)
+            del outputs
+            out[name] = {"ms": cuda_ms(torch, fn, 20),
+                         "plain_ms": cuda_ms(torch, plain_fn, 3),
+                         "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "bytes": nbytes, "ops": ops,
+                         "alive_by_level": cnt}
+            log(f"[subseq-kernels] {name} at {label}: "
+                f"{out[name]['ms']:.4f} ms (plain "
+                f"{out[name]['plain_ms']:.3f} ms, torch.matmul q·zᵀ "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+                f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+        out["fused_range_over_rows_ms"] = cuda_ms(
+            torch, lambda: fq.fused_range(**rows_of(sidx, args), **rtile), 20)
+        out["fused_topk_over_rows_ms"] = cuda_ms(
+            torch, lambda: fq.fused_topk(**rows_of(sidx, args), k=k_sel,
+                                         **ttile), 20)
+        log(f"[subseq-kernels] the whole-series kernels over the "
+            f"materialised windows at {label}: fused_range "
+            f"{out['fused_range_over_rows_ms']:.4f} ms, fused_topk "
+            f"{out['fused_topk_over_rows_ms']:.4f} ms")
+    return out
+
+
+def brute_force_windows(torch, sidx, queries, pick) -> list:
+    """f64 squared distances of the ``pick`` queries to every window, each
+    window z-normalised on its own (mean, population std floored at
+    1e-8), on the card: a list of (W,) host arrays."""
+    streams = sidx.streams.double()
+    S, n = streams.shape
+    W_s, w = sidx.windows_per_stream, sidx.window
+    wid = torch.arange(sidx.n_windows, device=streams.device)
+    start = (wid // W_s) * n + (wid % W_s) * sidx.stride
+    win = streams.reshape(-1)[start[:, None]
+                              + torch.arange(w, device=streams.device)]
+    mu = win.mean(-1, keepdim=True)
+    sd = torch.clamp(win.std(-1, correction=0, keepdim=True), min=1e-8)
+    z = (win - mu) / sd
+    del win
+    out = []
+    for i in pick:
+        q = torch.as_tensor(np.asarray(queries[i], np.float64),
+                            device=streams.device)
+        q = (q - q.mean()) / torch.clamp(q.std(correction=0), min=1e-8)
+        out.append(((z - q) ** 2).sum(-1).cpu().numpy())
+    return out
+
+
+def subseq_vs_brute_force(ss, sidx, bf, pick, ranges, knn, k: int,
+                          excl: int) -> dict:
+    """The engine's range (ε = 2) and k-NN answers against the f64 brute
+    force and its exclusion-zone greedy: a row that differs counts as a
+    boundary row when its f64 d² lies within the band of ε² (range) or
+    of the other's distance (k-NN), else as wrong."""
+    eps2 = SUBSEQ["eps"] ** 2
+    stream_of, start_of = sidx.window_meta(np.arange(sidx.n_windows))
+    stats = {"checked": 0, "equal": 0, "boundary_rows": 0, "wrong": 0}
+    for j, i in enumerate(pick):
+        d2 = bf[j]
+        sym = np.setxor1d(np.flatnonzero(d2 <= eps2), ranges[i])
+        bad = int((np.abs(d2[sym] - eps2) > band(eps2)).sum())
+        order = np.argsort(d2, kind="stable")[:4096]
+        want, _ = ss.suppress_trivial_matches(
+            order[None, :], d2[order][None, :], stream_of, start_of, k, excl)
+        got = knn[i]
+        off = np.flatnonzero(want[0] != got)
+        bad += int((np.abs(d2[want[0][off]] - d2[got[off]])
+                    > band(d2[want[0][off]])).sum()) if off.size else 0
+        stats["checked"] += 1
+        stats["equal"] += int(sym.size == 0 and off.size == 0)
+        stats["boundary_rows"] += int(sym.size + off.size) - bad
+        stats["wrong"] += bad
+    return stats
+
+
+def subseq_knn_breakdown(torch, engine, fq, ss, sidx, qr, k: int,
+                         excl: int) -> dict:
+    """Where one engine-level k-NN call (``subseq_knn_query``, Q = 32)
+    spends its time: the steps of ``_subseq_knn_fused`` with CUDA
+    events, then the device-to-host copy and the host greedy."""
+    index = sidx.index
+    Q = qr.q.shape[0]
+    kf = ss.knn_fetch_count(k, excl, sidx.stride, sidx.n_windows)
+    k_sel = kf + engine._TOPK_GUARD
+    bq, bw = ss._subseq_blocks(sidx, Q, k_sel)
+    panels = engine._query_panels(qr, sidx.alphabet)
+    names = ["seed_ms", "topk_pass_1_ms", "reverify_1_ms", "topk_pass_2_ms",
+             "reverify_2_ms", "merge_and_certificate_ms"]
+
+    def run(ev):
+        def topk(eps):
+            return fq.fused_subseq_topk(
+                **ss._stream_inputs(sidx), words=index.words,
+                residuals=index.residuals, q=qr.q, q_panels=panels,
+                q_residuals=qr.residuals,
+                eps=engine._cascade_eps(eps).reshape(-1).contiguous(),
+                k=k_sel, block_q=bq, block_b=bw)[0]
+        ev[0].record()
+        eps = engine._seed_eps(index, qr, kf, None)
+        ev[1].record()
+        idxp = topk(eps)
+        ev[2].record()
+        d2v = engine._reverify_rows(index, qr, idxp)
+        eps = torch.minimum(eps, torch.sqrt(engine._kth_smallest(d2v, kf)))
+        ev[3].record()
+        idxp = topk(eps)
+        ev[4].record()
+        d2v = engine._reverify_rows(index, qr, idxp)
+        ev[5].record()
+        nn = fq.merge_topk_partials(idxp, d2v, kf)
+        exact = engine._topk_exact_certificate(d2v, nn[1], kf, k_sel, bw)
+        ev[6].record()
+        return nn, exact, idxp
+
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    run(evs)
+    torch.cuda.synchronize()
+    reps, acc = 5, np.zeros(6)
+    for _ in range(reps):
+        nn, exact, idxp = run(evs)
+        torch.cuda.synchronize()
+        acc += [evs[j].elapsed_time(evs[j + 1]) for j in range(6)]
+    out = dict(zip(names, (acc / reps).tolist()))
+    t0 = time.perf_counter()
+    idx, d2, ex = (t.cpu().numpy() for t in (*nn, exact))
+    out["d2h_copy_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ss._suppress_candidates(sidx, idx, d2, k, excl)
+    out["host_greedy_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ss.subseq_knn_query(sidx, qr, k, excl=excl)
+    torch.cuda.synchronize()
+    out["call_total_ms"] = (time.perf_counter() - t0) * 1e3
+    out.update({"fetch_count": kf, "k_sel": k_sel, "block_w": bw,
+                "reverify_gather_bytes": int(idxp.numel() * sidx.window * 4),
+                "partials_per_query": int(idxp.shape[1]),
+                "exact": bool(ex.all())})
+    log("[subseq-breakdown] " + json.dumps(out, sort_keys=True))
+    return out
+
+
+def subseq_phases(torch, engine, fq, ref, report) -> tuple:
+    """Phases 9-11; returns the launch counts of phase 10's engine calls
+    and phase 9's kernel figures."""
+    from repro_torch.core import subseq as ss
+    from repro_torch.core.fastsax import FastSAXConfig
+    from repro_torch.core.options import SearchOptions
+    from repro_torch.data.timeseries import (make_subseq_queries,
+                                             make_wafer_like)
+    from repro_torch.launch.serve import _SubseqLoadShim
+    from repro_torch.serve import (ServeConfig, SubseqSearchService,
+                                   WorkloadSpec, make_workload)
+
+    cfg = SUBSEQ
+    t0 = time.perf_counter()
+    streams = make_wafer_like(cfg["streams"], cfg["stream_len"], seed=0,
+                              normalize=False)
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hidx = ss.build_subseq_index(streams, FastSAXConfig(n_segments=(8, 16)),
+                                 cfg["window"], cfg["stride"])
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sidx = ss.subseq_device_index(hidx)
+    qmetas = {m: ss.quantize_subseq_meta(hidx, m) for m in ("int8", "bf16")}
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    W = sidx.n_windows
+    kf = ss.knn_fetch_count(cfg["k"], cfg["excl"], cfg["stride"], W)
+    nbytes = lambda ts: int(sum(t.numel() * t.element_size() for t in ts
+                                if t is not None))
+    resident = {
+        "streams": nbytes([sidx.streams]),
+        "mu_sd": nbytes([sidx.mu, sidx.sd]),
+        "norms": nbytes([sidx.index.norms_sq]),
+        "words_and_residuals": nbytes([*sidx.index.words,
+                                       *sidx.index.residuals]),
+        "materialised_windows": nbytes([sidx.index.series]),
+        **{f"quantized_meta_{m}": nbytes([*q.words, *q.residuals, *q.scale,
+                                          *q.zero, *q.err])
+           for m, q in qmetas.items()}}
+    report["subseq_index"] = {"windows": W, "data_s": t_data,
+                              "host_build_s": t_host,
+                              "upload_and_quantize_s": t_dev,
+                              "fetch_count": kf, "bytes": resident}
+    log(f"[subseq-index] {W} windows of {cfg['streams']} streams x "
+        f"{cfg['stream_len']}: data {t_data:.1f}s, host build "
+        f"{t_host:.2f}s, upload + materialise + quantize {t_dev:.2f}s; "
+        f"fetch count {kf} (k_sel {kf + engine._TOPK_GUARD}); bytes on the "
+        f"card {resident}")
+
+    # ---- 9. the streaming kernels against their plain versions
+    queries = make_subseq_queries(streams, cfg["queries"], cfg["window"],
+                                  seed=1)
+    qr = ss.represent_subseq_queries(sidx, queries)
+    r_streams = make_wafer_like(3, 5000, seed=2, normalize=False)
+    r_hidx = ss.build_subseq_index(r_streams,
+                                   FastSAXConfig(n_segments=(8, 16)), 128, 3)
+    r_sidx = ss.subseq_device_index(r_hidx)
+    r_qr = ss.represent_subseq_queries(
+        r_sidx, make_subseq_queries(r_streams, 27, 128, seed=4))
+    r_kf = ss.knn_fetch_count(cfg["k"], cfg["excl"], 3, r_sidx.n_windows)
+    kernels = {
+        "subseq_1m": compare_subseq_kernels(
+            torch, engine, fq, ref, ss, sidx, qmetas, qr, kf,
+            f"Q=32 W={W}", timing=True),
+        "ragged": compare_subseq_kernels(
+            torch, engine, fq, ref, ss, r_sidx,
+            {m: ss.quantize_subseq_meta(r_hidx, m) for m in qmetas}, r_qr,
+            r_kf, f"Q=27 W={r_sidx.n_windows} stride 3", timing=False)}
+    report["subseq_kernels"] = kernels
+    del r_sidx, r_qr
+
+    # ---- 10. the slice's engine entry points, counts from 0
+    auto = SearchOptions(backend="auto")
+    fq.reset_launch_counts()
+    t0 = time.perf_counter()
+    ans, d2 = ss.subseq_range_query(sidx, qr, cfg["eps"], auto)
+    torch.cuda.synchronize()
+    t_range = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sel, sel_d2, exact = ss.subseq_knn_query(sidx, qr, cfg["k"],
+                                             excl=cfg["excl"], options=auto)
+    t_knn = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qans, qd2 = ss.subseq_range_query_quantized(sidx, qmetas["int8"], qr,
+                                                cfg["eps"])
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in fq.KERNELS}
+    check(launches["fused_subseq_range"] > 0
+          and launches["fused_subseq_topk"] > 0
+          and launches["fused_quant_subseq_range"] > 0,
+          f"a streaming kernel of the path did not launch: {launches}")
+    check(launches["fused_range"] == 0 and launches["fused_topk"] == 0,
+          f"the engine entry points went through kernels 1-2: {launches}")
+    check(bool(exact.all()), f"k-NN certificates: {exact.tolist()}")
+    check(torch.equal(qans, ans) and torch.equal(qd2, d2),
+          "the int8 path's answers differ from full precision")
+    torch_opts = SearchOptions(backend="torch")
+    vs_torch = range_agreement(
+        (ans, d2), ss.subseq_range_query(sidx, qr, cfg["eps"], torch_opts),
+        np.float32(cfg["eps"]) ** 2)
+    t_sel, t_d2, t_exact = ss.subseq_knn_query(
+        sidx, qr, cfg["k"], excl=cfg["excl"], options=torch_opts)
+    knn_off = sel != t_sel
+    knn_vs_torch = {"equal": int((~knn_off).all(axis=1).sum()),
+                    "differ_in_band": int((knn_off & (np.abs(
+                        sel_d2 - t_d2) <= band(t_d2))).sum()),
+                    "wrong": int((knn_off & (np.abs(sel_d2 - t_d2)
+                                             > band(t_d2))).sum()),
+                    "torch_exact": bool(t_exact.all())}
+    check(vs_torch["mismatch_outside_band"] == 0 and knn_vs_torch["wrong"]
+          == 0, f"auto and torch backends disagree: {vs_torch}, "
+          f"{knn_vs_torch}")
+    steady = {}
+    for name, fn in (
+            ("range_ms", lambda: ss.subseq_range_query(sidx, qr, cfg["eps"],
+                                                       auto)),
+            ("knn_ms", lambda: ss.subseq_knn_query(
+                sidx, qr, cfg["k"], excl=cfg["excl"], options=auto)),
+            ("quantized_range_ms", lambda: ss.subseq_range_query_quantized(
+                sidx, qmetas["int8"], qr, cfg["eps"]))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        steady[name] = (time.perf_counter() - t0) / 3 * 1e3
+    pick = list(range(16))
+    ranges = [np.flatnonzero(a) for a in ans.cpu().numpy()]
+    bf = brute_force_windows(torch, sidx, queries, pick)
+    vs_bf = subseq_vs_brute_force(ss, sidx, bf, pick, ranges, sel,
+                                  cfg["k"], cfg["excl"])
+    # At ε = 2 a query has few answers; hold the range path also at each
+    # query's 256th smallest f64 distance.
+    eps256 = np.sqrt([np.partition(d, 255)[255] for d in bf])
+    a256 = ss.subseq_range_query(
+        sidx, ss.represent_subseq_queries(sidx, queries[:16]),
+        torch.as_tensor(eps256, dtype=torch.float32, device=sidx.device),
+        auto)[0].cpu().numpy()
+    e2 = eps256.astype(np.float32).astype(np.float64) ** 2
+    vs_bf256 = {"answers": int(a256.sum()), "boundary_rows": 0, "wrong": 0}
+    for j in range(16):
+        sym = np.setxor1d(np.flatnonzero(bf[j] <= e2[j]),
+                          np.flatnonzero(a256[j]))
+        bad = int((np.abs(bf[j][sym] - e2[j]) > band(e2[j])).sum())
+        vs_bf256["boundary_rows"] += int(sym.size) - bad
+        vs_bf256["wrong"] += bad
+    del bf, a256
+    check(vs_bf["wrong"] == 0 and vs_bf["checked"] == 16
+          and vs_bf256["wrong"] == 0,
+          f"subsequence answers against the f64 brute force: {vs_bf}, at "
+          f"the 256th distance {vs_bf256}")
+    report["subseq_engine"] = {
+        "launches": launches, "first_call_ms": {
+            "range": t_range * 1e3, "knn": t_knn * 1e3,
+            "quantized_range": t_quant * 1e3},
+        "call_ms": steady,
+        "range_answers": int(ans.sum()), "knn_exact": bool(exact.all()),
+        "vs_torch_range": vs_torch, "vs_torch_knn": knn_vs_torch,
+        "brute_force": vs_bf, "brute_force_at_256th": vs_bf256}
+    log(f"[subseq-engine] a call (mean of 3, host clock): range "
+        f"{steady['range_ms']:.2f} ms, k-NN (k={cfg['k']}, excl="
+        f"{cfg['excl']}) {steady['knn_ms']:.2f} ms, int8 range "
+        f"{steady['quantized_range_ms']:.2f} ms; launches of the first "
+        f"calls {launches}; all k-NN exact; range vs torch {vs_torch}; "
+        f"k-NN vs torch {knn_vs_torch}; f64 brute force on 16 queries "
+        f"{vs_bf}, at each one's 256th distance {vs_bf256}")
+    report["subseq_breakdown"] = subseq_knn_breakdown(
+        torch, engine, fq, ss, sidx, qr, cfg["k"], cfg["excl"])
+
+    # ---- 11. the subsequence service over the same streams
+    t0 = time.perf_counter()
+    svc = SubseqSearchService.from_streams(streams, cfg["window"],
+                                           cfg["stride"], ServeConfig(),
+                                           excl=cfg["excl"])
+    svc.warmup(ks=(svc._fetch_k(cfg["k"], svc.excl),))
+    torch.cuda.synchronize()
+    t_svc = time.perf_counter() - t0
+    workload = make_workload(queries, WorkloadSpec(
+        n_requests=64, knn_frac=0.5, k=cfg["k"], epsilon=cfg["eps"]))
+    shim = _SubseqLoadShim(svc)
+    result, svc_launches = serve_phase(torch, fq, svc, workload,
+                                       "subseq-serve", front=shim)
+    check(result.served == len(workload),
+          f"subseq service: served {result.served} of {len(workload)}")
+    mismatches, t_replay = replay_check(shim, workload, result,
+                                        "subseq-serve")
+    vs_engine = {"requests": 0, "equal": 0, "boundary_rows": 0, "wrong": 0}
+    for j, ((kind, q, eps, k), req) in enumerate(zip(workload,
+                                                     result.requests)):
+        i = j % len(queries)          # make_workload's round robin
+        want = ranges[i] if kind == "range" else sel[i][sel[i] >= 0]
+        vs_engine["requests"] += 1
+        if np.array_equal(np.sort(req.ids) if kind == "range" else req.ids,
+                          want):
+            vs_engine["equal"] += 1
+            continue
+        if kind == "range":
+            off = np.setxor1d(req.ids, want)
+            dd = svc.sidx.index.series[torch.as_tensor(off)].double()
+            qz = engine.represent_queries(
+                torch.as_tensor(q[None], dtype=torch.float32,
+                                device=sidx.device), (8, 16), 10).q.double()
+            gap = ((dd - qz) ** 2).sum(-1).cpu().numpy() - eps * eps
+            bad = int((np.abs(gap) > band(eps * eps)).sum())
+        else:
+            n = min(req.ids.size, want.size)
+            off = np.flatnonzero(req.ids[:n] != want[:n])
+            got_d = req.distances[off] ** 2
+            want_d = sel_d2[i][off]
+            bad = int((np.abs(got_d - want_d) > band(want_d)).sum()) + \
+                abs(req.ids.size - want.size)
+        vs_engine["boundary_rows"] += int(off.size) - bad
+        vs_engine["wrong"] += bad
+    check(vs_engine["wrong"] == 0,
+          f"the service's answers differ from phase 10's: {vs_engine}")
+    snap = svc.stats.snapshot()
+    lat = snap["latency_ms"]
+    report["subseq_serve"] = {
+        "summary": result.summary(snap), "launches": svc_launches,
+        "build_and_warmup_s": t_svc, "exact_mismatches": mismatches,
+        "replay_s": t_replay, "vs_engine": vs_engine}
+    log(f"[subseq-serve] {result.served}/{len(workload)} served at "
+        f"{result.qps:.2f} qps; p50 {lat['p50']} ms p99 {lat['p99']} ms; "
+        f"mean batch {snap['mean_batch_size']} over {snap['batches']} "
+        f"batches; exactness mismatches {mismatches} ({t_replay:.1f}s); "
+        f"against phase 10 {vs_engine}; launches {svc_launches}: the "
+        f"service serves windows as rows through kernels 1-2, the "
+        f"reference's design (src/repro/serve/service.py:1148)")
+    del svc, sidx, qmetas
+    return launches, kernels
 
 
 def main() -> int:
@@ -958,6 +1486,11 @@ def main() -> int:
     report["quant_breakdown"] = quant_breakdown(torch, engine, qservice,
                                                 queries)
     log(f"[time] phases 1-8 in {time.perf_counter() - t_start:.1f}s")
+    del qservice, tier8, service, db
+
+    # ---- 9-11. subsequence search
+    slaunches, sk = subseq_phases(torch, engine, fq, ref, report)
+    log(f"[time] phases 1-11 in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name in ("fused_range", "fused_topk"):
@@ -982,6 +1515,21 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
                         "launches": qlaunches[name], "max_abs_err": err,
+                        "ms": main["ms"], "plain_ms": main["plain_ms"],
+                        "bound_ms": main["bound_ms"],
+                        "bound_by": main["bound_by"],
+                        "library_ms": main["library_ms"]})
+    # Kernels 3, 4 and 7: launches from phase 10's engine calls.
+    for name, key in (("fused_subseq_range", "range"),
+                      ("fused_subseq_topk", "topk"),
+                      ("fused_quant_subseq_range", "quant")):
+        main = sk["subseq_1m"][name]
+        errs = [sk[c][k]["max_abs_err"] for c in sk for k in sk[c]
+                if k.startswith(key) and isinstance(sk[c][k], dict)
+                and "max_abs_err" in sk[c][k]]
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+                        "replaces": REPLACES[name],
+                        "launches": slaunches[name], "max_abs_err": max(errs),
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"],

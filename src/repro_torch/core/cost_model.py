@@ -1,8 +1,9 @@
 """Device cost model of the fused kernels on an NVIDIA H100.
 
 Counterpart of the device half of ``repro/core/cost_model.py``: the
-fused-pass latency estimate the tile chooser (``kernels/ops.py``) ranks
-shapes with, and the top-k demotion rule.  The reference's paper
+fused-pass and streaming-subsequence-pass latency estimates the tile
+choosers (``kernels/ops.py``) rank shapes with, and the top-k demotion
+rule.  The reference's paper
 op-count model (``OpCounter`` and the per-operation costs) is not ported
 yet (ROADMAP.md, queue 1).
 
@@ -67,6 +68,42 @@ def fused_pass_estimate(Q: int, B: int, n: int, levels, alphabet: int,
     else:
         bytes_hbm += Q * B * 5
     flops = 2.0 * Q * B * n + float(Q * B) * (sum(levels) * 2 + 8)
+    slots = N_SMS * blocks_per_sm(smem_bytes)
+    waves = math.ceil(nb / slots)
+    wave_eff = nb / (waves * slots)
+    t_mem = bytes_hbm / (HBM_GBPS * 1e9) / wave_eff
+    t_compute = flops / (F32_TFLOPS * 1e12) / wave_eff
+    return dict(bytes_hbm=float(bytes_hbm), flops=flops, t_mem_s=t_mem,
+                t_compute_s=t_compute, t_est_s=max(t_mem, t_compute))
+
+
+def subseq_pass_estimate(Q: int, n_windows: int, window: int, stride: int,
+                         levels, alphabet: int, block_q: int = 32,
+                         block_w: int = 1024, k: int = 0,
+                         smem_bytes: int = 96 * 1024) -> dict:
+    """Bytes / FLOPs / latency estimate of one streaming subsequence pass
+    (``kernels/fused_query.fused_subseq_range`` / ``_topk``).
+
+    The database side of each thread block is its stream range of
+    ``(block_w − 1)·stride + window`` samples plus the per-window
+    metadata (μ, σ, norms, words, residuals) — not the ``block_w ×
+    window`` materialised windows, which exist only in shared memory.
+    The rest is charged as in :func:`fused_pass_estimate` (the top-k
+    form's re-verify gather reads materialised rows).  Returns the keys
+    of :func:`fused_pass_estimate`."""
+    levels = tuple(int(N) for N in levels)
+    nb = math.ceil(n_windows / max(1, block_w))
+    seg_len = (block_w - 1) * stride + window
+    meta_row = (3 + sum(levels) + len(levels)) * 4
+    q_row_bytes = (window + 2 + len(levels) + alphabet * sum(levels)) * 4
+    rest = nb * Q * q_row_bytes
+    if k:
+        rest += Q * nb * k * (8 + 2 * window * 4)
+    else:
+        rest += Q * n_windows * 5
+    bytes_hbm = nb * seg_len * 4 + n_windows * meta_row + rest
+    flops = 2.0 * Q * n_windows * window + float(Q * n_windows) * (
+        sum(levels) * 2 + 8) + 2.0 * n_windows * window
     slots = N_SMS * blocks_per_sm(smem_bytes)
     waves = math.ceil(nb / slots)
     wave_eff = nb / (waves * slots)

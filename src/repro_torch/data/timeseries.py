@@ -1,7 +1,7 @@
 """Synthetic wafer-like time series, the benchmark database.
 
 Counterpart of ``repro/data/timeseries.py`` (``make_wafer_like``,
-``make_queries``), the same numpy code, so one seed gives the same data
+``make_queries``, ``make_subseq_queries``), the same numpy code, so one seed gives the same data
 in both packages.  The generator stands in for the UCR *wafer* dataset
 the paper reports on: a few process prototypes that series cluster
 around, heteroscedastic noise (which spreads the linear-fit residual
@@ -76,3 +76,23 @@ def make_queries(
     q = database[rows] + noise * rng.standard_normal(
         (n_queries, database.shape[1]))
     return znormalize_np(q)
+
+
+def make_subseq_queries(
+    streams: np.ndarray,
+    n_queries: int,
+    window: int,
+    noise: float = 0.05,
+    seed: int = 1,
+) -> np.ndarray:
+    """Window-length queries cut from random stream positions plus noise,
+    the subsequence-matching regime (``core/subseq.py``).  Returned raw:
+    the engines z-normalise each query, as each database window is."""
+    rng = np.random.default_rng(seed)
+    streams = np.asarray(streams)
+    S, n = streams.shape
+    rows = rng.integers(0, S, size=n_queries)
+    starts = rng.integers(0, n - window + 1, size=n_queries)
+    q = np.stack([streams[r, a:a + window]
+                  for r, a in zip(rows, starts)])
+    return q + noise * rng.standard_normal(q.shape)

@@ -1,19 +1,21 @@
 """Wrappers of the fused FAST_SAX kernels (``csrc/fused_query.cu``).
 
-Counterpart of the whole-series and quantized parts of
-``repro/kernels/fused_query.py`` (``fused_range_pallas``,
-``fused_topk_pallas``, ``merge_topk_partials``, ``fused_quant_range_pallas``,
-``fused_quant_topk_pallas``).  One pass evaluates every cascade level
-(C9, C10) and the Euclidean verify — on the quantized tier the widened
-screen over dequantized rows — for a batch of queries while each
-database tile is resident (design and bound in the ``.cu`` file's header).
+Counterpart of ``repro/kernels/fused_query.py``: the whole-series forms
+(``fused_range_pallas``, ``fused_topk_pallas``, ``merge_topk_partials``),
+the quantized tier's (``fused_quant_range_pallas``,
+``fused_quant_topk_pallas``) and the streaming subsequence forms
+(``fused_subseq_range_pallas``, ``fused_subseq_topk_pallas``,
+``fused_quant_subseq_range_pallas``).  One pass evaluates every cascade
+level (C9, C10) and the Euclidean verify — on the quantized tier the
+widened screen over dequantized rows; for subsequences over windows
+built from stream segments — for a batch of queries while each database
+tile is resident (design and bound in the ``.cu`` file's header).
 
 Each wrapper checks its inputs, then
 
   * on CUDA tensors launches the kernel on the current stream and adds
-    one to its launch count (``fused_range.launches``,
-    ``fused_topk.launches``, ``fused_quant_range.launches``,
-    ``fused_quant_topk.launches``) — or raises; there is no fallback;
+    one to its launch count (``<wrapper>.launches``, for every wrapper in
+    :data:`KERNELS`) — or raises; there is no fallback;
   * on CPU tensors computes the same function with its plain PyTorch
     version in ``ref.py`` (no launch is counted).
 
@@ -55,8 +57,13 @@ def _lib():
             pvp, pvp, pvp, pvp, vp, ci, pvp, pvp, vp, ci, ci, ci, vp, vp, ci,
             vp, vp, vp]
         lib.fused_quant_launch.restype = ci
+        lib.fused_subseq_launch.argtypes = [
+            ci, ci, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci,
+            ctypes.POINTER(ci), pvp, pvp, pvp, pvp, pvp, vp, ci, pvp, pvp,
+            vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
+        lib.fused_subseq_launch.restype = ci
         lib.fused_query_smem_bytes.argtypes = [
-            ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci]
+            ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci, ci]
         lib.fused_query_smem_bytes.restype = ci
         lib.fused_query_error.argtypes = [ci]
         lib.fused_query_error.restype = ctypes.c_char_p
@@ -366,7 +373,215 @@ def fused_quant_topk(qdev, q, q_panels, q_residuals, eps, *, k: int,
     return out_idx, out_d2
 
 
-KERNELS = (fused_range, fused_topk, fused_quant_range, fused_quant_topk)
+# ---------------------------------------------------------------------------
+# Streaming subsequence search: the rows are the W = S·W_s z-normalised
+# windows of (S, n_stream) raw streams, in canonical stream-major order;
+# the kernels read the streams, never the (W, w) window matrix.
+# ---------------------------------------------------------------------------
+
+
+def _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
+                         q_residuals, eps, levels, alphabet, window, stride):
+    """Validate the streams, the per-window moments and the query pack;
+    returns (W, Q, device)."""
+    if not isinstance(streams, torch.Tensor) or streams.ndim != 2 \
+            or streams.shape[0] < 1:
+        raise ValueError("streams must be a non-empty (S, n_stream) tensor")
+    (S, n_stream), dev = streams.shape, streams.device
+    window, stride = int(window), int(stride)
+    if not 1 <= window <= n_stream or stride < 1:
+        raise ValueError(f"need 1 <= window <= n_stream={n_stream} and "
+                         f"stride >= 1, got window={window}, "
+                         f"stride={stride}")
+    if S * n_stream >= 2 ** 31:
+        raise ValueError("the kernels index fewer than 2^31 stream samples")
+    W = S * ((n_stream - window) // stride + 1)
+    levels = tuple(int(N) for N in levels)
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"the fused kernels take 1 to {MAX_LEVELS} levels, "
+                         f"got {len(levels)}")
+    if len(q_panels) != len(levels) or len(q_residuals) != len(levels):
+        raise ValueError("q_panels and q_residuals need one entry per level")
+    if not isinstance(q, torch.Tensor) or q.ndim != 2 or q.shape[0] < 1:
+        raise ValueError("q must be a non-empty (Q, window) tensor")
+    Q, f32 = q.shape[0], torch.float32
+    _check("streams", streams, f32, (S, n_stream), dev)
+    for name, t in (("mu", mu), ("sd", sd), ("norms_sq", norms_sq)):
+        _check(name, t, f32, (W,), dev)
+    _check("q", q, f32, (Q, window), dev)
+    _check("eps", eps, f32, (Q,), dev)
+    for li, N in enumerate(levels):
+        if window % N:
+            raise ValueError(f"level N={N} does not divide window={window}")
+        _check(f"q_panels[{li}]", q_panels[li], f32, (Q, alphabet, N), dev)
+        _check(f"q_residuals[{li}]", q_residuals[li], f32, (Q,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return W, Q, dev
+
+
+def _check_stream_columns(words, residuals, levels, W, dev):
+    if len(words) != len(levels) or len(residuals) != len(levels):
+        raise ValueError("words and residuals need one entry per level")
+    for li, N in enumerate(levels):
+        _check(f"words[{li}]", words[li], torch.int32, (W, int(N)), dev)
+        _check(f"residuals[{li}]", residuals[li], torch.float32, (W,), dev)
+
+
+def _check_quant_meta(qmeta, levels, W, dev):
+    """Validate a ``core.subseq.SubseqQuantMeta`` (or any object with its
+    fields) against W windows."""
+    if qmeta.mode not in _QUANT_MODES:
+        raise ValueError(f"quantized metadata mode must be one of "
+                         f"{tuple(_QUANT_MODES)}, got {qmeta.mode!r}")
+    code_t = _QUANT_MODES[qmeta.mode][1]
+    int8, nb = qmeta.mode == "int8", -(-W // ref.RESID_BLOCK)
+    cols = (qmeta.words, qmeta.residuals, qmeta.scale, qmeta.zero, qmeta.err)
+    if any(len(c) != len(levels) for c in cols):
+        raise ValueError("words, residuals, scale, zero and err need one "
+                         "entry per level")
+    for li, N in enumerate(levels):
+        _check(f"words[{li}]", qmeta.words[li], torch.int8, (W, int(N)), dev)
+        _check(f"residuals[{li}]", qmeta.residuals[li], code_t, (W,), dev)
+        for name, t in (("scale", qmeta.scale[li]),
+                        ("zero", qmeta.zero[li])):
+            if int8:
+                _check(f"{name}[{li}]", t, torch.float32, (nb,), dev)
+            elif t is not None:
+                raise ValueError(f"{name}[{li}] must be None in bf16 mode")
+        _check(f"err[{li}]", qmeta.err[li], torch.float32, (nb,), dev)
+
+
+def _launch_subseq(topk, mode, streams, mu, sd, norms_sq, words, residuals,
+                   q, q_panels, q_residuals, eps, levels, alphabet, window,
+                   stride, block_q, block_b, r_scale=None, r_zero=None,
+                   r_err=None, ans=None, d2=None, k_sel=0, out_idx=None,
+                   out_d2=None):
+    lib = _lib()
+    L = len(levels)
+    Ns = (ctypes.c_int * L)(*[int(N) for N in levels])
+    none = (None,) * L
+    S, n_stream = streams.shape
+    with torch.cuda.device(streams.device):
+        stream = torch.cuda.current_stream(streams.device).cuda_stream
+        code = lib.fused_subseq_launch(
+            int(topk), mode, streams.data_ptr(), S, n_stream, int(stride),
+            mu.data_ptr(), sd.data_ptr(), norms_sq.data_ptr(), mu.shape[0],
+            int(window), L, Ns, _ptrs(words), _ptrs(residuals),
+            _ptrs(r_scale or none), _ptrs(r_zero or none),
+            _ptrs(r_err or none), q.data_ptr(), q.shape[0], _ptrs(q_panels),
+            _ptrs(q_residuals), eps.data_ptr(), alphabet, block_q, block_b,
+            _nullable(ans), _nullable(d2), k_sel, _nullable(out_idx),
+            _nullable(out_d2), stream)
+    _raise_on(lib, code, "fused_subseq")
+
+
+def fused_subseq_range(streams, mu, sd, norms_sq, words, residuals, q,
+                       q_panels, q_residuals, eps, *, levels, alphabet: int,
+                       window: int, stride: int, block_q: int = 32,
+                       block_b: int = 1024):
+    """One streaming range pass: ``(answers (Q, W) bool, d2 (Q, W)
+    float32)`` in canonical window order, +inf off the answers — those of
+    :func:`fused_range` over the materialised windows, bit for bit.
+
+    ``streams`` (S, n_stream) f32 raw; per window ``mu``, ``sd`` and
+    ``norms_sq`` (‖z‖²) (W,) f32, per level ``words`` (W, N) int32 and
+    ``residuals`` (W,) f32, W = S·((n_stream − window)//stride + 1); the
+    query side is that of :func:`fused_range` with n = ``window``.
+    ``block_b`` windows per thread block; the tiles shape the kernel
+    only."""
+    W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
+                                     q_residuals, eps, levels, alphabet,
+                                     window, stride)
+    _check_stream_columns(words, residuals, levels, W, dev)
+    _check_tiles(block_q, block_b)
+    if dev.type == "cpu":
+        return ref.fused_subseq_range_ref(streams, mu, sd, norms_sq, words,
+                                          residuals, q, q_panels, q_residuals,
+                                          eps, levels, window, stride)
+    ans = torch.empty((Q, W), dtype=torch.bool, device=dev)
+    d2 = torch.empty((Q, W), dtype=torch.float32, device=dev)
+    _launch_subseq(False, 0, streams, mu, sd, norms_sq, words, residuals, q,
+                   q_panels, q_residuals, eps, levels, alphabet, window,
+                   stride, block_q, block_b, ans=ans, d2=d2)
+    with _count_lock:
+        fused_subseq_range.launches += 1
+    return ans, d2
+
+
+def fused_subseq_topk(streams, mu, sd, norms_sq, words, residuals, q,
+                      q_panels, q_residuals, eps, *, levels, alphabet: int,
+                      window: int, stride: int, k: int, block_q: int = 32,
+                      block_b: int = 1024):
+    """One streaming pass emitting block-local top-k partials: ``(idx
+    (Q, nb·k) int32, d2 (Q, nb·k) float32)``, ``nb = ⌈W/block_b⌉``, in
+    the layout of :func:`fused_topk` with canonical window ids (−1 / +inf
+    on empty slots).  The inputs are those of :func:`fused_subseq_range`;
+    ``k`` ≤ min(block_b, KSEL_MAX)."""
+    W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
+                                     q_residuals, eps, levels, alphabet,
+                                     window, stride)
+    _check_stream_columns(words, residuals, levels, W, dev)
+    _check_tiles(block_q, block_b)
+    k = int(k)
+    if not 1 <= k <= min(block_b, KSEL_MAX):
+        raise ValueError(f"k={k} must be in [1, min(block_b={block_b}, "
+                         f"{KSEL_MAX})]")
+    if dev.type == "cpu":
+        return ref.fused_subseq_topk_ref(streams, mu, sd, norms_sq, words,
+                                         residuals, q, q_panels, q_residuals,
+                                         eps, levels, window, stride, k,
+                                         block_b)
+    nb = -(-W // block_b)
+    out_idx = torch.empty((Q, nb * k), dtype=torch.int32, device=dev)
+    out_d2 = torch.empty((Q, nb * k), dtype=torch.float32, device=dev)
+    _launch_subseq(True, 0, streams, mu, sd, norms_sq, words, residuals, q,
+                   q_panels, q_residuals, eps, levels, alphabet, window,
+                   stride, block_q, block_b, k_sel=k, out_idx=out_idx,
+                   out_d2=out_d2)
+    with _count_lock:
+        fused_subseq_topk.launches += 1
+    return out_idx, out_d2
+
+
+def fused_quant_subseq_range(streams, mu, sd, norms_sq, qmeta, q, q_panels,
+                             q_residuals, eps, *, levels, alphabet: int,
+                             window: int, stride: int, block_q: int = 32,
+                             block_b: int = 1024):
+    """One streaming range pass over quantized screen columns: ``(answers
+    (Q, W) bool, d2 (Q, W) float32)``, final answers set-identical to
+    :func:`fused_subseq_range`'s.
+
+    ``qmeta`` is a ``core.subseq.SubseqQuantMeta``: per level ``words``
+    (W, N) int8, ``residuals`` (W,) int8 codes or bf16, ``scale`` /
+    ``zero`` (int8 only) and ``err`` (⌈W/128⌉,) f32 per block of 128
+    windows.  C9 widens to ``gap ≤ ε + e_blk``, C10 runs on the int8
+    words, the verify is exact over the streamed samples and cut at ε².
+    The rest is as :func:`fused_subseq_range`."""
+    W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
+                                     q_residuals, eps, levels, alphabet,
+                                     window, stride)
+    levels = tuple(int(N) for N in levels)
+    _check_quant_meta(qmeta, levels, W, dev)
+    _check_tiles(block_q, block_b)
+    if dev.type == "cpu":
+        return ref.fused_quant_subseq_range_ref(
+            streams, mu, sd, norms_sq, qmeta, q, q_panels, q_residuals, eps,
+            levels, window, stride)
+    ans = torch.empty((Q, W), dtype=torch.bool, device=dev)
+    d2 = torch.empty((Q, W), dtype=torch.float32, device=dev)
+    _launch_subseq(False, _QUANT_MODES[qmeta.mode][0], streams, mu, sd,
+                   norms_sq, qmeta.words, qmeta.residuals, q, q_panels,
+                   q_residuals, eps, levels, alphabet, window, stride,
+                   block_q, block_b, r_scale=qmeta.scale, r_zero=qmeta.zero,
+                   r_err=qmeta.err, ans=ans, d2=d2)
+    with _count_lock:
+        fused_quant_subseq_range.launches += 1
+    return ans, d2
+
+
+KERNELS = (fused_range, fused_topk, fused_quant_range, fused_quant_topk,
+           fused_subseq_range, fused_subseq_topk, fused_quant_subseq_range)
 for _kernel in KERNELS:
     _kernel.launches = 0
 
@@ -380,10 +595,13 @@ def reset_launch_counts() -> None:
 
 def smem_bytes_of_kernel(topk: bool, n: int, levels, alphabet: int,
                          block_q: int, Q: int = 0, k_sel: int = 0,
-                         quant: bool = False) -> int:
+                         quant: bool = False, stride: int = 0) -> int:
     """The kernel's own count of its shared memory (needs the built
-    library); ``ops.fused_smem_bytes`` must agree with it."""
+    library); ``ops.fused_smem_bytes`` (``stride`` 0) and
+    ``ops.subseq_smem_bytes`` (the streaming kernels at ``stride`` > 0,
+    rows of length n = window) must agree with it."""
     L = len(levels)
     Ns = (ctypes.c_int * L)(*[int(N) for N in levels])
     return int(_lib().fused_query_smem_bytes(int(topk), n, L, Ns, alphabet,
-                                             block_q, Q, k_sel, int(quant)))
+                                             block_q, Q, k_sel, int(quant),
+                                             int(stride)))

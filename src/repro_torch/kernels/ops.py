@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/ops.py``.  The reference sized its blocks
 against 16 MiB of TPU VMEM; here the budget is the 227 KB of shared
 memory a Hopper thread block may use, and the layout whose size is
 reckoned is the one ``csrc/fused_query.cu`` stages (``Layout`` there —
-:func:`fused_smem_bytes` mirrors its arithmetic).
+:func:`fused_smem_bytes` and :func:`subseq_smem_bytes` mirror its
+arithmetic).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from ..core.sax import mindist_table
 
 SMEM_BYTES = cost_model.SMEM_PER_SM
 ROW_TILE = 64                       # rows a kernel sub-tile stages
+SEG_MAX = 8192                      # longest staged stream range (floats)
 # block_b: rows per thread block, and the top-k partial-list granularity
 # (the (Q, nb·k_sel) output layout the engine's certificate reads).
 FUSED_BLOCK_B = (4096, 2048, 1024, 512, 256, 128, 64)
@@ -48,6 +50,30 @@ def _r4(x: int) -> int:
     return (x + 3) // 4 * 4
 
 
+def _smem_bytes(block_q: int, n: int, levels, alphabet: int, Q: int,
+                k_sel: int, qseries: bool, qmeta: bool, seg_cap: int) -> int:
+    """The arithmetic of the kernel's ``Layout`` (``csrc/fused_query.cu``)."""
+    levels = tuple(int(N) for N in levels)
+    L, T = len(levels), ROW_TILE
+    words = _r4(T * (n | 1)) + _r4(T) + _r4(L * T)
+    if qseries:
+        words += _r4(T)
+    if qmeta:
+        words += _r4(L * T)
+    words += sum(_r4(T * (N | 1)) for N in levels)
+    words += _r4(n * block_q) + 3 * _r4(block_q) + _r4(L * block_q)
+    words += sum(_r4(block_q * N * alphabet) for N in levels)
+    if k_sel:
+        words += _r4(block_q * T) + 2 * _r4(Q * k_sel)
+    if seg_cap:
+        # The streaming loader's sections share the top-k candidates'
+        # space when they fit.
+        need = 3 * _r4(T) + _r4(seg_cap)
+        if not (k_sel and need <= _r4(block_q * T)):
+            words += need
+    return 4 * words
+
+
 def fused_smem_bytes(block_q: int, n: int, levels, alphabet: int,
                      Q: int = 0, k_sel: int = 0, quant: bool = False) -> int:
     """Dynamic shared memory of one thread block of the fused kernel
@@ -55,17 +81,27 @@ def fused_smem_bytes(block_q: int, n: int, levels, alphabet: int,
     queries of the launch stay resident; ``quant``: the quantized tier's
     form, which also stages each row's series error and each level's
     residual error beside the dequantized f32 tile)."""
-    levels = tuple(int(N) for N in levels)
-    L, T = len(levels), ROW_TILE
-    words = _r4(T * (n | 1)) + _r4(T) + _r4(L * T)
-    if quant:
-        words += _r4(T) + _r4(L * T)
-    words += sum(_r4(T * (N | 1)) for N in levels)
-    words += _r4(n * block_q) + 3 * _r4(block_q) + _r4(L * block_q)
-    words += sum(_r4(block_q * N * alphabet) for N in levels)
-    if k_sel:
-        words += _r4(block_q * T) + 2 * _r4(Q * k_sel)
-    return 4 * words
+    return _smem_bytes(block_q, n, levels, alphabet, Q, k_sel, quant, quant,
+                       0)
+
+
+def subseq_seg_cap(window: int, stride: int) -> int:
+    """Longest stream range (floats) the streaming loader stages for a
+    64-window sub-tile: one stream boundary's worth, ``63·stride + 2·w``,
+    capped at ``SEG_MAX`` (csrc ``subseq_seg_cap``)."""
+    return min((ROW_TILE - 1) * int(stride) + 2 * int(window), SEG_MAX)
+
+
+def subseq_smem_bytes(block_q: int, window: int, stride: int, levels,
+                      alphabet: int, Q: int = 0, k_sel: int = 0,
+                      quant: bool = False) -> int:
+    """Dynamic shared memory of one thread block of the streaming
+    subsequence kernel: the fused layout over rows of length ``window``
+    (``quant``: quantized screen columns, whose residual errors are
+    staged; the series is raw) plus each sub-tile's window starts, μ, σ
+    and staged stream range."""
+    return _smem_bytes(block_q, window, levels, alphabet, Q, k_sel, False,
+                       quant, subseq_seg_cap(window, stride))
 
 
 def choose_fused_blocks(Q: int, B: int, n: int, levels, alphabet: int,
@@ -99,4 +135,34 @@ def choose_fused_blocks(Q: int, B: int, n: int, levels, alphabet: int,
             f"no fused tile fits {smem} bytes of shared memory for n={n}, "
             f"levels={tuple(levels)}, alphabet={alphabet}, Q={Q}, "
             f"k_sel={k_sel}")
+    return best[1], best[2]
+
+
+def choose_subseq_blocks(Q: int, n_windows: int, window: int, stride: int,
+                         levels, alphabet: int, k: int = 0,
+                         smem: int = SMEM_BYTES, quant: bool = False):
+    """Pick ``(block_q, block_w)`` for a streaming subsequence pass
+    (``block_w``: windows per thread block and the top-k partial-list
+    granularity, ``k``: the top-k form's k_sel): the feasible shape the
+    cheapest under ``core/cost_model.subseq_pass_estimate``.  Raises if
+    nothing fits."""
+    best = None
+    for bq in FUSED_BLOCK_Q:
+        need = subseq_smem_bytes(bq, window, stride, levels, alphabet, Q, k,
+                                 quant)
+        if need > smem:
+            continue
+        for bw in FUSED_BLOCK_B:
+            if k > bw:
+                continue
+            est = cost_model.subseq_pass_estimate(
+                Q, n_windows, window, stride, levels, alphabet, block_q=bq,
+                block_w=bw, k=k, smem_bytes=need)
+            if best is None or est["t_est_s"] < best[0]:
+                best = (est["t_est_s"], bq, bw)
+    if best is None:
+        raise ValueError(
+            f"no subseq tile fits {smem} bytes of shared memory for "
+            f"window={window}, stride={stride}, levels={tuple(levels)}, "
+            f"alphabet={alphabet}, Q={Q}, k_sel={k}")
     return best[1], best[2]

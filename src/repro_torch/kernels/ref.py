@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the fused kernels and of the top-k merge.
 
-Counterpart of ``repro/kernels/ref.py`` for the kernels ported so far.
+Counterpart of ``repro/kernels/ref.py`` for the kernels ported so far
+(the whole-series, quantized and streaming subsequence forms).
 Each function computes what its CUDA kernel computes (``csrc/
 fused_query.cu``): the wrappers in ``fused_query.py`` run these on CPU
 tensors, and ``chip_smoke.py`` holds the kernels against them on the card.
@@ -145,24 +146,34 @@ def dequant_series(codes, scale, zero) -> torch.Tensor:
     return zero[:, None] + scale[:, None] * codes.float()
 
 
-def quant_cascade_alive_ref(qdev, q_panels, q_residuals, eps) -> torch.Tensor:
-    """(Q, B) alive mask of the widened cascade: C9 ``|r̂ − r(q)| ≤ ε +
-    e_blk`` on the dequantized residuals, C10 unwidened on the int8
-    words."""
+def quant_meta_alive_ref(words, residuals, resid_scale, resid_zero,
+                         resid_err, q_panels, q_residuals, eps, levels,
+                         n: int) -> torch.Tensor:
+    """(Q, B) alive mask of the widened cascade over quantized screen
+    columns (per level: int8 ``words``, residual codes with their
+    per-block ``resid_scale``/``resid_zero``/``resid_err``): C9 ``|r̂ −
+    r(q)| ≤ ε + e_blk`` on the dequantized residuals, C10 unwidened on
+    the int8 words."""
     eps_c = eps.reshape(-1, 1)
     eps2 = eps_c * eps_c
-    B = qdev.series.shape[0]
+    B = words[0].shape[0]
     alive = None
-    for li, N in enumerate(qdev.levels):
-        res = dequant_residuals(qdev.residuals[li], qdev.resid_scale[li],
-                                qdev.resid_zero[li])
-        err = expand_block_col(qdev.resid_err[li], B)
+    for li, N in enumerate(levels):
+        res = dequant_residuals(residuals[li], resid_scale[li],
+                                resid_zero[li])
+        err = expand_block_col(resid_err[li], B)
         gap = torch.abs(res[None, :] - q_residuals[li][:, None])
         ok = gap <= eps_c + err[None, :]
         alive = ok if alive is None else alive & ok
-        alive &= mindist_sq_ref(qdev.words[li], q_panels[li], N,
-                                qdev.n) <= eps2
+        alive &= mindist_sq_ref(words[li], q_panels[li], N, n) <= eps2
     return alive
+
+
+def quant_cascade_alive_ref(qdev, q_panels, q_residuals, eps) -> torch.Tensor:
+    """:func:`quant_meta_alive_ref` over a quantized index's columns."""
+    return quant_meta_alive_ref(qdev.words, qdev.residuals, qdev.resid_scale,
+                                qdev.resid_zero, qdev.resid_err, q_panels,
+                                q_residuals, eps, qdev.levels, qdev.n)
 
 
 def screen_limit_sq(eps, series_err) -> torch.Tensor:
@@ -190,6 +201,66 @@ def fused_quant_topk_ref(qdev, q, q_panels, q_residuals, eps, k: int,
     screen keeps, in the layout of :func:`fused_topk_ref`."""
     _, d2m = fused_quant_range_ref(qdev, q, q_panels, q_residuals, eps)
     return block_topk(d2m, k, block_b)
+
+
+# ---------------------------------------------------------------------------
+# Subsequence search: the rows are the z-normalised length-w windows of
+# raw streams, numbered stream-major (``core/subseq.py``).
+# ---------------------------------------------------------------------------
+
+
+def device_windows(streams, window: int, stride: int, mu, sd, wid=None):
+    """(W, window) z-normalised windows in f32 — the one expression every
+    path shares: the torch engine's rows, the kernels' window tiles and
+    any candidate re-gather all evaluate ``(x[a:a+w] − μ)/σ`` (subtract,
+    then divide, each rounded) on the same f32 inputs.  ``wid`` selects
+    windows (default: all W, in canonical order)."""
+    S, n = streams.shape
+    W_s = (n - window) // stride + 1
+    if wid is None:
+        wid = torch.arange(S * W_s, device=streams.device)
+    wid = wid.long()
+    start = (wid // W_s) * n + (wid % W_s) * stride
+    cols = torch.arange(window, device=streams.device)
+    win = streams.reshape(-1)[start[:, None] + cols[None, :]]
+    return (win - mu[wid][:, None]) / sd[wid][:, None]
+
+
+def fused_subseq_range_ref(streams, mu, sd, norms_sq, words, residuals, q,
+                           q_panels, q_residuals, eps, levels, window: int,
+                           stride: int):
+    """:func:`fused_range_ref` over the windows of the streams:
+    ``(answers (Q, W) bool, d2 (Q, W))`` in canonical window order."""
+    z = device_windows(streams, window, stride, mu, sd)
+    return fused_range_ref(z, norms_sq, words, residuals, q, q_panels,
+                           q_residuals, eps, levels, window)
+
+
+def fused_subseq_topk_ref(streams, mu, sd, norms_sq, words, residuals, q,
+                          q_panels, q_residuals, eps, levels, window: int,
+                          stride: int, k: int, block_b: int):
+    """:func:`fused_topk_ref` over the windows of the streams: block-local
+    partials with canonical window ids."""
+    z = device_windows(streams, window, stride, mu, sd)
+    return fused_topk_ref(z, norms_sq, words, residuals, q, q_panels,
+                          q_residuals, eps, levels, window, k, block_b)
+
+
+def fused_quant_subseq_range_ref(streams, mu, sd, norms_sq, qmeta, q,
+                                 q_panels, q_residuals, eps, levels,
+                                 window: int, stride: int):
+    """Range over quantized per-window screen columns (``qmeta``, a
+    ``core.subseq.SubseqQuantMeta``): the widened cascade, then the exact
+    verify over the windows of the raw streams, cut at ε².  The answers
+    are final, set-identical to :func:`fused_subseq_range_ref`'s."""
+    alive = quant_meta_alive_ref(qmeta.words, qmeta.residuals, qmeta.scale,
+                                 qmeta.zero, qmeta.err, q_panels,
+                                 q_residuals, eps, levels, window)
+    z = device_windows(streams, window, stride, mu, sd)
+    d2 = verify_d2_ref(q, z, norms_sq)
+    eps_c = eps.reshape(-1, 1)
+    ans = alive & (d2 <= eps_c * eps_c)
+    return ans, torch.where(ans, d2, torch.full_like(d2, math.inf))
 
 
 def merge_topk_partials(idx, d2, k: int):

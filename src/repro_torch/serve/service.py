@@ -1,7 +1,8 @@
 """The online FAST_SAX query service on one device.
 
 Counterpart of the single-device part of ``repro/serve/service.py``
-(``ServeConfig``, ``_SingleBackend``, ``SearchService``).  Request flow:
+(``ServeConfig``, ``_SingleBackend``, ``SearchService``,
+``SubseqSearchService``).  Request flow:
 
     submit → bounded queue (admission control, deadlines)
            → micro-batch  (MicroBatcher drains and coalesces)
@@ -40,16 +41,18 @@ from .batcher import (FAILED, KIND_KNN, KIND_RANGE, OK,
 from .stats import StatsTracker
 
 _LATER = {
-    "failover_shards": "the multi-device slice",
-    "mesh": "the multi-device slice",
-    "trace": "the observability slice",
-    "from_store": "the index-lifecycle slice",
+    "failover_shards": ("the multi-device slice", 8),
+    "mesh": ("the multi-device slice", 8),
+    "trace": ("the observability slice", 7),
+    "from_store": ("the index-lifecycle slice", 1),
 }
 
 
 def _not_ported(setting: str):
+    slice_name, item = _LATER[setting]
     return NotImplementedError(
-        f"{setting} needs {_LATER[setting]} of the port (ROADMAP.md queue 1)")
+        f"{setting} needs {slice_name} of the port (ROADMAP.md queue 1 "
+        f"item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -429,16 +432,27 @@ class SearchService:
             mask = answer_row & np.isfinite(d2_row)
             rows = idx_row[mask]
             dist = np.sqrt(d2_row[mask])
+        rows, dist = self._postprocess(req, rows, dist)
         req._resolve(OK, ids=np.asarray(rows, dtype=np.int64),
                      distances=dist.astype(np.float64))
+
+    def _postprocess(self, req: Request, rows, dist):
+        """Answer-shaping hook between the device pass and the response:
+        the base service returns the candidates as they are; the
+        subsequence service's exclusion zone overrides it.  It runs the
+        same on the batched and the direct path, so a replay still
+        matches its batch."""
+        return rows, dist
 
     # --- unbatched reference path -------------------------------------------
 
     def direct_query(self, kind: str, query, epsilon: float = 0.0,
-                     k: int = 0):
+                     k: int = 0, meta: Optional[dict] = None):
         """One request, one device pass, no queue — the reference the
         exactness check replays against.  k is bucketed as in
-        :meth:`_dispatch`, so the replay takes the same engine path."""
+        :meth:`_dispatch`, so the replay takes the same engine path;
+        ``meta`` carries the answer-shaping hints a batched submit would
+        attach, so the replay runs the same :meth:`_postprocess`."""
         n = self.backend.n
         q = np.asarray(query, dtype=np.float32).reshape(1, n)
         is_knn = np.asarray([kind == KIND_KNN])
@@ -447,6 +461,131 @@ class SearchService:
         with self._device_lock:
             idx, answer, d2 = self.backend.dispatch(q, eps, is_knn, kk)
         req = Request(kind=kind, query=q[0], epsilon=epsilon,
-                      k=max(int(k), 1))
+                      k=max(int(k), 1), meta=meta)
         self._finish(req, idx[0], answer[0], d2[0])
         return req.ids, req.distances
+
+
+class SubseqSearchService(SearchService):
+    """Online subsequence search: every window of the indexed streams is
+    a database row, served through the queue → bucket → mixed-dispatch
+    machinery above.
+
+    Two request families:
+
+      * ``submit_subseq_range(query, ε)`` — every window within ε; the ids
+        are window ids (map them with :meth:`window_meta`);
+      * ``submit_subseq_knn(query, k, excl)`` — the k nearest windows
+        under the exclusion zone: batched as an ordinary k-NN at the
+        fetch count ``core.subseq.knn_fetch_count``, with the greedy in
+        :meth:`_postprocess`, the same on the batched and direct paths.
+
+    As in the reference, the device pass is the windows-as-rows mixed
+    engine (``_SingleBackend`` over ``sidx.index``: on a CUDA index the
+    whole-series kernels ``fused_topk`` and ``fused_range``); the
+    streaming kernels serve the engine entry points of
+    ``core/subseq.py``."""
+
+    def __init__(self, sidx, cfg: ServeConfig = ServeConfig(),
+                 excl: Optional[int] = None):
+        if cfg.quantization != "none":
+            raise ValueError("the subsequence service serves full-precision "
+                             "windows; quantization must be 'none'")
+        self.sidx = sidx
+        self.excl = (sidx.window // 2) if excl is None else int(excl)
+        super().__init__(_SingleBackend(sidx.index, cfg), cfg)
+
+    # --- construction -------------------------------------------------------
+
+    @classmethod
+    def from_streams(cls, streams, window: int, stride: int = 1,
+                     cfg: ServeConfig = ServeConfig(),
+                     excl: Optional[int] = None,
+                     device=None) -> "SubseqSearchService":
+        """Cold start: the amortised window-feature build over the raw
+        (S, n_stream) streams on the host, uploaded to ``device``
+        (default: CUDA; raises without one)."""
+        from ..core.subseq import build_subseq_index, subseq_device_index
+
+        hidx = build_subseq_index(
+            np.asarray(streams),
+            FastSAXConfig(n_segments=tuple(cfg.levels),
+                          alphabet=cfg.alphabet, stack=tuple(cfg.stack)),
+            window, stride)
+        return cls(subseq_device_index(hidx, resolve_device(device)), cfg,
+                   excl=excl)
+
+    @classmethod
+    def from_store(cls, path, cfg: ServeConfig = ServeConfig(),
+                   excl: Optional[int] = None):
+        raise _not_ported("from_store")
+
+    # --- submission ---------------------------------------------------------
+
+    def _fetch_k(self, k: int, excl: int) -> int:
+        from ..core.subseq import knn_fetch_count
+        return knn_fetch_count(int(k), excl, self.sidx.stride,
+                               self.sidx.n_windows)
+
+    def submit_subseq_range(self, query, epsilon: float,
+                            deadline_ms: Optional[float] = None) -> Request:
+        """A plain range submit whose ids are window ids (range answers
+        carry no exclusion zone)."""
+        return self.submit_range(query, epsilon, deadline_ms)
+
+    def submit_subseq_knn(self, query, k: int, excl: Optional[int] = None,
+                          deadline_ms: Optional[float] = None) -> Request:
+        excl = self.excl if excl is None else int(excl)
+        return self._batcher.submit(Request(
+            kind=KIND_KNN, query=np.asarray(query, dtype=np.float32),
+            k=self._fetch_k(k, excl), deadline=self._deadline(deadline_ms),
+            meta={"subseq_k": int(k), "excl": excl}))
+
+    def subseq_range(self, query, epsilon, deadline_ms=None, timeout=60.0):
+        return self.range_query(query, epsilon, deadline_ms, timeout)
+
+    def subseq_knn(self, query, k, excl=None, deadline_ms=None,
+                   timeout=60.0):
+        """Synchronous exclusion-zone k-NN; raises on rejection."""
+        req = self.submit_subseq_knn(query, k, excl, deadline_ms)
+        if req.wait(timeout) != OK:
+            raise RuntimeError(f"subseq knn request {req.status}")
+        return req.ids, req.distances
+
+    # --- direct replay (the exactness reference) ----------------------------
+
+    def direct_subseq_range(self, query, epsilon: float):
+        return self.direct_query(KIND_RANGE, query, epsilon=epsilon)
+
+    def direct_subseq_knn(self, query, k: int, excl: Optional[int] = None):
+        excl = self.excl if excl is None else int(excl)
+        return self.direct_query(
+            KIND_KNN, query, k=self._fetch_k(k, excl),
+            meta={"subseq_k": int(k), "excl": excl})
+
+    # --- answer shaping -----------------------------------------------------
+
+    def _postprocess(self, req: Request, rows, dist):
+        """The exclusion zone, by ``core.subseq.suppress_trivial_matches``
+        (the greedy the engine entry point runs).  The candidates are
+        already ascending by (d², id), so their positions stand in for
+        both the ids and the distances, and the kept positions pick
+        ``rows`` and ``dist``."""
+        from ..core.subseq import suppress_trivial_matches
+
+        meta = req.meta or {}
+        if req.kind != KIND_KNN or "subseq_k" not in meta:
+            return rows, dist
+        k, excl = int(meta["subseq_k"]), int(meta["excl"])
+        rows = np.asarray(rows)
+        stream_of, start_of = self.sidx.window_meta(rows)
+        pos = np.arange(rows.size)
+        sel, _ = suppress_trivial_matches(
+            pos[None, :], pos[None, :].astype(np.float64), stream_of,
+            start_of, k, excl)
+        pos = sel[0][sel[0] >= 0]
+        return rows[pos], dist[pos]
+
+    def window_meta(self, ids):
+        """Window ids -> (stream index, start position) host arrays."""
+        return self.sidx.window_meta(ids)

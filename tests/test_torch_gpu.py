@@ -335,3 +335,181 @@ def test_verify_prefetch_is_bit_identical_on_card(cuda):
     assert bool(sync[1].any())
     for a, b in zip(sync, pre):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Streaming subsequence search: fused_subseq_range / fused_subseq_topk /
+# fused_quant_subseq_range.
+# ---------------------------------------------------------------------------
+
+# (streams, stream length, window, stride, levels, Q): windows per stream
+# not a multiple of 64 (sub-tiles cross stream boundaries), a ragged last
+# block, a stride of 1, fewer than 64 windows per stream (several
+# boundaries in one sub-tile: the loader reads the streams directly) and
+# a stride too long for the staged range.
+SUBSEQ_CASES = [
+    (3, 1000, 64, 3, (4, 8), 5),
+    (2, 700, 128, 1, (8, 16), 33),
+    (4, 300, 32, 4, (4, 8), 7),
+    (5, 120, 32, 2, (8,), 3),
+    (2, 40_000, 64, 150, (4, 8), 9),
+]
+
+
+def subseq_case(case, device, seed=3, flat=False):
+    """A subsequence index and its kernel inputs (half the queries at
+    ε = 2, half at their k-NN seed radius).  ``flat``: stream 0 starts
+    with a constant stretch, so some windows have σ floored at 1e-8."""
+    from repro_torch.core import subseq as ss
+    from repro_torch.core.fastsax import FastSAXConfig
+    from repro_torch.data.timeseries import make_subseq_queries
+
+    S, n_stream, window, stride, levels, Q = case
+    streams = make_wafer_like(S, n_stream, seed=seed, normalize=False)
+    if flat:
+        streams[0, :3 * window] = 0.75
+    hidx = ss.build_subseq_index(
+        streams, FastSAXConfig(n_segments=levels, alphabet=10), window,
+        stride)
+    sidx = ss.subseq_device_index(hidx, device)
+    qr = ss.represent_subseq_queries(
+        sidx, make_subseq_queries(streams, Q, window, seed=seed + 1))
+    knn = (torch.arange(Q, device=device) % 2 == 0).reshape(Q, 1)
+    seed_eps = engine._slacked(engine._seed_eps(sidx.index, qr, 8, None))
+    eps = torch.where(knn, seed_eps, torch.full_like(seed_eps, 2.0))
+    args = dict(streams=sidx.streams, mu=sidx.mu, sd=sidx.sd,
+                norms_sq=sidx.index.norms_sq, words=sidx.index.words,
+                residuals=sidx.index.residuals, q=qr.q,
+                q_panels=engine._query_panels(qr, 10),
+                q_residuals=qr.residuals, eps=eps.reshape(-1).contiguous(),
+                levels=levels, alphabet=10, window=window, stride=stride)
+    return hidx, sidx, qr, args
+
+
+def rows_args(sidx, args):
+    """The whole-series kernels' inputs over the materialised windows."""
+    return dict(series=sidx.index.series, norms_sq=args["norms_sq"],
+                words=args["words"], residuals=args["residuals"],
+                q=args["q"], q_panels=args["q_panels"],
+                q_residuals=args["q_residuals"], eps=args["eps"],
+                levels=args["levels"], alphabet=10, n=args["window"])
+
+
+def plain_args(args):
+    return {k: v for k, v in args.items() if k != "alphabet"}
+
+
+@pytest.mark.parametrize("case", SUBSEQ_CASES)
+@pytest.mark.parametrize("block_q,block_b", [(32, 1024), (16, 128)])
+def test_subseq_kernels_match_plain_versions(cuda, case, block_q, block_b):
+    _, sidx, _, args = subseq_case(case, cuda)
+    tile = dict(block_q=block_q, block_b=block_b)
+    n0 = fq.fused_subseq_range.launches
+    ga, gd = fq.fused_subseq_range(**args, **tile)
+    torch.cuda.synchronize()
+    assert fq.fused_subseq_range.launches == n0 + 1
+    # The same f32 windows and the same verify order: bit for bit the
+    # whole-series kernel over the materialised windows.
+    ra, rd = fq.fused_range(**rows_args(sidx, args), **tile)
+    assert torch.equal(ga, ra) and torch.equal(gd, rd)
+    wa, wd = ref.fused_subseq_range_ref(**plain_args(args))
+    ga, gd, wa, wd = (t.cpu().numpy() for t in (ga, gd, wa, wd))
+    eps2 = (args["eps"] ** 2).cpu().numpy()[:, None]
+    d_ref = np.where(np.isfinite(wd), wd, gd)
+    assert not ((ga != wa) & (np.abs(d_ref - eps2) > band(eps2))).any()
+    both = ga & wa
+    assert both.sum() > 0
+    assert np.all(np.abs(gd[both] - wd[both]) <= band(wd[both]))
+    assert np.all(np.isinf(gd[~ga]))
+
+    k = min(12, block_b)
+    gi, gdd = fq.fused_subseq_topk(**args, k=k, **tile)
+    torch.cuda.synchronize()
+    ri, rdd = fq.fused_topk(**rows_args(sidx, args), k=k, **tile)
+    assert torch.equal(gi, ri) and torch.equal(gdd, rdd)
+    wi, wdd = ref.fused_subseq_topk_ref(**plain_args(args), k=k,
+                                        block_b=block_b)
+    np.testing.assert_array_equal(gi.cpu().numpy() < 0, wi.cpu().numpy() < 0)
+    mg = fq.merge_topk_partials(gi, gdd, 5)
+    mw = fq.merge_topk_partials(wi, wdd, 5)
+    gd_m, wd_m = mg[1].cpu().numpy(), mw[1].cpu().numpy()
+    fin = np.isfinite(wd_m)
+    np.testing.assert_array_equal(np.isfinite(gd_m), fin)
+    assert np.all(np.abs(gd_m[fin] - wd_m[fin]) <= band(wd_m[fin]))
+    differ = mg[0].cpu().numpy() != mw[0].cpu().numpy()
+    assert np.all(np.abs(gd_m[differ] - wd_m[differ]) <= band(wd_m[differ]))
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("case", SUBSEQ_CASES[:3])
+def test_quant_subseq_kernel_is_set_identical(cuda, mode, case):
+    from repro_torch.core import subseq as ss
+
+    hidx, sidx, _, args = subseq_case(case, cuda)
+    qmeta = ss.quantize_subseq_meta(hidx, mode, cuda)
+    full = {k: v for k, v in args.items() if k not in ("words", "residuals")}
+    n0 = fq.fused_quant_subseq_range.launches
+    ga, gd = fq.fused_quant_subseq_range(**full, qmeta=qmeta, block_q=16,
+                                         block_b=256)
+    torch.cuda.synchronize()
+    assert fq.fused_quant_subseq_range.launches == n0 + 1
+    fa, fd = fq.fused_subseq_range(**args, block_q=16, block_b=256)
+    assert ga.sum() > 0
+    assert torch.equal(ga, fa) and torch.equal(gd, fd)
+    wa, wd = ref.fused_quant_subseq_range_ref(
+        **{k: v for k, v in full.items() if k != "alphabet"}, qmeta=qmeta)
+    eps2 = (args["eps"] ** 2).cpu().numpy()[:, None]
+    ga, gd, wa, wd = (t.cpu().numpy() for t in (ga, gd, wa, wd))
+    d_ref = np.where(np.isfinite(wd), wd, gd)
+    assert not ((ga != wa) & (np.abs(d_ref - eps2) > band(eps2))).any()
+
+
+def test_subseq_constant_windows_on_card(cuda):
+    # A flat stretch: σ is floored at 1e-8 and the windows z-normalise to
+    # 0 in both the kernel and the plain version.
+    _, sidx, _, args = subseq_case((2, 800, 64, 2, (4, 8), 6), cuda,
+                                   flat=True)
+    assert float(sidx.sd[0]) == pytest.approx(1e-8)
+    ga, gd = fq.fused_subseq_range(**args, block_q=16, block_b=128)
+    ra, rd = fq.fused_range(**rows_args(sidx, args), block_q=16,
+                            block_b=128)
+    assert torch.equal(ga, ra) and torch.equal(gd, rd)
+    z = ref.device_windows(args["streams"], 64, 2, args["mu"], args["sd"])
+    assert torch.equal(z, sidx.index.series)
+
+
+@pytest.mark.parametrize("case", SUBSEQ_CASES)
+def test_subseq_shared_memory_layout_matches_chooser(cuda, case):
+    _, _, window, stride, levels, Q = case
+    for topk, k_sel, quant in ((False, 0, False), (True, 12, False),
+                               (False, 0, True)):
+        for bq in ops.FUSED_BLOCK_Q:
+            assert fq.smem_bytes_of_kernel(
+                topk, window, levels, 10, bq, Q, k_sel, quant,
+                stride=stride) == ops.subseq_smem_bytes(
+                    bq, window, stride, levels, 10, Q, k_sel, quant)
+
+
+def test_subseq_engine_on_card_matches_torch_engine(cuda):
+    from repro_torch.core import subseq as ss
+    from repro_torch.core.options import SearchOptions
+
+    _, sidx, qr, _ = subseq_case((3, 3000, 128, 4, (8, 16), 8), cuda)
+    fq.reset_launch_counts()
+    got = ss.subseq_range_query(sidx, qr, 2.0)
+    want = ss.subseq_range_query(sidx, qr, 2.0,
+                                 options=SearchOptions(backend="torch"))
+    a, d = (t.cpu().numpy() for t in got)
+    wa, wd = (t.cpu().numpy() for t in want)
+    assert a.sum() > 0
+    assert not ((a != wa) & (np.abs(np.where(np.isfinite(wd), wd, d) - 4.0)
+                             > band(4.0))).any()
+    gi, gd, ge = ss.subseq_knn_query(sidx, qr, 3, excl=64)
+    wi, wd2, we = ss.subseq_knn_query(sidx, qr, 3, excl=64,
+                                      options=SearchOptions(backend="torch"))
+    assert ge.all() and we.all()
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gd, wd2, rtol=1e-5, atol=1e-5)
+    assert fq.fused_subseq_range.launches == 1
+    assert fq.fused_subseq_topk.launches == 2
+    assert fq.fused_range.launches == fq.fused_topk.launches == 0
