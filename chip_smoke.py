@@ -8,7 +8,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 1. Environment: the card (nvidia-smi name and power limit), torch and CUDA
    versions, whether nvcc and triton exist, the TF32 flags (matmul TF32
    must be off: the engine's top-k tie window is sized for f32 noise).
-2. Build: compile ``kernels/csrc/fused_query.cu`` for sm_90a with nvcc;
+2. Build: compile ``kernels/csrc/fused_query.cu`` and
+   ``kernels/csrc/level_ops.cu`` for sm_90a, one nvcc each, in parallel;
    print each kernel's registers and spills.
 3. Serving index: ``SearchService.from_series`` over
    ``make_wafer_like(1_048_576, 128, seed=0)`` with the default
@@ -65,6 +66,28 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    same streams), 64 requests from 16 clients (k-NN fraction 0.5, k = 3,
    ε = 2): 0 replay mismatches and phase 10's answers.  As in the
    reference, it serves windows as rows through kernels 1-2.
+12. The per-level kernels (``kernels/level_ops.py``): with the counts set
+   to 0, ``linfit_residual_sq`` and ``paa`` (kernels 8-9) over phase 3's
+   z-normalised series at both levels, bit-identical to their plain
+   versions and to the engine's device build (``sqrt`` of one equals the
+   index's residuals, ``discretize`` of the other its words, on every
+   row); ``mindist_sq``, ``sqdist`` and ``prune_level`` (10-12) bit-
+   identical to their plain versions at B = 2^20 and all five at the edge
+   shapes (B = 1, ragged B at n = 96, L = 1, N = 1, L = 128, bf16 rows,
+   the extreme symbols, a PAD_RESIDUAL row).  Times, plain times, the
+   one-call yardsticks (``torch.matmul`` by the averaging matrix for
+   ``paa``, ``torch.cdist`` for ``sqdist``) and the bounds.
+13. The paper's online phase, one query and one level at a time: the
+   port's host ``FastSAXIndex`` of phase 7, its columns uploaded once; 16
+   queries at ε ∈ {1, 2}; with the counts set to 0, FAST_SAX on the card
+   (``prune_level`` per level, then ``sqdist`` on the survivors) and SAX
+   (``mindist_sq`` at the finest level, then ``sqdist``), each against
+   the port's op-counted ``search.fastsax_range_query`` /
+   ``sax_range_query`` (answers and candidates equal except rows within
+   the f32 band of a threshold, which are counted) and FAST_SAX against
+   kernel 1 (``range_query_fused``) over phase 3's index; kernels 10-12
+   must have launched.  Each engine's op-counted latency, candidates,
+   exclusions and time per query.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -95,6 +118,15 @@ REPLACES = {"fused_range": "src/repro/kernels/fused_query.py:245",
             "fused_subseq_topk": "src/repro/kernels/fused_query.py:563",
             "fused_quant_subseq_range":
                 "src/repro/kernels/fused_query.py:1035"}
+LEVEL_SOURCE = "src/repro_torch/kernels/csrc/level_ops.cu"
+LEVEL_REPLACES = {"linfit_residual_sq": "src/repro/kernels/linfit.py:50",
+                  "paa": "src/repro/kernels/paa.py:40",
+                  "mindist_sq": "src/repro/kernels/mindist.py:38",
+                  "sqdist": "src/repro/kernels/sqdist.py:26",
+                  "prune_level": "src/repro/kernels/fused_prune.py:53"}
+# The paper's online phase, one query and one level at a time (phase 13).
+LEVEL_EPS = (1.0, 2.0)
+LEVEL_QUERIES = 16
 # subseq-1M: the launcher's subsequence defaults (window 128, stride 4,
 # excl 64, k 3) over as many windows as serve-1M has rows.
 SUBSEQ = dict(streams=16, stream_len=262_144, window=128, stride=4, excl=64,
@@ -1303,6 +1335,387 @@ def subseq_phases(torch, engine, fq, ref, report) -> tuple:
     return launches, kernels
 
 
+# ---------------------------------------------------------------------------
+# The per-level kernels and the level-at-a-time search (phases 12-13).
+# ---------------------------------------------------------------------------
+
+def level_ptxas_summary(log_text: str) -> list:
+    """:func:`ptxas_summary` for ``level_ops.cu``: the segment bodies
+    (0 paa, 1 linfit, 2 sqdist; f32 or bf16 rows) and the word gather
+    (mindist, prune)."""
+    import re
+    bodies = {"0": "paa", "1": "linfit", "2": "sqdist"}
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"segment_kernelILi(\d)E(f|13__nv_bfloat16)E", line)
+        w = re.search(r"word_kernelILb(\d)E", line)
+        if m and "Compiling entry function" in line:
+            name = (f"{bodies[m.group(1)]} "
+                    f"{'f32' if m.group(2) == 'f' else 'bf16'}")
+        elif w and "Compiling entry function" in line:
+            name = "prune" if w.group(1) == "1" else "mindist"
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers; "
+                       f"{spill}")
+            name = None
+    return out
+
+
+def max_abs_diff(torch, got, want) -> float:
+    """Largest |got − want| (differing entries, for masks)."""
+    if got.dtype == torch.bool:
+        return float((got != want).sum())
+    return float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+
+
+def level_edge_cases(torch, lo, ref, make_wafer_like, errs, dev) -> dict:
+    """Kernels 8-12 against their plain versions, bit for bit, at the
+    edge shapes: B = 1, ragged B at n = 96 (L = 12 and 3), L = 1, N = 1,
+    a segment longer than a warp (n = 1024, L = 128), bf16 rows, the
+    extreme symbols 0 and α − 1, a PAD_RESIDUAL row."""
+    cases = 0
+    for B, n, N in ((1, 128, 8), (50_001, 96, 8), (50_001, 96, 32),
+                    (513, 128, 128), (300, 128, 1), (257, 1024, 8)):
+        x32 = torch.as_tensor(make_wafer_like(B, n, seed=6),
+                              dtype=torch.float32, device=dev)
+        for x in (x32, x32.to(torch.bfloat16)):
+            for name, fn, plain in (
+                    ("linfit_residual_sq", lo.linfit_residual_sq,
+                     ref.linfit_residual_sq_ref),
+                    ("paa", lo.paa, ref.paa_ref)):
+                got, want = fn(x, N), plain(x, N)
+                errs[name] = max(errs[name], max_abs_diff(torch, got, want))
+                check(torch.equal(got, want),
+                      f"{name} differs from its plain version at B={B} "
+                      f"n={n} N={N} {x.dtype}")
+            q = x[B // 2].clone()
+            got, want = lo.sqdist(x, q), ref.sqdist_ref(x, q)
+            errs["sqdist"] = max(errs["sqdist"],
+                                 max_abs_diff(torch, got, want))
+            check(torch.equal(got, want),
+                  f"sqdist differs from its plain version at B={B} n={n} "
+                  f"{x.dtype}")
+            cases += 1
+    for B, N, alphabet in ((1, 8, 10), (50_001, 16, 10), (513, 128, 3),
+                           (300, 1, 20)):
+        n = 8 * N
+        rng = np.random.default_rng(B + N)
+        words = rng.integers(0, alphabet, (B, N)).astype(np.int32)
+        words[0], words[-1] = 0, alphabet - 1
+        qword = rng.integers(0, alphabet, N)
+        w = torch.as_tensor(words, device=dev)
+        tq = lo.query_table(qword, alphabet, dev)
+        got = lo.mindist_sq(w, qword, n, alphabet)
+        want = ref.mindist_sq_level_ref(w, tq, n)
+        errs["mindist_sq"] = max(errs["mindist_sq"],
+                                 max_abs_diff(torch, got, want))
+        check(torch.equal(got, want),
+              f"mindist_sq differs from its plain version at B={B} N={N}")
+        alive = torch.as_tensor(rng.random(B) < 0.7, device=dev)
+        res = torch.as_tensor(rng.random(B).astype(np.float32) * 4,
+                              device=dev)
+        res[B // 2] = 1e30
+        for eps in (0.5, 2.0, 1e20):
+            got = lo.prune_level(alive, res, w, qword, 1.3, eps, n, alphabet)
+            want = ref.prune_level_ref(alive, res, w, tq,
+                                       float(np.float32(1.3)),
+                                       float(np.float32(eps)), n)
+            errs["prune_level"] = max(errs["prune_level"],
+                                      max_abs_diff(torch, got, want))
+            check(torch.equal(got, want) and not bool(got[B // 2]),
+                  f"prune_level differs from its plain version at B={B} "
+                  f"N={N} eps={eps}")
+        cases += 1
+    return {"cases": cases}
+
+
+def level_bound(nbytes: float, ops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def level_phase12(torch, engine, lo, ref, index, queries, report) -> tuple:
+    """Phase 12: kernels 8-12 against their plain versions on the card,
+    8-9 also against the engine's device build of phase 3; their times.
+    Returns (the build comparison's launch counts, per-kernel figures)."""
+    from repro_torch.core import cost_model
+    from repro_torch.core.sax import discretize
+    from repro_torch.data.timeseries import make_wafer_like
+
+    x, B, n, A = index.series, index.size, index.n, index.alphabet
+    errs = dict.fromkeys(LEVEL_REPLACES, 0.0)
+    # Kernels 8-9 over phase 3's index: the engine's own columns.
+    lo.reset_launch_counts()
+    build = {}
+    for li, N in enumerate(index.levels):
+        k8, k9 = lo.linfit_residual_sq(x, N), lo.paa(x, N)
+        for name, got, want in (
+                ("linfit_residual_sq", k8, ref.linfit_residual_sq_ref(x, N)),
+                ("paa", k9, ref.paa_ref(x, N))):
+            errs[name] = max(errs[name], max_abs_diff(torch, got, want))
+            check(torch.equal(got, want), f"{name} differs from its plain "
+                  f"version at B={B} N={N}")
+        res = torch.sqrt(k8)
+        words = discretize(k9, A)
+        build[N] = {
+            "residual_rows_differ": int((res != index.residuals[li]).sum()),
+            "word_rows_differ": int((words != index.words[li])
+                                    .any(dim=1).sum())}
+        check(build[N]["residual_rows_differ"] == 0
+              and build[N]["word_rows_differ"] == 0,
+              f"kernels 8-9 do not reproduce the device index at N={N}: "
+              f"{build[N]}")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in lo.KERNELS}
+    check(launches["linfit_residual_sq"] > 0 and launches["paa"] > 0,
+          f"kernels 8-9 did not launch: {launches}")
+    log(f"[level-build] kernels 8-9 over phase 3's index (B={B}, n={n}): "
+        f"sqrt(linfit) == residuals and discretize(paa) == words on every "
+        f"row of both levels {build}; launches {launches}")
+
+    # Kernels 10-12 at the path's shape: the finest level, one query.
+    N = index.levels[-1]
+    qr = engine.represent_queries(
+        torch.as_tensor(queries[:1], dtype=torch.float32, device=x.device),
+        index.levels, A)
+    qword = qr.words[-1][0].cpu().numpy()
+    qres = float(qr.residuals[-1][0])
+    q = qr.q[0].contiguous()
+    w, r = index.words[-1], index.residuals[-1]
+    tq = lo.query_table(qword, A, x.device)
+    ones = torch.ones(B, dtype=torch.bool, device=x.device)
+    half = torch.arange(B, device=x.device) % 2 == 0
+    checks = [("mindist_sq", lambda: lo.mindist_sq(w, qword, n, A),
+               lambda: ref.mindist_sq_level_ref(w, tq, n)),
+              ("sqdist", lambda: lo.sqdist(x, q),
+               lambda: ref.sqdist_ref(x, q))]
+    for eps in (1.0, 2.0, 4.0):
+        for alive in (ones, half):
+            checks.append(("prune_level",
+                           lambda a=alive, e=eps: lo.prune_level(
+                               a, r, w, qword, qres, e, n, A),
+                           lambda a=alive, e=eps: ref.prune_level_ref(
+                               a, r, w, tq, float(np.float32(qres)),
+                               float(np.float32(e)), n)))
+    for name, fn, plain in checks:
+        got, want = fn(), plain()
+        errs[name] = max(errs[name], max_abs_diff(torch, got, want))
+        check(torch.equal(got, want),
+              f"{name} differs from its plain version at B={B}")
+    edges = level_edge_cases(torch, lo, ref, make_wafer_like, errs,
+                             x.device)
+    log(f"[level-kernels] kernels 8-12 bit-identical to their plain "
+        f"versions at B={B} n={n} and at {edges['cases']} edge shapes; "
+        f"max |kernel − plain| {errs}")
+
+    # Times at B = 2^20, n = 128, the finest level N = 16: "ms" launches
+    # the kernel alone (the query's panel made once; a launch outside the
+    # wrapper is not counted), "call_ms" is the wrapper's whole call, whose
+    # host work (checks, the panel from the word) can exceed a short
+    # kernel's time.
+    M = torch.zeros((n, N), dtype=torch.float32, device=x.device)
+    for s_ in range(N):
+        M[s_ * (n // N):(s_ + 1) * (n // N), s_] = 1.0 / (n // N)
+    f4 = 4.0
+    o_res = torch.empty(B, dtype=torch.float32, device=x.device)
+    o_paa = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    o_alive = torch.empty(B, dtype=torch.bool, device=x.device)
+    q32 = float(np.float32(qres))
+    timed = {
+        "linfit_residual_sq": (
+            lambda: lo._segment(1, x, N, None, o_res, "linfit"),
+            lambda: lo.linfit_residual_sq(x, N),
+            lambda: ref.linfit_residual_sq_ref(x, N), None,
+            B * n * f4 + B * f4, B * n * 5.0 + B * N * 8.0),
+        "paa": (lambda: lo._segment(0, x, N, None, o_paa, "paa"),
+                lambda: lo.paa(x, N), lambda: ref.paa_ref(x, N),
+                lambda: torch.matmul(x, M), B * n * f4 + B * N * f4,
+                B * n * 1.0 + B * N),
+        "mindist_sq": (
+            lambda: lo._word(0, w, tq, n, A, None, None, 0.0, 0.0, o_res,
+                             "mindist_sq"),
+            lambda: lo.mindist_sq(w, qword, n, A),
+            lambda: ref.mindist_sq_level_ref(w, tq, n), None,
+            B * N * f4 + A * N * f4 + B * f4, B * N * 2.0 + B),
+        "sqdist": (lambda: lo._segment(2, x, 1, q, o_res, "sqdist"),
+                   lambda: lo.sqdist(x, q), lambda: ref.sqdist_ref(x, q),
+                   lambda: torch.cdist(x, q[None]),
+                   B * n * f4 + n * f4 + B * f4, B * n * 3.0),
+        "prune_level": (
+            lambda: lo._word(1, w, tq, n, A, ones, r, q32, 2.0, o_alive,
+                             "prune_level"),
+            lambda: lo.prune_level(ones, r, w, qword, qres, 2.0, n, A),
+            lambda: ref.prune_level_ref(ones, r, w, tq, q32, 2.0, n), None,
+            B * (1 + 4 + N * 4 + 1) + A * N * f4, B * N * 2.0 + B * 6.0)}
+    figures = {}
+    for name, (kern, call, plain, lib, nbytes, ops) in timed.items():
+        b_ms, b_by = level_bound(nbytes, ops)
+        figures[name] = {
+            "ms": cuda_ms(torch, kern, 20), "call_ms": cuda_ms(torch, call, 20),
+            "plain_ms": cuda_ms(torch, plain, 3),
+            "library_ms": cuda_ms(torch, lib, 20) if lib else None,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
+            "max_abs_err": errs[name]}
+        f = figures[name]
+        log(f"[level-kernels] {name} at B={B} n={n} N={N}: {f['ms']:.4f} ms "
+            f"(the wrapper's call {f['call_ms']:.4f} ms, plain "
+            f"{f['plain_ms']:.3f} ms, library "
+            f"{'—' if lib is None else format(f['library_ms'], '.4f')} ms, "
+            f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.1f} MB)")
+    # The direct launches computed what the wrappers compute.
+    check(torch.equal(o_alive, ref.prune_level_ref(ones, r, w, tq, q32, 2.0,
+                                                   n))
+          and torch.equal(o_paa, ref.paa_ref(x, N)),
+          "a direct launch differs from its wrapper's result")
+    tiles = {}
+    for kind, Nk in (("linfit", N), ("paa", N), ("sqdist", 1),
+                     ("words", N)):
+        rows, smem = lo.tile_of(kind, n, Nk, A)
+        tiles[kind] = {"rows": rows, "smem": smem,
+                       "blocks_per_sm": cost_model.blocks_per_sm(smem)}
+    log(f"[level-kernels] tiles at n={n}: {tiles}")
+    report["level_kernels"] = {"build": build, "edges": edges,
+                               "figures": figures, "tiles": tiles,
+                               "build_launches": launches}
+    return launches, figures
+
+
+def level_phase13(torch, engine, lo, ref, host, index, queries,
+                  report) -> dict:
+    """Phase 13: the paper's online phase, one query and one level at a
+    time on the card (kernels 10-12), against the port's op-counted host
+    engines and against kernel 1.  Returns the phase's launch counts."""
+    from repro_torch.core import search
+    from repro_torch.core.fastsax import represent_query
+    from repro_torch.core.representation import get
+
+    cfg, B, n = host.config, host.size, host.n
+    A, dev = cfg.alphabet, index.device
+    t0 = time.perf_counter()
+    series = torch.as_tensor(host.series, dtype=torch.float32, device=dev)
+    words = [torch.as_tensor(lv.words, dtype=torch.int32, device=dev)
+             for lv in host.levels]
+    resid = [torch.as_tensor(lv.residuals, dtype=torch.float32, device=dev)
+             for lv in host.levels]
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    fine = list(cfg.levels).index(max(cfg.n_segments))
+    sax_word = get("sax_word")
+    qs = queries[:LEVEL_QUERIES]
+    dqr = engine.represent_queries(
+        torch.as_tensor(qs, dtype=torch.float32, device=dev), index.levels,
+        index.alphabet)
+    keys = ("latency", "candidates", "excluded_c9", "excluded_c10")
+    stats = {e: {eng: dict.fromkeys(keys + ("card_ms", "host_ms"), 0.0)
+                 for eng in ("fastsax", "sax")} for e in LEVEL_EPS}
+    tally = dict.fromkeys(("answers", "answer_band", "answer_wrong",
+                           "cand_band", "cand_wrong", "k1_band",
+                           "k1_wrong"), 0)
+    lo.reset_launch_counts()
+    for eps in LEVEL_EPS:
+        eps2 = ref.eps_sq_f32(eps)
+        k1_ans, _ = engine.range_query_fused(index, dqr, eps)
+        k1_ans = k1_ans.cpu().numpy()
+        for qi in range(len(qs)):
+            qr = represent_query(qs[qi], cfg)
+            q = torch.as_tensor(qr.q, dtype=torch.float32, device=dev)
+            # FAST_SAX on the card: C9 + C10 per level, then the verify.
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            alive = torch.ones(B, dtype=torch.bool, device=dev)
+            for li in range(len(host.levels)):
+                alive = lo.prune_level(alive, resid[li], words[li],
+                                       qr.words[li], qr.residuals[li], eps,
+                                       n, A)
+            f_cand = torch.nonzero(alive).flatten()
+            f_ans = f_cand[lo.sqdist(series[f_cand], q) <= eps2]
+            f_cand, f_ans = f_cand.cpu().numpy(), f_ans.cpu().numpy()
+            f_ms = (time.perf_counter() - t) * 1e3
+            # SAX on the card: MINDIST at the finest level, the verify.
+            t = time.perf_counter()
+            md2 = lo.mindist_sq(words[fine], qr.words[fine], n, A)
+            s_cand = torch.nonzero(md2 <= eps2).flatten()
+            s_ans = s_cand[lo.sqdist(series[s_cand], q) <= eps2]
+            s_cand, s_ans = s_cand.cpu().numpy(), s_ans.cpu().numpy()
+            s_ms = (time.perf_counter() - t) * 1e3
+            # The port's op-counted host engines (f64).
+            t = time.perf_counter()
+            rf = search.fastsax_range_query(host, qr, eps)
+            hf_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            rs = search.sax_range_query(host, qr, eps)
+            hs_ms = (time.perf_counter() - t) * 1e3
+            # The host cascade's candidate sets and the f64 gap and bound
+            # of every row, for the band rule.
+            near = np.zeros(B, dtype=bool)
+            h_alive = np.ones(B, dtype=bool)
+            for li, lv in enumerate(host.levels):
+                gap = np.abs(lv.residuals - qr.residuals[li])
+                b2 = sax_word.host_bound_sq(lv.words, qr.words[li], n=n,
+                                            N=lv.n_segments, alphabet=A)
+                near_b2 = np.abs(b2 - eps * eps) <= band(eps * eps)
+                near |= (np.abs(gap - eps) <= band(eps)) | near_b2
+                h_alive &= (gap <= eps) & (b2 <= eps * eps)
+                if li == fine:
+                    h_sax, near_sax = b2 <= eps * eps, near_b2
+            check(int(h_alive.sum()) == rf.candidates
+                  and int(h_sax.sum()) == rs.candidates,
+                  "the host cascade's candidate sets do not match "
+                  "search.py's counts")
+            for got, want, near_of in (
+                    (f_cand, np.nonzero(h_alive)[0], near),
+                    (s_cand, np.nonzero(h_sax)[0], near_sax)):
+                diff = np.setxor1d(got, want)
+                tally["cand_band"] += int(near_of[diff].sum())
+                tally["cand_wrong"] += int((~near_of[diff]).sum())
+            for got, want, key in ((f_ans, rf.answers, "answer"),
+                                   (s_ans, rs.answers, "answer"),
+                                   (np.nonzero(k1_ans[qi])[0], f_ans, "k1")):
+                diff = np.setxor1d(got, want)
+                d2 = np.sum((host.series[diff] - qr.q) ** 2, axis=-1)
+                near_d2 = np.abs(d2 - eps * eps) <= band(eps * eps)
+                tally[f"{key}_band"] += int(near_d2.sum())
+                tally[f"{key}_wrong"] += int((~near_d2).sum())
+            tally["answers"] += len(rf.answers)
+            for eng, r, card, hms in (("fastsax", rf, f_ms, hf_ms),
+                                      ("sax", rs, s_ms, hs_ms)):
+                st = stats[eps][eng]
+                for key in keys:
+                    st[key] += float(getattr(r, key)) / len(qs)
+                st["card_ms"] += card / len(qs)
+                st["host_ms"] += hms / len(qs)
+        for eng in ("fastsax", "sax"):
+            st = stats[eps][eng]
+            log(f"[level-search] eps={eps} {eng}: op-counted latency "
+                f"{st['latency']:.0f}, candidates {st['candidates']:.1f}, "
+                f"excluded C9 {st['excluded_c9']:.1f} C10 "
+                f"{st['excluded_c10']:.1f} (means over {len(qs)} queries); "
+                f"card {st['card_ms']:.2f} ms, host f64 {st['host_ms']:.1f} "
+                f"ms per query")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in lo.KERNELS}
+    check(tally["answer_wrong"] == 0 and tally["cand_wrong"] == 0
+          and tally["k1_wrong"] == 0,
+          f"the level-at-a-time search disagrees outside the f32 band: "
+          f"{tally}")
+    check(all(launches[k] > 0 for k in ("mindist_sq", "sqdist",
+                                         "prune_level")),
+          f"a level kernel of the path did not launch: {launches}")
+    log(f"[level-search] B={B}, {len(qs)} queries at eps {LEVEL_EPS}: "
+        f"card against the host engines and kernel 1 {tally}; columns "
+        f"uploaded in {upload_s:.2f}s; launches {launches}")
+    report["level_search"] = {"stats": {str(e): v for e, v in stats.items()},
+                              "agreement": tally, "launches": launches,
+                              "upload_s": upload_s}
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1315,6 +1728,7 @@ def main() -> int:
     from repro_torch.data.timeseries import make_queries, make_wafer_like
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_query as fq
+    from repro_torch.kernels import level_ops as lo
     from repro_torch.kernels import ref
     from repro_torch.serve import (SearchService, ServeConfig, WorkloadSpec,
                                    make_workload)
@@ -1324,13 +1738,19 @@ def main() -> int:
     report = {"env": environment(torch)}
 
     t0 = time.perf_counter()
-    build.build(["fused_query"])
+    build.build(["fused_query", "level_ops"])
     info = build.BUILD_INFO["fused_query"]
+    linfo = build.BUILD_INFO["level_ops"]
     report["build"] = {"seconds": time.perf_counter() - t0,
-                       "nvcc_seconds": info["seconds"], "log": info["log"]}
-    log(f"[build] fused_query.cu in {report['build']['seconds']:.1f}s")
+                       "nvcc_seconds": info["seconds"], "log": info["log"],
+                       "level_ops_nvcc_seconds": linfo["seconds"],
+                       "level_ops_log": linfo["log"]}
+    log(f"[build] fused_query.cu and level_ops.cu in "
+        f"{report['build']['seconds']:.1f}s (nvcc {info['seconds']:.1f}s "
+        f"and {linfo['seconds']:.1f}s, in parallel)")
     report["build"]["kernels"] = ptxas_summary(info["log"])
-    for line in report["build"]["kernels"]:
+    report["build"]["level_kernels"] = level_ptxas_summary(linfo["log"])
+    for line in report["build"]["kernels"] + report["build"]["level_kernels"]:
         log("[build] " + line)
 
     t0 = time.perf_counter()
@@ -1410,7 +1830,6 @@ def main() -> int:
     t0 = time.perf_counter()
     host = build_index(db, FastSAXConfig(n_segments=(8, 16), alphabet=10))
     tier16 = engine.TieredIndex.from_host(host, "bf16")
-    del host
     torch.cuda.synchronize()
     t_bf16 = time.perf_counter() - t0
     qhost_bytes = {m: quant_resident_bytes(t.dev)
@@ -1486,11 +1905,22 @@ def main() -> int:
     report["quant_breakdown"] = quant_breakdown(torch, engine, qservice,
                                                 queries)
     log(f"[time] phases 1-8 in {time.perf_counter() - t_start:.1f}s")
+    index = service.backend.index          # phase 3's, for phases 12-13
     del qservice, tier8, service, db
 
     # ---- 9-11. subsequence search
     slaunches, sk = subseq_phases(torch, engine, fq, ref, report)
     log(f"[time] phases 1-11 in {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 12. kernels 8-12 against their plain versions and the device
+    # build of phase 3
+    blaunches, lk = level_phase12(torch, engine, lo, ref, index, queries,
+                                  report)
+    # ---- 13. the paper's online phase, level at a time, on the card
+    llaunches = level_phase13(torch, engine, lo, ref, host, index, queries,
+                              report)
+    del host, index
+    log(f"[time] phases 1-13 in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name in ("fused_range", "fused_topk"):
@@ -1534,6 +1964,19 @@ def main() -> int:
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"],
                         "library_ms": main["library_ms"]})
+    # Kernels 8-9: launches from phase 12's build comparison; 10-12 from
+    # phase 13's level-at-a-time search.
+    for name in LEVEL_REPLACES:
+        f = lk[name]
+        kernels.append({"name": name, "route": "cuda", "source": LEVEL_SOURCE,
+                        "replaces": LEVEL_REPLACES[name],
+                        "launches": (blaunches if name in (
+                            "linfit_residual_sq", "paa") else
+                                     llaunches)[name],
+                        "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+                        "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                        "bound_by": f["bound_by"],
+                        "library_ms": f["library_ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -1,21 +1,188 @@
-"""Device cost model of the fused kernels on an NVIDIA H100.
+"""Cost models: the paper's latency-time op counts, and the H100 device
+model of the fused kernels.
 
-Counterpart of the device half of ``repro/core/cost_model.py``: the
-fused-pass and streaming-subsequence-pass latency estimates the tile
-choosers (``kernels/ops.py``) rank shapes with, and the top-k demotion
-rule.  The reference's paper
-op-count model (``OpCounter`` and the per-operation costs) is not ported
-yet (ROADMAP.md, queue 1).
+Counterpart of ``repro/core/cost_model.py``.
 
-The constants are the H100 SXM data sheet's: 3.35 TB/s of HBM3 and
-67 TFLOP/s of float32 outside the tensor cores (the verify is plain f32
-FMAs), 132 SMs.  The model only has to order tile shapes; the pass reads
-far fewer bytes per FLOP than the card's ridge point, so the memory term
-and the wave quantisation of thread blocks over the SMs decide it.
+**Latency time** (paper §4, after Schulte et al. 2005): the paper compares
+SAX and FAST_SAX by weighting every arithmetic operation by its hardware
+latency and summing.  The paper does not print its weight table, so the
+reference makes its own explicit, and the port keeps it:
+
+    CMP / ADD / SUB / ABS / LOOKUP : 1
+    MUL                            : 1   (fused multiply-add era)
+    DIV                            : 4
+    SQRT                           : 8
+
+:class:`OpCounter` accumulates the integer counts the host engines of
+``core/search.py`` charge, from the closed-form per-operation costs below,
+so the port's counts and latencies equal the reference's exactly.
+
+**The device model**: the fused-pass and streaming-subsequence-pass
+latency estimates the tile choosers (``kernels/ops.py``) rank shapes
+with, and the top-k demotion rule.  Its constants are the H100 SXM data
+sheet's: 3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the tensor
+cores (the verify is plain f32 FMAs), 132 SMs.  The model only has to
+order tile shapes; the pass reads far fewer bytes per FLOP than the
+card's ridge point, so the memory term and the wave quantisation of
+thread blocks over the SMs decide it.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+
+_OPS = ("cmp", "add", "sub", "abs", "mul", "div", "sqrt", "lookup")
+
+
+@dataclasses.dataclass(frozen=True)
+class OpWeights:
+    cmp: float = 1.0
+    add: float = 1.0
+    sub: float = 1.0
+    abs: float = 1.0
+    mul: float = 1.0
+    div: float = 4.0
+    sqrt: float = 8.0
+    lookup: float = 1.0
+
+
+DEFAULT_WEIGHTS = OpWeights()
+
+
+@dataclasses.dataclass
+class OpCounter:
+    """Accumulates raw op counts; ``latency()`` applies the weight table."""
+
+    weights: OpWeights = DEFAULT_WEIGHTS
+    cmp: int = 0
+    add: int = 0
+    sub: int = 0
+    abs: int = 0
+    mul: int = 0
+    div: int = 0
+    sqrt: int = 0
+    lookup: int = 0
+
+    def count(self, **ops: int) -> None:
+        for name, k in ops.items():
+            setattr(self, name, getattr(self, name) + int(k))
+
+    def latency(self) -> float:
+        # The reference's summation order, so the float is the same.
+        w = self.weights
+        return (
+            self.cmp * w.cmp
+            + self.add * w.add
+            + self.sub * w.sub
+            + self.abs * w.abs
+            + self.mul * w.mul
+            + self.div * w.div
+            + self.sqrt * w.sqrt
+            + self.lookup * w.lookup
+        )
+
+    def total_ops(self) -> int:
+        return sum(getattr(self, f) for f in _OPS)
+
+    def merge(self, other: "OpCounter") -> None:
+        for f in _OPS:
+            setattr(self, f, getattr(self, f) + getattr(other, f))
+
+    def as_dict(self) -> dict:
+        return {f: getattr(self, f) for f in _OPS}
+
+
+# Closed-form op counts of the primitive computations both host engines
+# charge (``core/search.py``).
+
+
+def euclidean_cost(n: int) -> dict:
+    """Full Euclidean distance between two length-n series + threshold test."""
+    return dict(sub=n, mul=n, add=n - 1, sqrt=1, cmp=1)
+
+
+def mindist_cost(N: int) -> dict:
+    """MINDIST between two N-symbol words + threshold test (eq. 3): per
+    symbol pair one lookup and one square; then N−1 adds, the sqrt(n/N)
+    scale (one mul after a cached sqrt), one sqrt, one compare."""
+    return dict(lookup=N, mul=N + 1, add=N - 1, sqrt=1, cmp=1)
+
+
+def c9_cost() -> dict:
+    """FAST_SAX's first exclusion condition |d(u,ū) − d(q,q̄)| > ε (eq. 9)."""
+    return dict(sub=1, abs=1, cmp=1)
+
+
+def paa_cost(n: int, N: int) -> dict:
+    """PAA of a length-n series into N segments (query side, online)."""
+    return dict(add=n - N, mul=N)  # segment sums + scale by 1/L
+
+
+def discretize_cost(N: int, alphabet: int) -> dict:
+    """Binary-search discretisation of N PAA values over α−1 breakpoints."""
+    return dict(cmp=N * max(1, math.ceil(math.log2(max(2, alphabet)))))
+
+
+def residual_gap_cost() -> dict:
+    """|d(u,ū) − d(q,q̄)| as a lower bound, without the threshold test
+    (what the k-NN seed phase computes per series)."""
+    return dict(sub=1, abs=1)
+
+
+def heap_push_cost(k: int) -> dict:
+    """One sift of a size-k binary heap (the k-NN best-so-far)."""
+    return dict(cmp=max(1, math.ceil(math.log2(max(2, k + 1)))))
+
+
+def select_cost(m: int, k: int) -> dict:
+    """Heap-select the k smallest of m values: one compare per value plus
+    a sift charged for all m (the accounting must never undercount)."""
+    lg = max(1, math.ceil(math.log2(max(2, k + 1))))
+    return dict(cmp=m + m * lg)
+
+
+def sort_cost(m: int) -> dict:
+    """Comparison sort of m keys (candidate ordering before verification)."""
+    if m <= 1:
+        return dict(cmp=0)
+    return dict(cmp=m * max(1, math.ceil(math.log2(m))))
+
+
+def linfit_residual_cost(n: int, N: int) -> dict:
+    """Closed-form per-segment first-degree LS residual of the query: per
+    segment Σy, Σxc·y, Σy², then the constant combination."""
+    return dict(add=3 * n, mul=2 * n + 6 * N, div=N, sqrt=1)
+
+
+def latency_of(cost: dict, weights: OpWeights = DEFAULT_WEIGHTS) -> float:
+    """Weighted latency time of one closed-form op-count dict."""
+    return float(sum(int(k) * getattr(weights, name)
+                     for name, k in cost.items()))
+
+
+def c10_skip_advised(kill_frac: float, n: int, N: int,
+                     weights: OpWeights = DEFAULT_WEIGHTS) -> bool:
+    """True when a level's MINDIST test is expected to cost more than the
+    verifications its exclusions would save: per C9 survivor it costs
+    ``mindist_cost(N)`` and an exclusion saves ``euclidean_cost(n)``;
+    skip when ``kill_frac · gain < cost``.  Skipping is always sound."""
+    gain = float(kill_frac) * latency_of(euclidean_cost(n), weights)
+    return gain < latency_of(mindist_cost(N), weights)
+
+
+def level_enable_advised(kill_frac: float, n: int, exclude_cost: dict,
+                         weights: OpWeights = DEFAULT_WEIGHTS) -> bool:
+    """Should a registered extra representation level be enabled?  It
+    costs ``exclude_cost`` per surviving candidate and saves one
+    ``euclidean_cost(n)`` per exclusion: enable when ``kill_frac · gain >
+    cost``.  Either answer is sound."""
+    gain = float(kill_frac) * latency_of(euclidean_cost(n), weights)
+    return gain > latency_of(exclude_cost, weights)
+
+
+# ---------------------------------------------------------------------------
+# The H100 device model.
+# ---------------------------------------------------------------------------
 
 HBM_GBPS = 3350.0         # H100 SXM HBM3 bandwidth
 F32_TFLOPS = 67.0         # H100 SXM float32, non-tensor

@@ -57,6 +57,29 @@ from .sax import discretize
 
 INF = math.inf
 
+#: The ROADMAP.md queue 1 item that extends the device engines to stacks
+#: beyond the paper pair.
+EXTENDED_STACK_ITEM = 12
+
+
+def extended_stack_error(what: str, stack) -> NotImplementedError:
+    """The refusal of a device path given a stack beyond the paper pair:
+    it builds only words and residuals and would drop the extra columns
+    without a word.  The host engines of ``core/search.py`` take any
+    stack."""
+    return NotImplementedError(
+        f"{what} with the stack {tuple(stack)}: extended stacks on the "
+        f"device engines are not ported (ROADMAP.md queue 1 item "
+        f"{EXTENDED_STACK_ITEM}); core/search.py's host engines take it")
+
+
+def check_device_stack(stack, what: str) -> tuple:
+    """Validate ``stack`` and refuse one beyond the paper pair."""
+    stack = repr_registry.validate_stack(stack)
+    if repr_registry.extra_names(stack):
+        raise extended_stack_error(what, stack)
+    return stack
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else the
@@ -147,7 +170,9 @@ def device_index_from_numpy(series, norms_sq, words, residuals, levels,
 
 
 def device_index_from_host(index: FastSAXIndex, device=None) -> DeviceIndex:
-    """Upload a host-built index (f64 columns cast to f32)."""
+    """Upload a host-built index (f64 columns cast to f32); the paper
+    stack only."""
+    stack = check_device_stack(index.config.stack, "device_index_from_host")
     dev = resolve_device(device)
     series = torch.as_tensor(index.series, dtype=torch.float32, device=dev)
     return DeviceIndex(
@@ -159,7 +184,7 @@ def device_index_from_host(index: FastSAXIndex, device=None) -> DeviceIndex:
                                         device=dev) for lv in index.levels),
         levels=tuple(lv.n_segments for lv in index.levels),
         alphabet=index.config.alphabet,
-        stack=tuple(index.config.stack))
+        stack=stack)
 
 
 def build_device_index(series, levels: Sequence[int], alphabet: int,
@@ -168,7 +193,8 @@ def build_device_index(series, levels: Sequence[int], alphabet: int,
     """Offline phase on the device: z-normalise (optionally) and compute
     every level's words and residuals in f32.  ``series`` is a (B, n)
     array or tensor; a tensor stays on its device unless ``device`` is
-    given."""
+    given.  The paper stack only."""
+    stack = check_device_stack(stack, "build_device_index")
     if device is None and isinstance(series, torch.Tensor):
         device = series.device
     dev = resolve_device(device)
@@ -176,7 +202,6 @@ def build_device_index(series, levels: Sequence[int], alphabet: int,
     if normalize:
         x = znormalize(x)
     x = x.contiguous()
-    stack = repr_registry.validate_stack(stack)
     return DeviceIndex(
         series=x,
         norms_sq=torch.sum(x * x, dim=-1),
@@ -201,8 +226,9 @@ class QueryReprDev:
 def represent_queries(q: torch.Tensor, levels: Sequence[int], alphabet: int,
                       normalize: bool = True,
                       stack: tuple = DEFAULT_STACK) -> QueryReprDev:
-    """Represent a (Q, n) batch of queries at every level, on its device."""
-    repr_registry.validate_stack(stack)
+    """Represent a (Q, n) batch of queries at every level, on its device
+    (the paper stack only)."""
+    check_device_stack(stack, "represent_queries")
     if normalize:
         q = znormalize(q)
     q = q.to(torch.float32).contiguous()
@@ -872,10 +898,13 @@ def quantized_device_index(qhost, device=None) -> QuantizedDeviceIndex:
     become (m,) f32."""
     dev = resolve_device(device)
     int8 = _quant.check_mode(qhost.mode) == "int8"
-    if any(getattr(lv, "extra", None) for lv in qhost.levels):
-        raise NotImplementedError(
-            "quantized stack extensions (trend_slope) need the "
-            "representation slice of the port")
+    stack = check_device_stack(getattr(qhost, "stack", DEFAULT_STACK),
+                               "quantized_device_index")
+    extras = sorted({name for lv in qhost.levels
+                     for name in getattr(lv, "extra", {})})
+    if extras:
+        raise extended_stack_error("quantized_device_index",
+                                   stack + tuple(extras))
 
     def col(a):
         return torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
@@ -899,7 +928,7 @@ def quantized_device_index(qhost, device=None) -> QuantizedDeviceIndex:
         levels=tuple(int(lv.n_segments) for lv in qhost.levels),
         alphabet=int(qhost.alphabet),
         mode=qhost.mode,
-        stack=tuple(getattr(qhost, "stack", DEFAULT_STACK)))
+        stack=stack)
 
 
 #: (nb,) per scale block -> (B,) per row.

@@ -24,6 +24,8 @@ class SearchOptions:
     ``capacity``: initial compaction capacity (``None`` = engine default);
     escalation from it is automatic.  ``n_iters``: k-NN tightening passes.
     ``max_doublings``: cap on the 4× capacity-escalation loop.
+    ``seed_factor`` / ``adaptive_c10``: the host k-NN engine's knobs
+    (``search.fastsax_knn_query``).
     ``verify_prefetch``: overlap the tiered engines' raw-tier row fetch
     with the device's upload and verify (``engine._verify_prefetched``);
     the distances are the same, bit for bit.
@@ -35,6 +37,8 @@ class SearchOptions:
     n_iters: int = 2
     max_doublings: int = 8
     verify_prefetch: bool = False
+    seed_factor: int = 2
+    adaptive_c10: bool = True
 
 
 _LEGACY_FIELDS = {
@@ -44,6 +48,8 @@ _LEGACY_FIELDS = {
     "n_iters": "n_iters",
     "max_doublings": "max_doublings",
     "verify_prefetch": "verify_prefetch",
+    "seed_factor": "seed_factor",
+    "adaptive_c10": "adaptive_c10",
 }
 
 

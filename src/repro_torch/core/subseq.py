@@ -24,9 +24,9 @@ zone of each other.
     and distances are those of the fused whole-series kernels over the
     materialised windows, bit for bit.
 
-Only the canonical representation stack is built; the reference's
-extension hooks (``window_symbolize_np``), its traced twins, its store
-round trip and its distributed form need later slices of the port and
+Only the paper's representation stack is built; the reference's
+extension columns (``window_symbolize_np``), its traced twins, its store
+round trip and its distributed form need later items of the port and
 raise ``NotImplementedError`` naming them.
 """
 from __future__ import annotations
@@ -45,7 +45,6 @@ from .engine import DeviceIndex, QueryReprDev, represent_queries
 from .fastsax import FastSAXConfig, LevelData
 from .options import SearchOptions, resolve_options
 from .paa import row_sum, znormalize_np
-from .representation import DEFAULT_STACK
 from .sax import discretize_np
 
 # Same floor as paa.znormalize / znormalize_np: a (near-)constant window
@@ -167,10 +166,8 @@ class SubseqHostIndex:
 
 
 def _check_stack(stack) -> None:
-    if tuple(stack) != DEFAULT_STACK:
-        raise _not_ported(
-            f"the representation stack {tuple(stack)} (windowed extension "
-            "columns)", 2, "the representation slice")
+    _engine.check_device_stack(stack, "subsequence search (windowed "
+                                      "extension columns)")
 
 
 def _as_streams(streams) -> np.ndarray:

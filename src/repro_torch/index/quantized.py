@@ -212,6 +212,9 @@ class QuantizedLevel:
     scale: Optional[np.ndarray]    # (nb,) f32 (int8 only)
     zero: Optional[np.ndarray]     # (nb,) f32 (int8 only)
     err: np.ndarray                # (nb,) f32, per-block |r̂ − r| bound
+    #: Extra word-kind stack columns {name: (B, N) int8}, narrowed
+    #: losslessly like ``words``, so their bounds need no widening.
+    extra: dict = dataclasses.field(default_factory=dict)
 
     def dequant_residuals(self) -> np.ndarray:
         if self.residuals.dtype == np.uint16:
@@ -261,6 +264,8 @@ class QuantizedHostIndex:
             total += lv.words.nbytes + lv.residuals.nbytes + lv.err.nbytes
             if lv.scale is not None:
                 total += lv.scale.nbytes + lv.zero.nbytes
+            for col in lv.extra.values():
+                total += col.nbytes
         return total
 
 
@@ -282,6 +287,12 @@ def quantize_host_index(index, mode: str) -> QuantizedHostIndex:
             f"alphabet {index.config.alphabet} exceeds int8 symbol range")
     stack = repr_registry.validate_stack(
         getattr(index.config, "stack", DEFAULT_STACK))
+    for name in repr_registry.extra_names(stack):
+        if repr_registry.get(name).kind != "word":
+            raise QuantizationError(
+                f"representation {name!r} is gap-kind: its float gap column "
+                "has no lossless narrow form; quantize the paper stack or a "
+                "word-kind extension instead")
     s_codes, s_scale, s_zero, s_err, norms = quantize_series(
         np.asarray(index.series, np.float64), mode)
     qlevels = []
@@ -290,7 +301,9 @@ def quantize_host_index(index, mode: str) -> QuantizedHostIndex:
             np.asarray(lv.residuals, np.float64), mode)
         qlevels.append(QuantizedLevel(
             n_segments=lv.n_segments, words=narrow_words(lv.words),
-            residuals=r_codes, scale=r_scale, zero=r_zero, err=r_err))
+            residuals=r_codes, scale=r_scale, zero=r_zero, err=r_err,
+            extra={name: narrow_words(col)
+                   for name, col in getattr(lv, "extra", {}).items()}))
     return QuantizedHostIndex(
         mode=mode, n=index.series.shape[1], alphabet=index.config.alphabet,
         series=s_codes, series_scale=s_scale, series_zero=s_zero,

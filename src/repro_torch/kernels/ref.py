@@ -1,10 +1,14 @@
-"""Plain PyTorch versions of the fused kernels and of the top-k merge.
+"""Plain PyTorch versions of every CUDA kernel and of the top-k merge.
 
-Counterpart of ``repro/kernels/ref.py`` for the kernels ported so far
-(the whole-series, quantized and streaming subsequence forms).
-Each function computes what its CUDA kernel computes (``csrc/
-fused_query.cu``): the wrappers in ``fused_query.py`` run these on CPU
+Counterpart of ``repro/kernels/ref.py``: the fused whole-series,
+quantized and streaming subsequence forms (``csrc/fused_query.cu``) and
+the per-level operations (``csrc/level_ops.cu``: ``paa_ref``,
+``linfit_residual_sq_ref``, ``mindist_sq_level_ref``, ``sqdist_ref``,
+``prune_level_ref``).  Each function computes what its kernel computes:
+the wrappers in ``fused_query.py`` and ``level_ops.py`` run these on CPU
 tensors, and ``chip_smoke.py`` holds the kernels against them on the card.
+The per-level forms sum in ``core/paa.row_sum``'s fixed order, as the
+engine's device build does, so their kernels equal them bit for bit.
 They spend memory freely — the (Q, B, N) MINDIST gather and a dense
 (Q, B) verify — which is fine for tests and checks, not for serving.
 
@@ -16,8 +20,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from ..core.paa import paa, row_sum
+from ..core.polyfit import linfit_residual_sq
 from ..index.quantized import PAD_RESIDUAL, RESID_BLOCK, SENTINEL_CODE
 
 INT32_MAX = 2 ** 31 - 1
@@ -279,3 +286,50 @@ def merge_topk_partials(idx, d2, k: int):
     out = torch.where(torch.isfinite(d2s[:, :k]), idxs[:, :k],
                       torch.full_like(idxs[:, :k], -1))
     return out, d2s[:, :k]
+
+
+# ---------------------------------------------------------------------------
+# The per-level operations (``csrc/level_ops.cu``), one query at a time.
+# ``qres`` and ``eps`` are Python floats already rounded to float32.
+# ---------------------------------------------------------------------------
+
+def paa_ref(x, n_segments: int) -> torch.Tensor:
+    """(B, n) f32 or bf16 -> (B, N) f32 segment means (``core/paa.paa``)."""
+    return paa(x.to(torch.float32), n_segments)
+
+
+def linfit_residual_sq_ref(x, n_segments: int) -> torch.Tensor:
+    """(B, n) f32 or bf16 -> (B,) f32 squared distance to the optimal
+    per-segment line (``core/polyfit.linfit_residual_sq``)."""
+    return linfit_residual_sq(x.to(torch.float32), n_segments)
+
+
+def mindist_sq_level_ref(words, tq, n: int) -> torch.Tensor:
+    """(B, N) int32 words × one query's (α, N) panel -> (B,) squared
+    MINDIST ``(n/N)·Σᵢ tq[wᵢ, i]²`` (the single-query form of
+    :func:`mindist_sq_ref`)."""
+    N = words.shape[-1]
+    cell = tq[words.long(), torch.arange(N, device=words.device)[None, :]]
+    return (n / N) * row_sum(cell * cell)
+
+
+def sqdist_ref(x, q) -> torch.Tensor:
+    """(B, n) × (n,) -> (B,) f32 squared Euclidean distances."""
+    diff = x.to(torch.float32) - q.to(torch.float32)[None, :]
+    return row_sum(diff * diff)
+
+
+def eps_sq_f32(eps: float) -> float:
+    """ε·ε rounded to float32, as the reference's kernel takes it (+inf
+    past float32's range)."""
+    with np.errstate(over="ignore"):
+        return float(np.float32(eps) * np.float32(eps))
+
+
+def prune_level_ref(alive, residuals, words, tq, qres: float, eps: float,
+                    n: int) -> torch.Tensor:
+    """One cascade level: ``alive ∧ |res − qres| ≤ ε ∧ MINDIST² ≤ ε·ε``
+    with ε·ε rounded to float32 (eq. 9, then eq. 10)."""
+    c9 = torch.abs(residuals - qres) <= eps
+    c10 = mindist_sq_level_ref(words, tq, n) <= eps_sq_f32(eps)
+    return alive & c9 & c10

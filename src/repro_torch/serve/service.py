@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..core.engine import (DeviceIndex, TieredIndex, build_device_index,
-                           mixed_query, mixed_query_dense, mixed_query_fused,
+                           check_device_stack, mixed_query,
+                           mixed_query_dense, mixed_query_fused,
                            quantized_mixed_query, represent_queries,
                            resolve_backend, resolve_device,
                            resolve_knn_backend)
@@ -82,6 +83,7 @@ class ServeConfig:
 
     def __post_init__(self):
         check_mode(self.quantization)
+        check_device_stack(self.stack, "ServeConfig")
         if self.failover_shards:
             raise _not_ported("failover_shards")
         if self.trace:

@@ -17,10 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import engine
+from repro_torch.core import cost_model, engine
 from repro_torch.core.paa import znormalize_np
+from repro_torch.core.sax import discretize
 from repro_torch.data.timeseries import make_queries, make_wafer_like
 from repro_torch.kernels import fused_query as fq
+from repro_torch.kernels import level_ops as lo
 from repro_torch.kernels import ops, ref
 from repro_torch.serve import (SearchService, ServeConfig, WorkloadSpec,
                                check_exactness, make_workload,
@@ -513,3 +515,121 @@ def test_subseq_engine_on_card_matches_torch_engine(cuda):
     assert fq.fused_subseq_range.launches == 1
     assert fq.fused_subseq_topk.launches == 2
     assert fq.fused_range.launches == fq.fused_topk.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The per-level kernels (csrc/level_ops.cu): bit for bit their plain
+# versions, which are the engine's own device expressions.
+# ---------------------------------------------------------------------------
+
+# (B, n, N): B = 1; ragged B at n = 96 with L = 12 and L = 3; L = 1
+# (N = n); N = 1 (L = n); a segment longer than a warp (n = 1024, L = 128).
+SEG_CASES = [(1, 128, 8), (50_001, 96, 8), (700, 96, 32), (513, 128, 128),
+             (300, 128, 1), (257, 1024, 8), (4096, 128, 16)]
+# (B, N, alphabet): B = 1, ragged B, N = 1 and N = 128, alphabets 3-20.
+WORD_CASES = [(1, 8, 10), (50_001, 16, 10), (513, 128, 3), (300, 1, 20),
+              (4096, 8, 20)]
+
+
+def level_rows(device, B, n, dtype, seed=6):
+    x = torch.as_tensor(make_wafer_like(B, n, seed=seed), dtype=torch.float32,
+                        device=device)
+    return x.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("case", SEG_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_kernels_are_bit_identical(cuda, case, dtype):
+    B, n, N = case
+    x = level_rows(cuda, B, n, dtype)
+    for wrapper, plain in ((lo.paa, ref.paa_ref),
+                           (lo.linfit_residual_sq, ref.linfit_residual_sq_ref)):
+        n0 = wrapper.launches
+        got = wrapper(x, N)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1
+        assert torch.equal(got, plain(x, N)), wrapper.__name__
+    for q in (x[B // 2].clone(), x[B // 3].float() * 0.5):
+        got = lo.sqdist(x, q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.sqdist_ref(x, q))
+
+
+@pytest.mark.parametrize("case", WORD_CASES)
+def test_word_kernels_are_bit_identical(cuda, case):
+    B, N, alphabet = case
+    n = 8 * N
+    rng = np.random.default_rng(B + N)
+    words = rng.integers(0, alphabet, (B, N)).astype(np.int32)
+    words[0] = 0                                 # the extreme symbols
+    words[-1] = alphabet - 1
+    qword = rng.integers(0, alphabet, N)
+    w = torch.as_tensor(words, device=cuda)
+    tq = lo.query_table(qword, alphabet, cuda)
+    n0 = lo.mindist_sq.launches
+    got = lo.mindist_sq(w, qword, n, alphabet)
+    torch.cuda.synchronize()
+    assert lo.mindist_sq.launches == n0 + 1
+    assert torch.equal(got, ref.mindist_sq_level_ref(w, tq, n))
+    alive = torch.as_tensor(rng.random(B) < 0.7, device=cuda)
+    res = torch.as_tensor(rng.random(B).astype(np.float32) * 4, device=cuda)
+    res[B // 2] = 1e30                           # PAD_RESIDUAL
+    for eps in (0.5, 2.0, 1e20):
+        got = lo.prune_level(alive, res, w, qword, 1.3, eps, n, alphabet)
+        torch.cuda.synchronize()
+        want = ref.prune_level_ref(alive, res, w, tq, float(np.float32(1.3)),
+                                   float(np.float32(eps)), n)
+        assert torch.equal(got, want)
+        assert not bool(got[B // 2])
+        assert not bool((got & ~alive).any())
+
+
+@pytest.mark.parametrize("n,levels", [(128, (8, 16)), (96, (8, 32))])
+def test_build_kernels_reproduce_the_device_index(cuda, n, levels):
+    index = engine.build_device_index(make_wafer_like(20_001, n, seed=8),
+                                      levels, 10, device=cuda)
+    for li, N in enumerate(index.levels):
+        res = torch.sqrt(lo.linfit_residual_sq(index.series, N))
+        assert torch.equal(res, index.residuals[li])
+        words = discretize(lo.paa(index.series, N), index.alphabet)
+        assert torch.equal(words, index.words[li])
+
+
+def test_level_wrappers_refuse_without_copying(cuda):
+    x = torch.zeros((64, 128), device=cuda)
+    words = torch.zeros((64, 8), dtype=torch.int32, device=cuda)
+    x64, xt = x.double(), torch.zeros((128, 64), device=cuda).t()
+    q_cpu, q_dev = torch.zeros(128), torch.zeros(64, device=cuda)
+    w64 = words.long()
+    alive_t = torch.ones((64, 2), dtype=torch.bool, device=cuda)[:, 0]
+    res = torch.zeros(64, device=cuda)
+    torch.cuda.synchronize()
+    launches = [k.launches for k in lo.KERNELS]
+    torch.cuda.reset_peak_memory_stats(cuda)
+    live = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(TypeError, match="float32"):
+        lo.paa(x64, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        lo.linfit_residual_sq(xt, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        lo.sqdist(x[:, ::2], q_dev)
+    with pytest.raises(ValueError, match="is on cpu"):
+        lo.sqdist(x, q_cpu)
+    with pytest.raises(TypeError, match="int32"):
+        lo.mindist_sq(w64, np.zeros(8, np.int32), 128, 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        lo.prune_level(alive_t, res, words, np.zeros(8, np.int32), 0.0, 1.0,
+                       128, 10)
+    torch.cuda.synchronize()
+    # Nothing was launched, and nothing was allocated: no input was copied.
+    assert [k.launches for k in lo.KERNELS] == launches
+    assert torch.cuda.max_memory_allocated(cuda) == live
+
+
+def test_level_tiles_keep_four_blocks_per_sm(cuda):
+    # The path's shapes (n = 128, levels 8 and 16) keep at least four
+    # thread blocks resident per SM.
+    for kind, N in (("paa", 16), ("linfit", 8), ("linfit", 16),
+                    ("sqdist", 1), ("words", 16)):
+        rows, smem = lo.tile_of(kind, 128, N, 10)
+        assert rows >= 1 and cost_model.blocks_per_sm(smem) >= 4, (kind, N)

@@ -37,7 +37,9 @@ def test_port_files_import_neither_jax_nor_reference():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/index/quantized.py",
             "src/repro_torch/index/store.py",
-            "src/repro_torch/core/subseq.py"} <= names
+            "src/repro_torch/core/subseq.py",
+            "src/repro_torch/core/search.py",
+            "src/repro_torch/kernels/level_ops.py"} <= names
     offenders = {str(p.relative_to(ROOT)): sorted(
                      imported_modules(p) & set(FORBIDDEN))
                  for p in PORT_FILES}
@@ -52,7 +54,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.serve, repro_torch.launch.serve\n"
             "import repro_torch.kernels.fused_query\n"
             "import repro_torch.index.quantized, repro_torch.index.store\n"
-            "import repro_torch.core.subseq\n"
+            "import repro_torch.core.subseq, repro_torch.core.search\n"
+            "import repro_torch.kernels.level_ops\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
             "assert not bad, bad\n")

@@ -169,8 +169,15 @@ def test_stack_validation_and_config_errors():
         trep.validate_stack(("sax_word",))
     with pytest.raises(ValueError, match="gap-kind"):
         trep.validate_stack(("sax_word", "linfit_residual"))
-    with pytest.raises(KeyError, match="trend_slope"):
-        trep.validate_stack(trep.DEFAULT_STACK + ("trend_slope",))
+    # trend_slope is registered; the device engines refuse a stack that
+    # carries it (extended stacks on the device engines, queue 1 item 12).
+    ext = trep.DEFAULT_STACK + ("trend_slope",)
+    assert trep.validate_stack(ext) == ext
+    with pytest.raises(KeyError, match="unregistered"):
+        trep.validate_stack(trep.DEFAULT_STACK + ("no_such_rep",))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        teng.build_device_index(make_wafer_like(8, 64, seed=0), (8,), 10,
+                                stack=ext, device="cpu")
     with pytest.raises(ValueError, match="ascending"):
         tfs.FastSAXConfig(n_segments=(8, 8))
     with pytest.raises(ValueError, match="alphabet"):

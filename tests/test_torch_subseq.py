@@ -447,7 +447,7 @@ def test_later_slices_raise_naming_their_items():
             fn(hidx)
     with pytest.raises(NotImplementedError, match="item 1"):
         SubseqSearchService.from_store("/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tss.build_subseq_index(
             streams, JConfig(n_segments=LEVELS,
                              stack=("linfit_residual", "sax_word",
