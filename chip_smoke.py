@@ -10,7 +10,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    must be off: the engine's top-k tie window is sized for f32 noise).
 2. Build: compile ``kernels/csrc/fused_query.cu`` and
    ``kernels/csrc/level_ops.cu`` for sm_90a, one nvcc each, in parallel;
-   print each kernel's registers and spills.
+   print each kernel's registers and spills, and the top-k
+   instantiations' range of registers and total spill bytes.
 3. Serving index: ``SearchService.from_series`` over
    ``make_wafer_like(1_048_576, 128, seed=0)`` with the default
    ``ServeConfig`` (levels (8, 16), alphabet 10, max_batch 32), then
@@ -22,9 +23,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    Q = 27, B = 50,001.  d² must agree within 1e-3 + 1e-5·d² (f32
    summation order of the matmul form), no answer may differ outside
    that band around ε², and the merged top-k must agree up to swaps of
-   near-equal d².  Kernel, plain-version and yardstick times, and the
-   least time the card could take (bytes over 3.35 TB/s or FLOPs over
-   67 TFLOP/s f32, whichever is larger, for the data this run needs).
+   near-equal d².  The selection exactly: ``fused_topk``'s partials
+   equal ``ref.block_topk`` of ``fused_range``'s d² bit for bit at the
+   open radius ε = 1e28 (every valid row a candidate and an answer) for
+   k_sel 9 and the path's k_sel, and in each block's first min(k_sel,
+   answers) slots at the path's ε.  Kernel, plain-version and yardstick
+   times, and the least time the card could take (bytes over 3.35 TB/s
+   or FLOPs over 67 TFLOP/s f32, whichever is larger, for the data this
+   run needs).
 5. The full-precision slice: with the launch counts set to 0, 64 requests
    from 16 closed-loop clients (k-NN fraction 0.5, k = 5, ε = 2); both
    kernels must have launched.  Every request is replayed alone
@@ -36,7 +42,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    same host index.  The quantized kernels (``fused_quant_range``,
    ``fused_quant_topk``) against their plain versions in both modes at
    the three shapes of phase 4: keep masks equal except on rows within
-   the band of the screen's thresh², d̂² within the band.
+   the band of the screen's thresh², d̂² within the band;
+   ``fused_quant_topk``'s partials equal ``ref.block_topk`` of
+   ``fused_quant_range``'s d̂² bit for bit at the path's ε and at the open
+   radius (the kept rows are the candidates at any ε).
 8. The quantized slice: with the counts set to 0, the same 64 requests
    through the int8 tier; ``fused_quant_range`` must have launched.  The
    replay shows 0 mismatches, the answers equal phase 5's for the same
@@ -51,10 +60,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    streams of 5,000 at stride 3, on inputs made as the path makes them
    (half the rows at the k-NN fetch's seed radius, half at ε = 2), with
    the band rule of phase 4; kernel 3 bit-identical to ``fused_range``
-   over the materialised windows, kernel 4's merged top-k equal to
-   ``fused_topk``'s, kernel 7 set-identical to kernel 3.  Times, plain
-   times, the ``torch.matmul`` yardstick and the bounds, which count the
-   stream samples, not the window matrix.
+   over the materialised windows, kernel 4's partials equal to
+   ``fused_topk``'s, kernel 7 set-identical to kernel 3; kernel 4's
+   partials equal ``ref.block_topk`` of kernel 3's d² bit for bit at the
+   open radius (the path's k_sel and k_sel 128) and at the path's ε (the
+   first min(k_sel, answers) slots of each block).  Times, plain times,
+   the ``torch.matmul`` yardstick and the bounds, which count the stream
+   samples, not the window matrix; the selection's own cost (kernel 4 −
+   kernel 3) beside ``torch.topk`` over kernel 3's d² in kernel 4's
+   blocks and ``fused_topk`` over the materialised windows.
 10. The subsequence slice: with the counts set to 0, ``subseq_range_query``
    at ε = 2, ``subseq_knn_query`` at k = 3, excl = 64 (backend auto) and
    ``subseq_range_query_quantized`` in int8; each streaming kernel must
@@ -87,7 +101,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the f32 band of a threshold, which are counted) and FAST_SAX against
    kernel 1 (``range_query_fused``) over phase 3's index; kernels 10-12
    must have launched.  Each engine's op-counted latency, candidates,
-   exclusions and time per query.
+   exclusions and time per query; ``sqdist`` timed at the phase's mean
+   survivor count, the shape it runs at, beside phase 12's 2^20 rows
+   (the kernels line carries the survivor-count figures).
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -98,6 +114,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -109,6 +126,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_SERVE = 1_048_576
+# The engine's no-information radius: ε² is +inf in f32, so C10 is open
+# and C9 kills only the 1e30 sentinel; every valid row is a candidate.
+OPEN_EPS = 1e28
 SOURCE = "src/repro_torch/kernels/csrc/fused_query.cu"
 REPLACES = {"fused_range": "src/repro/kernels/fused_query.py:245",
             "fused_topk": "src/repro/kernels/fused_query.py:291",
@@ -303,6 +323,37 @@ def merged_agreement(fq, got, want, k: int) -> dict:
             if same.any() else 0.0}
 
 
+def selection_exact(torch, ref, got, range_d2, k: int, block_b: int,
+                    what: str, prefix: bool = False) -> dict:
+    """A top-k form's partials ``got`` against ``ref.block_topk`` of its
+    range form's d² on the same inputs, idx and d² bit for bit.  At the
+    open radius ``OPEN_EPS`` every slot is compared (every valid row is a
+    candidate and an answer); with ``prefix``, at a path's ε, each block's
+    first min(k, answers in the block) slots (the candidates are all
+    survivors, the answers those with d² ≤ ε²)."""
+    wi, wd = ref.block_topk(range_d2, k, block_b)
+    gi, gd = got
+    Q, B = range_d2.shape
+    nb = wi.shape[1] // k
+    keep = torch.ones((Q, nb, k), dtype=torch.bool, device=wi.device)
+    if prefix:
+        fin = torch.zeros((Q, nb * block_b), dtype=torch.bool,
+                          device=wi.device)
+        fin[:, :B] = torch.isfinite(range_d2)
+        n_ans = fin.view(Q, nb, block_b).sum(-1).clamp(max=k)
+        keep = torch.arange(k, device=wi.device)[None, None, :] \
+            < n_ans[..., None]
+    gi, gd, wi, wd = (t.reshape(Q, nb, k) for t in (gi, gd, wi, wd))
+    out = {"k_sel": k, "block_b": block_b, "slots": int(keep.sum()),
+           "idx_equal": bool(torch.equal(gi[keep], wi[keep])),
+           "d2_bits_equal": bool(torch.equal(gd[keep].view(torch.int32),
+                                             wd[keep].view(torch.int32)))}
+    check(out["slots"] > 0 and out["idx_equal"] and out["d2_bits_equal"],
+          f"{what}: the top-k selection differs from ref.block_topk of the "
+          f"range form's d²: {out}")
+    return out
+
+
 def compare_kernels(torch, engine, fq, ref, index, queries, label,
                     timing: bool) -> dict:
     qr, args, rtile, ttile = path_inputs(torch, engine, index, queries)
@@ -326,6 +377,25 @@ def compare_kernels(torch, engine, fq, ref, index, queries, label,
     t = out["topk"]
     check(t["merged_mismatch"] == 0 and t["merged_d2_within_band"],
           f"fused_topk disagrees with its plain version at {label}: {t}")
+    # The selection, exactly: at the open radius for k_sel 9 and the
+    # path's k_sel, at the path's ε for its k_sel.
+    tile = {key: ttile[key] for key in ("block_q", "block_b")}
+    bb = ttile["block_b"]
+    open_args = dict(args, eps=torch.full_like(args["eps"], OPEN_EPS))
+    rd = fq.fused_range(**open_args, **tile)[1]
+    sel = {f"open_k{ks}": selection_exact(
+        torch, ref, fq.fused_topk(**open_args, k=ks, **tile), rd, ks, bb,
+        f"fused_topk at {label}, open radius")
+        for ks in sorted({min(9, bb), k})}
+    rd = fq.fused_range(**args, **tile)[1]
+    sel[f"path_k{k}"] = selection_exact(
+        torch, ref, fq.fused_topk(**args, **ttile), rd, k, bb,
+        f"fused_topk at {label}, path ε", prefix=True)
+    del rd
+    out["selection"] = sel
+    log(f"[kernels] {label}: fused_topk's partials equal ref.block_topk of "
+        f"fused_range's d² bit for bit: "
+        + ", ".join(f"{key} ({v['slots']} slots)" for key, v in sel.items()))
     log(f"[kernels] {label}: Q={Q} B={B} range answers={r['answers']} "
         f"max|Δd²|={r['max_abs_err']:.3g} outside-band="
         f"{r['mismatch_outside_band']} in-band={r['mismatch_in_band']}; "
@@ -365,14 +435,14 @@ def ptxas_summary(log_text: str) -> list:
     """One line per compiled kernel from nvcc's ``-Xptxas -v`` output:
     its template arguments (queries per thread, top-k form, row loader),
     registers and spills."""
-    import re
     modes = {"0": "f32", "1": "int8", "2": "bf16"}
     out, name, spill = [], None, ""
     for line in log_text.splitlines():
-        m = re.search(r"fused_query_kernelILi(\d+)ELb(\d)ELi(\d)ELb(\d)E",
+        m = re.search(r"fused_(range|topk)_kernelILi(\d+)ELi(\d)ELb(\d)E",
                       line)
         if m and "Compiling entry function" in line:
-            name = (f"QPT={m.group(1)} {'top-k' if m.group(2) == '1' else 'range'}"
+            name = (f"QPT={m.group(2)} "
+                    f"{'top-k' if m.group(1) == 'topk' else 'range'}"
                     f" {modes[m.group(3)]}"
                     f"{' streaming' if m.group(4) == '1' else ''}")
         elif "spill" in line:
@@ -603,6 +673,22 @@ def compare_quant_kernels(torch, engine, fq, ref, tindex, queries, label,
     check(t["merged_mismatch"] == 0 and t["merged_d2_within_band"],
           f"fused_quant_topk disagrees with its plain version at {label}: "
           f"{t}")
+    # The selection, exactly: the tier's candidates are the kept rows at
+    # any ε, so every slot equals ref.block_topk of the range form's d̂²
+    # at the path's ε and at the open radius.
+    tile = {key: ttile[key] for key in ("block_q", "block_b")}
+    sel = {}
+    for name, e in (("path", eps), ("open", torch.full_like(eps,
+                                                            OPEN_EPS))):
+        a = args[:4] + (e,)
+        sel[f"{name}_k{k}"] = selection_exact(
+            torch, ref, fq.fused_quant_topk(*a, k=k, **tile),
+            fq.fused_quant_range(*a, **tile)[1], k, ttile["block_b"],
+            f"fused_quant_topk ({qdev.mode}) at {label}, {name}")
+    out["selection"] = sel
+    log(f"[quant-kernels] {label} {qdev.mode}: fused_quant_topk's partials "
+        f"equal ref.block_topk of fused_quant_range's d̂² bit for bit: "
+        + ", ".join(f"{key} ({v['slots']} slots)" for key, v in sel.items()))
     log(f"[quant-kernels] {label} {qdev.mode}: Q={Q} B={B} kept="
         f"{r['answers']} (kernel {r['kernel_answers']}) max|Δd̂²|="
         f"{r['max_abs_err']:.3g} outside-band={r['mismatch_outside_band']} "
@@ -887,9 +973,29 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
         vs_rows=merged_agreement(fq, gi, ri, kf))
     t = out["topk"]
     check(t["merged_mismatch"] == 0 and t["merged_d2_within_band"]
-          and t["vs_rows"]["merged_equal"],
+          and t["vs_rows"]["merged_equal"] and t["partials_equal_to_rows"],
           f"fused_subseq_topk disagrees at {label}: {t}")
     del gi, ri, wi
+    # The selection, exactly: at the open radius for the path's k_sel and
+    # for k_sel 128 (its own tile), at the path's ε for the path's k_sel.
+    open_args = dict(args, eps=torch.full_like(eps, OPEN_EPS))
+    sel = {}
+    for ks in sorted({k_sel, 128}):
+        sq, sb = ss._subseq_blocks(sidx, Q, ks)
+        tile = dict(block_q=sq, block_b=sb)
+        sel[f"open_k{ks}"] = selection_exact(
+            torch, ref, fq.fused_subseq_topk(**open_args, k=ks, **tile),
+            fq.fused_subseq_range(**open_args, **tile)[1], ks, sb,
+            f"fused_subseq_topk at {label}, open radius")
+    sel[f"path_k{k_sel}"] = selection_exact(
+        torch, ref, fq.fused_subseq_topk(**args, k=k_sel, **ttile),
+        fq.fused_subseq_range(**args, **ttile)[1], k_sel, tb,
+        f"fused_subseq_topk at {label}, path ε", prefix=True)
+    out["selection"] = sel
+    log(f"[subseq-kernels] {label}: fused_subseq_topk's partials equal "
+        f"ref.block_topk of fused_subseq_range's d² bit for bit: "
+        + ", ".join(f"{key} (block_b {v['block_b']}, {v['slots']} slots)"
+                    for key, v in sel.items()))
 
     for mode, qmeta in qmetas.items():
         qargs = {k: v for k, v in args.items()
@@ -980,6 +1086,26 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
         log(f"[subseq-kernels] the whole-series kernels over the "
             f"materialised windows at {label}: fused_range "
             f"{out['fused_range_over_rows_ms']:.4f} ms, fused_topk "
+            f"{out['fused_topk_over_rows_ms']:.4f} ms")
+        # The selection's own cost: kernel 4 less kernel 3 (same loader,
+        # cascade and verify; kernel 3 also writes the (Q, W) mask and
+        # d²), and torch.topk over kernel 3's d² in kernel 4's blocks, a
+        # yardstick for the selection alone that the port never calls.
+        nbk = -(-W // tb)
+        blocks = torch.full((Q, nbk * tb), float("inf"), device=eps.device)
+        blocks[:, :W] = fq.fused_subseq_range(**args, **ttile)[1]
+        blocks = blocks.view(Q, nbk, tb)
+        out["selection_ms"] = (out["fused_subseq_topk"]["ms"]
+                               - out["fused_subseq_range"]["ms"])
+        out["torch_topk_ms"] = cuda_ms(
+            torch, lambda: torch.topk(blocks, k_sel, dim=-1, largest=False),
+            20)
+        del blocks
+        log(f"[subseq-kernels] the selection at {label} (k_sel {k_sel}, "
+            f"block_w {tb}): kernel 4 − kernel 3 = "
+            f"{out['selection_ms']:.4f} ms; torch.topk over kernel 3's d² "
+            f"in ({Q}, {nbk}, {tb}) blocks {out['torch_topk_ms']:.4f} ms; "
+            f"fused_topk over the materialised windows "
             f"{out['fused_topk_over_rows_ms']:.4f} ms")
     return out
 
@@ -1343,7 +1469,6 @@ def level_ptxas_summary(log_text: str) -> list:
     """:func:`ptxas_summary` for ``level_ops.cu``: the segment bodies
     (0 paa, 1 linfit, 2 sqdist; f32 or bf16 rows) and the word gather
     (mindist, prune)."""
-    import re
     bodies = {"0": "paa", "1": "linfit", "2": "sqdist"}
     out, name, spill = [], None, ""
     for line in log_text.splitlines():
@@ -1587,10 +1712,11 @@ def level_phase12(torch, engine, lo, ref, index, queries, report) -> tuple:
 
 
 def level_phase13(torch, engine, lo, ref, host, index, queries,
-                  report) -> dict:
+                  report) -> tuple:
     """Phase 13: the paper's online phase, one query and one level at a
     time on the card (kernels 10-12), against the port's op-counted host
-    engines and against kernel 1.  Returns the phase's launch counts."""
+    engines and against kernel 1.  Returns the phase's launch counts and
+    ``sqdist``'s figures at its mean survivor count."""
     from repro_torch.core import search
     from repro_torch.core.fastsax import represent_query
     from repro_torch.core.representation import get
@@ -1710,10 +1836,43 @@ def level_phase13(torch, engine, lo, ref, host, index, queries,
     log(f"[level-search] B={B}, {len(qs)} queries at eps {LEVEL_EPS}: "
         f"card against the host engines and kernel 1 {tally}; columns "
         f"uploaded in {upload_s:.2f}s; launches {launches}")
+    sq = sqdist_at_survivors(torch, lo, ref, series, dqr.q[0].contiguous(),
+                             stats)
     report["level_search"] = {"stats": {str(e): v for e, v in stats.items()},
                               "agreement": tally, "launches": launches,
-                              "upload_s": upload_s}
-    return launches
+                              "upload_s": upload_s,
+                              "sqdist_at_survivors": sq}
+    return launches, sq
+
+
+def sqdist_at_survivors(torch, lo, ref, series, q, stats) -> dict:
+    """``sqdist`` at the shape phase 13 gives it: the mean number of
+    survivors its launches saw (both engines, both radii), as rows of the
+    series.  The kernel launched alone (not counted), the wrapper's call,
+    the plain version, ``torch.cdist`` and the bound, as phase 12 times it
+    at 2^20 rows."""
+    m = int(round(np.mean([stats[e][eng]["candidates"] for e in LEVEL_EPS
+                           for eng in ("fastsax", "sax")])))
+    x = series[:m].contiguous()
+    n = x.shape[1]
+    out = torch.empty(m, dtype=torch.float32, device=x.device)
+    lo._segment(2, x, 1, q, out, "sqdist")
+    check(torch.equal(out, ref.sqdist_ref(x, q)),
+          f"sqdist differs from its plain version at {m} rows")
+    nbytes, ops = m * n * 4.0 + n * 4.0 + m * 4.0, m * n * 3.0
+    b_ms, b_by = level_bound(nbytes, ops)
+    f = {"rows": m, "ms": cuda_ms(torch, lambda: lo._segment(
+            2, x, 1, q, out, "sqdist"), 20),
+         "call_ms": cuda_ms(torch, lambda: lo.sqdist(x, q), 20),
+         "plain_ms": cuda_ms(torch, lambda: ref.sqdist_ref(x, q), 3),
+         "library_ms": cuda_ms(torch, lambda: torch.cdist(x, q[None]), 20),
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+    log(f"[level-kernels] sqdist at phase 13's mean survivor count ({m} "
+        f"rows, n={n}): {f['ms']:.4f} ms (the wrapper's call "
+        f"{f['call_ms']:.4f} ms, plain {f['plain_ms']:.3f} ms, torch.cdist "
+        f"{f['library_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+        f"{nbytes / 1e6:.2f} MB)")
+    return f
 
 
 def main() -> int:
@@ -1752,6 +1911,18 @@ def main() -> int:
     report["build"]["level_kernels"] = level_ptxas_summary(linfo["log"])
     for line in report["build"]["kernels"] + report["build"]["level_kernels"]:
         log("[build] " + line)
+    topk_build = [line for line in report["build"]["kernels"]
+                  if " top-k " in line]
+    regs = [int(m) for line in topk_build
+            for m in re.findall(r"(\d+) registers", line)]
+    spills = sum(int(m) for line in topk_build
+                 for m in re.findall(r"(\d+) bytes spill", line))
+    report["build"]["topk_registers"] = regs
+    report["build"]["topk_spill_bytes"] = spills
+    if topk_build:
+        log(f"[build] the {len(topk_build)} top-k instantiations: "
+            f"{min(regs)}-{max(regs)} registers, {spills} bytes of spill "
+            f"stores and loads in all")
 
     t0 = time.perf_counter()
     db = make_wafer_like(N_SERVE, 128, seed=0)
@@ -1917,8 +2088,8 @@ def main() -> int:
     blaunches, lk = level_phase12(torch, engine, lo, ref, index, queries,
                                   report)
     # ---- 13. the paper's online phase, level at a time, on the card
-    llaunches = level_phase13(torch, engine, lo, ref, host, index, queries,
-                              report)
+    llaunches, sq = level_phase13(torch, engine, lo, ref, host, index,
+                                  queries, report)
     del host, index
     log(f"[time] phases 1-13 in {time.perf_counter() - t_start:.1f}s")
 
@@ -1965,9 +2136,14 @@ def main() -> int:
                         "bound_by": main["bound_by"],
                         "library_ms": main["library_ms"]})
     # Kernels 8-9: launches from phase 12's build comparison; 10-12 from
-    # phase 13's level-at-a-time search.
+    # phase 13's level-at-a-time search.  sqdist's figures are at the
+    # shape phase 13 gives it (its survivors), phase 12's at 2^20 rows
+    # are in the report.
     for name in LEVEL_REPLACES:
-        f = lk[name]
+        f = dict(lk[name])
+        if name == "sqdist":
+            f.update({k: sq[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
         kernels.append({"name": name, "route": "cuda", "source": LEVEL_SOURCE,
                         "replaces": LEVEL_REPLACES[name],
                         "launches": (blaunches if name in (

@@ -192,9 +192,12 @@ MAX_BLOCKS_PER_SM = 8     # 2048 resident threads / 256-thread blocks
 
 # The reference demotes a fused k-NN whose in-kernel selection would keep
 # more than this many slots (k + guard) to the dense engine, because its
-# Pallas selection unrolls one sweep per slot.  The CUDA selection keeps
-# each query's sorted list in shared memory and has no unroll; its own
-# limit is ``kernels.fused_query.KSEL_MAX``.  The rule is kept so that
+# Pallas selection unrolls one sweep per slot.  The CUDA selection has no
+# unroll: one warp per query merges each 64-row sub-tile's candidates into
+# the query's sorted list in shared memory by rank (a binary search and
+# one warp broadcast per candidate), so its cost follows the candidates,
+# not k_sel; its limit is the lists' shared memory,
+# ``kernels.fused_query.KSEL_MAX`` slots.  The rule is kept so that
 # serving takes the same engine as the reference at every k.
 TOPK_DEMOTE_KSEL = 100
 

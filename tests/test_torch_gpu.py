@@ -633,3 +633,207 @@ def test_level_tiles_keep_four_blocks_per_sm(cuda):
                     ("sqdist", 1), ("words", 16)):
         rows, smem = lo.tile_of(kind, 128, N, 10)
         assert rows >= 1 and cost_model.blocks_per_sm(smem) >= 4, (kind, N)
+
+
+# ---------------------------------------------------------------------------
+# The warp-parallel top-k selection, held exactly.  At the no-information
+# radius ε = 1e28 (ε² = +inf in f32) C10 is open and C9 kills only the
+# 1e30 sentinel residual, so every valid row is both a range answer and a
+# top-k candidate, and the range form's d² is the top-k form's input bit
+# for bit (one body, one arithmetic): the partials must be
+# ``ref.block_topk`` of it exactly, idx and d² (compared as bits).
+# ---------------------------------------------------------------------------
+
+OPEN_EPS = 1e28
+# (k_sel, block_b) with k_sel ≤ block_b.
+SELECT_GRID = [(k, bb) for k in (1, 9, 67, 128) for bb in (64, 1024, 4096)
+               if k <= bb]
+SELECT_Q = 37                       # not a multiple of block_q 16 or 32
+SELECT_B = 2 * 4096 + 1234          # a ragged last block
+# Rows 5..4095 carry the C9 sentinel: the first block of every block_b
+# keeps 5 valid rows (fewer than k_sel) or none.
+DEAD_ROWS = slice(5, 4096)
+
+
+def assert_selection_exact(got, range_d2, k, block_b):
+    wi, wd = ref.block_topk(range_d2, k, block_b)
+    gi, gd = got
+    assert torch.equal(gi, wi)
+    assert torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+
+
+def assert_selection_prefix(got, range_d2, k, block_b):
+    """At a path's ε the top-k candidates are all survivors and the range
+    answers those with d² ≤ ε²: each block's first min(k, answers) slots
+    must be ``ref.block_topk`` of the range d² exactly."""
+    wi, wd = ref.block_topk(range_d2, k, block_b)
+    Q, B = range_d2.shape
+    nb = wi.shape[1] // k
+    fin = torch.isfinite(range_d2)
+    fin = torch.cat([fin, fin.new_zeros((Q, nb * block_b - B))], dim=1)
+    n_ans = fin.reshape(Q, nb, block_b).sum(-1).clamp(max=k)
+    keep = torch.arange(k, device=wi.device)[None, None, :] < n_ans[..., None]
+    gi, gd = (t.reshape(Q, nb, k) for t in got)
+    wi, wd = wi.reshape(Q, nb, k), wd.reshape(Q, nb, k)
+    assert int(keep.sum()) > 0
+    assert torch.equal(gi[keep], wi[keep])
+    assert torch.equal(gd[keep].view(torch.int32), wd[keep].view(torch.int32))
+
+
+def tie_rows(B, seed=11):
+    """B rows that repeat 600 distinct wafer-like series: d² ties are
+    common (a repeated row has the same d² bit for bit)."""
+    base = make_wafer_like(600, 128, seed=seed)
+    return np.ascontiguousarray(np.resize(base, (B, 128)))
+
+
+@pytest.fixture(scope="module")
+def select_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    db = tie_rows(SELECT_B)
+    index = engine.build_device_index(db, (8, 16), 10, normalize=False,
+                                      device=dev)
+    qr = engine.represent_queries(
+        torch.as_tensor(make_queries(db, SELECT_Q, seed=12),
+                        dtype=torch.float32, device=dev), (8, 16), 10,
+        normalize=False)
+    res0 = index.residuals[0].clone()
+    res0[DEAD_ROWS] = fq.PAD_RESIDUAL
+    panels = engine._query_panels(qr, 10)
+    residuals = (res0,) + tuple(index.residuals[1:])
+    open_eps = torch.full((SELECT_Q,), OPEN_EPS, device=dev)
+    path_eps = torch.linspace(1.0, 3.0, SELECT_Q, device=dev)
+    return {name: engine._fused_inputs(index, qr, residuals, panels, eps)
+            for name, eps in (("open", open_eps), ("path", path_eps))}
+
+
+@pytest.mark.parametrize("k,block_b", SELECT_GRID)
+@pytest.mark.parametrize("block_q", [16, 32])
+def test_fused_topk_selection_is_exact(select_case, k, block_b, block_q):
+    tile = dict(block_q=block_q, block_b=block_b)
+    for name, check in (("open", assert_selection_exact),
+                        ("path", assert_selection_prefix)):
+        args = select_case[name]
+        _, rd = fq.fused_range(**args, **tile)
+        got = fq.fused_topk(**args, k=k, **tile)
+        torch.cuda.synchronize()
+        if name == "open":
+            assert int(torch.isfinite(rd).sum()) == SELECT_Q * (
+                SELECT_B - (DEAD_ROWS.stop - DEAD_ROWS.start))
+        check(got, rd, k, block_b)
+
+
+@pytest.fixture(scope="module")
+def select_subseq_case():
+    """Four streams of 6,000 samples, windows of 64 at stride 4 (W = 5,940,
+    a ragged last block); streams 1 and 3 repeat a 64-sample pattern, so
+    many windows are equal and their d² tie."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import subseq as ss
+    from repro_torch.core.fastsax import FastSAXConfig
+    from repro_torch.data.timeseries import make_subseq_queries
+
+    dev = torch.device("cuda")
+    streams = make_wafer_like(4, 6000, seed=13, normalize=False)
+    for s in (1, 3):
+        streams[s] = np.resize(streams[s, :64], 6000)
+    hidx = ss.build_subseq_index(
+        streams, FastSAXConfig(n_segments=(4, 8), alphabet=10), 64, 4)
+    sidx = ss.subseq_device_index(hidx, dev)
+    qr = ss.represent_subseq_queries(
+        sidx, make_subseq_queries(streams, SELECT_Q, 64, seed=14))
+    res0 = sidx.index.residuals[0].clone()
+    res0[DEAD_ROWS] = fq.PAD_RESIDUAL
+    base = dict(streams=sidx.streams, mu=sidx.mu, sd=sidx.sd,
+                norms_sq=sidx.index.norms_sq, words=sidx.index.words,
+                residuals=(res0,) + tuple(sidx.index.residuals[1:]),
+                q=qr.q, q_panels=engine._query_panels(qr, 10),
+                q_residuals=qr.residuals, levels=(4, 8), alphabet=10,
+                window=64, stride=4)
+    # The path's radii: alternate rows at the k-NN seed radius and at 2.
+    knn = (torch.arange(SELECT_Q, device=dev) % 2 == 0).reshape(-1, 1)
+    seed = engine._slacked(engine._seed_eps(sidx.index, qr, 8, None))
+    path_eps = torch.where(knn, seed, torch.full_like(seed, 2.0))
+    return sidx, {
+        "open": dict(base, eps=torch.full((SELECT_Q,), OPEN_EPS,
+                                          device=dev)),
+        "path": dict(base, eps=path_eps.reshape(-1).contiguous())}
+
+
+@pytest.mark.parametrize("k,block_b", SELECT_GRID)
+@pytest.mark.parametrize("block_q", [16, 32])
+def test_subseq_topk_selection_is_exact(select_subseq_case, k, block_b,
+                                        block_q):
+    sidx, cases = select_subseq_case
+    tile = dict(block_q=block_q, block_b=block_b)
+    for name, check in (("open", assert_selection_exact),
+                        ("path", assert_selection_prefix)):
+        args = cases[name]
+        _, rd = fq.fused_subseq_range(**args, **tile)
+        got = fq.fused_subseq_topk(**args, k=k, **tile)
+        torch.cuda.synchronize()
+        check(got, rd, k, block_b)
+        # The same partials as the whole-series kernel over the windows.
+        rows = fq.fused_topk(**rows_args(sidx, args), k=k, **tile)
+        assert torch.equal(got[0], rows[0]) and torch.equal(
+            got[1].view(torch.int32), rows[1].view(torch.int32))
+
+
+@pytest.fixture(scope="module", params=["int8", "bf16"])
+def select_quant_case(request):
+    """The tier of :func:`tie_rows`, with level 0's residual codes of
+    ``DEAD_ROWS`` set to the padding sentinel (int8 127, bf16 1e30)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.fastsax import FastSAXConfig, build_index
+    from repro_torch.index import quantized as quant
+
+    mode, dev = request.param, torch.device("cuda")
+    db = tie_rows(SELECT_B)
+    qhost = quant.quantize_host_index(
+        build_index(db, FastSAXConfig(n_segments=(8, 16), alphabet=10)),
+        mode)
+    lv0 = qhost.levels[0]
+    codes = lv0.residuals.copy()
+    n_dead = DEAD_ROWS.stop - DEAD_ROWS.start
+    codes[DEAD_ROWS] = (quant.SENTINEL_CODE if mode == "int8"
+                        else quant.bf16_encode(np.full(n_dead, 1e30)))
+    qhost = dataclasses.replace(qhost, levels=(
+        dataclasses.replace(lv0, residuals=codes),) + qhost.levels[1:])
+    qdev = engine.quantized_device_index(qhost, dev)
+    qr = engine.represent_queries(
+        torch.as_tensor(make_queries(db, SELECT_Q, seed=12),
+                        dtype=torch.float32, device=dev), (8, 16), 10)
+    panels = engine._query_panels(qr, 10)
+    return {name: (qdev, qr.q, panels, qr.residuals, eps) for name, eps in (
+        ("open", torch.full((SELECT_Q,), OPEN_EPS, device=dev)),
+        ("path", torch.linspace(1.0, 3.0, SELECT_Q, device=dev)))}
+
+
+@pytest.mark.parametrize("k,block_b", SELECT_GRID)
+@pytest.mark.parametrize("block_q", [16, 32])
+def test_quant_topk_selection_is_exact(select_quant_case, k, block_b,
+                                       block_q):
+    # The tier's top-k candidates are the kept rows at any ε (the screen's
+    # thresh² filters both forms), so the partials are exact at both radii.
+    tile = dict(block_q=block_q, block_b=block_b)
+    for name in ("open", "path"):
+        args = select_quant_case[name]
+        _, rd = fq.fused_quant_range(*args, **tile)
+        got = fq.fused_quant_topk(*args, k=k, **tile)
+        torch.cuda.synchronize()
+        assert int(torch.isfinite(rd).sum()) > 0
+        assert_selection_exact(got, rd, k, block_b)
+
+
+def test_topk_tiles_keep_two_blocks_per_sm(cuda):
+    # The top-k form at the subseq-1M tile (window 128, stride 4, k_sel
+    # 67) and the serve-1M tiles (k_sel 9 and the served k bucket 8 + 4),
+    # Q = 32, block_q 32: two thread blocks resident per SM.
+    for k_sel, stride in ((67, 4), (9, 0), (12, 0)):
+        smem = fq.smem_bytes_of_kernel(True, 128, (8, 16), 10, 32, 32, k_sel,
+                                       stride=stride)
+        assert cost_model.blocks_per_sm(smem) == 2, (k_sel, stride, smem)
