@@ -10,8 +10,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    must be off: the engine's top-k tie window is sized for f32 noise).
 2. Build: compile ``kernels/csrc/fused_query.cu`` and
    ``kernels/csrc/level_ops.cu`` for sm_90a, one nvcc each, in parallel;
-   print each kernel's registers and spills, and the top-k
-   instantiations' range of registers and total spill bytes.
+   print each kernel's registers, stack frame and spills, and the top-k
+   instantiations' range of registers and total spill bytes.  Every
+   non-streaming fused instantiation must have a 0-byte stack frame and
+   no spills, the top-k ones at most 128 registers.  The ring stages the
+   launcher chooses at each path tile (``stages_of_kernel``).
 3. Serving index: ``SearchService.from_series`` over
    ``make_wafer_like(1_048_576, 128, seed=0)`` with the default
    ``ServeConfig`` (levels (8, 16), alphabet 10, max_batch 32), then
@@ -68,7 +71,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the ``torch.matmul`` yardstick and the bounds, which count the stream
    samples, not the window matrix; the selection's own cost (kernel 4 −
    kernel 3) beside ``torch.topk`` over kernel 3's d² in kernel 4's
-   blocks and ``fused_topk`` over the materialised windows.
+   blocks and ``fused_topk`` over the materialised windows, which is
+   also timed with one ring stage (the launcher's choice at k_sel 67)
+   and with two (one block per SM), its partials equal both ways.
 10. The subsequence slice: with the counts set to 0, ``subseq_range_query``
    at ε = 2, ``subseq_knn_query`` at k = 3, excl = 64 (backend auto) and
    ``subseq_range_query_quantized`` in int8; each streaming kernel must
@@ -166,6 +171,22 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
+def plain_of(fq, args) -> dict:
+    """A wrapper's keyword arguments as its plain version takes them: the
+    query words' MINDIST panels in place of the words (the kernels read
+    the table through the words), no alphabet."""
+    out = {k: v for k, v in args.items() if k not in ("alphabet", "q_words")}
+    out["q_panels"] = fq._panels(args["q_words"], args["alphabet"])
+    return out
+
+
+def quant_plain(fq, args) -> tuple:
+    """The quantized wrappers' positional arguments as the plain versions
+    take them."""
+    qdev, q, q_words, q_res, eps = args
+    return qdev, q, fq._panels(q_words, qdev.alphabet), q_res, eps
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -221,8 +242,7 @@ def path_inputs(torch, engine, index, queries: np.ndarray, k: int = 8):
     seed = engine._seed_eps(index, qr, k, None)
     eps = torch.where(knn, engine._slacked(seed),
                       torch.full_like(seed, 2.0))
-    panels = engine._query_panels(qr, index.alphabet)
-    args = engine._fused_inputs(index, qr, index.residuals, panels, eps)
+    args = engine._fused_inputs(index, qr, index.residuals, eps)
     k_sel = k + engine._TOPK_GUARD
     tq, tb = engine._fused_blocks(index, Q, k_sel)
     rq, rb = engine._fused_blocks(index, Q, 0)
@@ -232,7 +252,8 @@ def path_inputs(torch, engine, index, queries: np.ndarray, k: int = 8):
 
 def alive_by_level(torch, ref, args) -> list:
     """Surviving (query, row) pairs before each level and after the last
-    (the work the cascade and the verify need on these inputs)."""
+    (the work the cascade and the verify need on these inputs); ``args``
+    as the plain versions take them (:func:`plain_of`)."""
     eps = args["eps"].reshape(-1, 1)
     alive = torch.ones((args["q"].shape[0], args["series"].shape[0]),
                        dtype=torch.bool, device=eps.device)
@@ -357,7 +378,7 @@ def selection_exact(torch, ref, got, range_d2, k: int, block_b: int,
 def compare_kernels(torch, engine, fq, ref, index, queries, label,
                     timing: bool) -> dict:
     qr, args, rtile, ttile = path_inputs(torch, engine, index, queries)
-    ref_args = {k: v for k, v in args.items() if k != "alphabet"}
+    ref_args = plain_of(fq, args)
     Q, B = args["q"].shape[0], args["series"].shape[0]
     eps2 = (args["eps"] * args["eps"]).cpu().numpy()[:, None]
     out = {"Q": Q, "B": B, "range_tile": rtile, "topk_tile": ttile}
@@ -415,8 +436,10 @@ def compare_kernels(torch, engine, fq, ref, index, queries, label,
                  fq.fused_topk(**args, **ttile), True)):
             tensors = [args["series"], args["norms_sq"], args["q"],
                        args["eps"], *args["words"], *args["residuals"],
-                       *args["q_panels"], *args["q_residuals"], *outputs]
-            counts = alive_by_level(torch, ref, args)
+                       *args["q_words"],
+                       fq._table(args["alphabet"], index.device),
+                       *args["q_residuals"], *outputs]
+            counts = alive_by_level(torch, ref, ref_args)
             b_ms, b_by, nbytes, ops = bound_ms(tensors, args["levels"],
                                                counts, args["n"], topk)
             out[name] = {"ms": cuda_ms(torch, fn, 20),
@@ -428,6 +451,35 @@ def compare_kernels(torch, engine, fq, ref, index, queries, label,
                 f"(plain {out[name]['plain_ms']:.3f} ms, torch.matmul "
                 f"of the verify {lib_ms:.4f} ms, bound {b_ms:.4f} ms by "
                 f"{b_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+    return out
+
+
+def ring_stages_at_path_tiles(fq, ops, ss) -> dict:
+    """The kernels' own choice of ring stages (``stages_of_kernel``) at
+    the tiles the paths choose: serve-1M (Q = 32, B = 2^20, n = 128,
+    levels (8, 16), α 10; top-k at the served k bucket 8 + guard 4) in
+    f32, int8 and bf16, subseq-1M's streaming forms (stride 4, k_sel 67)
+    and fused_topk over its materialised windows at k_sel 67."""
+    lv, Q, out = (8, 16), 32, {}
+    for quant in (None, "int8", "bf16"):
+        for k_sel in (0, 12):
+            bq, _ = ops.choose_fused_blocks(Q, N_SERVE, 128, lv, 10,
+                                            k_sel=k_sel, quant=quant)
+            out[f"serve-1M {quant or 'f32'} "
+                f"{'top-k' if k_sel else 'range'}"] = fq.stages_of_kernel(
+                bool(k_sel), 128, lv, 10, bq, Q, k_sel, quant=quant)
+    W = SUBSEQ["streams"] * ((SUBSEQ["stream_len"] - SUBSEQ["window"])
+                             // SUBSEQ["stride"] + 1)
+    for k_sel in (0, 67):
+        bq, _ = ops.choose_subseq_blocks(Q, W, SUBSEQ["window"],
+                                         SUBSEQ["stride"], lv, 10, k=k_sel)
+        out[f"subseq-1M {'top-k' if k_sel else 'range'}"] = \
+            fq.stages_of_kernel(bool(k_sel), SUBSEQ["window"], lv, 10, bq,
+                                Q, k_sel, stride=SUBSEQ["stride"])
+        if k_sel:
+            out["subseq-1M top-k over the materialised windows"] = \
+                fq.stages_of_kernel(True, SUBSEQ["window"], lv, 10, bq, Q,
+                                    k_sel)
     return out
 
 
@@ -550,13 +602,12 @@ def breakdown(torch, engine, fq, service, queries) -> dict:
             normalize=cfg.normalize_queries)
         knn_col = torch.as_tensor(is_knn, device=dev).reshape(Q, 1)
         eps_req = torch.as_tensor(eps_np, device=dev).reshape(Q, 1)
-        panels = engine._query_panels(qr, index.alphabet)
         eps = torch.where(knn_col, engine._seed_eps(index, qr, k, None),
                           eps_req)
         tq, tb = engine._fused_blocks(index, Q, k + engine._TOPK_GUARD)
         ev[1].record()
         idxp, _ = fq.fused_topk(
-            **engine._fused_inputs(index, qr, index.residuals, panels,
+            **engine._fused_inputs(index, qr, index.residuals,
                                    engine._cascade_eps(eps, knn_col)),
             k=min(k + engine._TOPK_GUARD, tb), block_q=tq, block_b=tb)
         ev[2].record()
@@ -566,7 +617,7 @@ def breakdown(torch, engine, fq, service, queries) -> dict:
         ev[3].record()
         rq, rb = engine._fused_blocks(index, Q, 0)
         ans, d2 = fq.fused_range(
-            **engine._fused_inputs(index, qr, index.residuals, panels,
+            **engine._fused_inputs(index, qr, index.residuals,
                                    engine._cascade_eps(eps, knn_col)),
             block_q=rq, block_b=rb)
         idx = torch.arange(index.size, dtype=torch.int32,
@@ -628,21 +679,21 @@ def quant_path_inputs(torch, engine, tindex, queries: np.ndarray,
     knn = (torch.arange(Q, device=dev) % 2 == 0).reshape(Q, 1)
     seed = engine._slacked(engine._tiered_seed_eps(tindex, qr, k))
     eps = torch.where(knn, seed, torch.full_like(seed, 2.0)).reshape(-1)
-    panels = engine._query_panels(qr, qdev.alphabet)
-    args = (qdev, qr.q, panels, qr.residuals, eps.contiguous())
+    args = (qdev, qr.q, qr.words, qr.residuals, eps.contiguous())
     rq, rb = engine._fused_blocks(qdev, Q, quant=True)
     tq, tb = engine._fused_blocks(qdev, Q, k, quant=True)
     return args, dict(block_q=rq, block_b=rb), \
         dict(block_q=tq, block_b=tb, k=k)
 
 
-def quant_tensors(qdev, args, outputs) -> list:
+def quant_tensors(fq, qdev, args, outputs) -> list:
     """Every tensor a quantized pass reads or writes."""
-    _, q, panels, q_res, eps = args
+    _, q, q_words, q_res, eps = args
     return [qdev.series, qdev.series_scale, qdev.series_zero,
             qdev.series_err, qdev.norms_sq, *qdev.words, *qdev.residuals,
             *qdev.resid_scale, *qdev.resid_zero, *qdev.resid_err, q, eps,
-            *panels, *q_res, *outputs]
+            *q_words, fq._table(qdev.alphabet, qdev.device), *q_res,
+            *outputs]
 
 
 def compare_quant_kernels(torch, engine, fq, ref, tindex, queries, label,
@@ -651,13 +702,14 @@ def compare_quant_kernels(torch, engine, fq, ref, tindex, queries, label,
     tensors; with ``timing``, their times, bounds and the yardstick."""
     args, rtile, ttile = quant_path_inputs(torch, engine, tindex, queries)
     qdev, eps = args[0], args[4]
+    qplain = quant_plain(fq, args)
     Q, B = args[1].shape[0], qdev.size
     lim2 = ref.screen_limit_sq(eps, qdev.series_err).cpu().numpy()
     out = {"Q": Q, "B": B, "mode": qdev.mode, "range_tile": rtile,
            "topk_tile": ttile}
 
     out["range"] = range_agreement(fq.fused_quant_range(*args, **rtile),
-                                   ref.fused_quant_range_ref(*args), lim2)
+                                   ref.fused_quant_range_ref(*qplain), lim2)
     r = out["range"]
     check(r["mismatch_outside_band"] == 0 and r["d2_outside_band"] == 0
           and r["inf_off_answers"] and r["answers"] > 0,
@@ -667,7 +719,7 @@ def compare_quant_kernels(torch, engine, fq, ref, tindex, queries, label,
     k = ttile["k"]
     out["topk"] = dict(merged_agreement(
         fq, fq.fused_quant_topk(*args, **ttile),
-        ref.fused_quant_topk_ref(*args, k=k, block_b=ttile["block_b"]), k),
+        ref.fused_quant_topk_ref(*qplain, k=k, block_b=ttile["block_b"]), k),
         k_sel=k)
     t = out["topk"]
     check(t["merged_mismatch"] == 0 and t["merged_d2_within_band"],
@@ -705,20 +757,20 @@ def compare_quant_kernels(torch, engine, fq, ref, tindex, queries, label,
         counts = quant_alive_by_level(
             torch, ref, (qdev.words, qdev.residuals, qdev.resid_scale,
                          qdev.resid_zero, qdev.resid_err), qdev.levels,
-            qdev.n, args[2], args[3], eps)
+            qdev.n, qplain[2], args[3], eps)
         # Dequantizing the tile: a multiply and an add per int8 code.
         deq_ops = 2.0 * B * qdev.n if qdev.mode == "int8" else 0.0
         for name, fn, plain, topk in (
                 ("fused_quant_range",
                  lambda: fq.fused_quant_range(*args, **rtile),
-                 lambda: ref.fused_quant_range_ref(*args), False),
+                 lambda: ref.fused_quant_range_ref(*qplain), False),
                 ("fused_quant_topk",
                  lambda: fq.fused_quant_topk(*args, **ttile),
                  lambda: ref.fused_quant_topk_ref(
-                     *args, k=k, block_b=ttile["block_b"]), True)):
+                     *qplain, k=k, block_b=ttile["block_b"]), True)):
             outputs = fn()
             b_ms, b_by, nbytes, ops = bound_ms(
-                quant_tensors(qdev, args, outputs), qdev.levels, counts,
+                quant_tensors(fq, qdev, args, outputs), qdev.levels, counts,
                 qdev.n, topk, extra_ops=deq_ops + 4.0 * counts[-1])
             del outputs
             out[name] = {"ms": cuda_ms(torch, fn, 20),
@@ -914,8 +966,8 @@ def subseq_inputs(torch, engine, sidx, qr, kf: int) -> dict:
     return dict(streams=sidx.streams, mu=sidx.mu, sd=sidx.sd,
                 norms_sq=sidx.index.norms_sq, words=sidx.index.words,
                 residuals=sidx.index.residuals, q=qr.q,
-                q_panels=engine._query_panels(qr, sidx.alphabet),
-                q_residuals=qr.residuals, eps=eps.reshape(-1).contiguous(),
+                q_words=qr.words, q_residuals=qr.residuals,
+                eps=eps.reshape(-1).contiguous(),
                 levels=sidx.levels, alphabet=sidx.alphabet,
                 window=sidx.window, stride=sidx.stride)
 
@@ -924,7 +976,7 @@ def rows_of(sidx, args) -> dict:
     """The whole-series kernels' inputs over the materialised windows."""
     return dict(series=sidx.index.series, norms_sq=args["norms_sq"],
                 words=args["words"], residuals=args["residuals"],
-                q=args["q"], q_panels=args["q_panels"],
+                q=args["q"], q_words=args["q_words"],
                 q_residuals=args["q_residuals"], eps=args["eps"],
                 levels=args["levels"], alphabet=args["alphabet"],
                 n=args["window"])
@@ -936,12 +988,12 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
     whole-series kernels over the materialised windows; with ``timing``,
     their times, bounds and the ``torch.matmul`` yardstick."""
     args = subseq_inputs(torch, engine, sidx, qr, kf)
-    plain = {k: v for k, v in args.items() if k != "alphabet"}
+    plain = plain_of(fq, args)
     Q, W = qr.q.shape[0], sidx.n_windows
     k_sel = kf + engine._TOPK_GUARD
     rq, rb = ss._subseq_blocks(sidx, Q, 0)
     tq, tb = ss._subseq_blocks(sidx, Q, k_sel)
-    qq, qb = ss._subseq_blocks(sidx, Q, 0, quant=True)
+    qq, qb = ss._subseq_blocks(sidx, Q, 0, quant="int8")
     rtile, ttile = dict(block_q=rq, block_b=rb), dict(block_q=tq, block_b=tb)
     qtile = dict(block_q=qq, block_b=qb)
     out = {"Q": Q, "W": W, "range_tile": rtile, "topk_tile": ttile,
@@ -1003,9 +1055,8 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
         qa = fq.fused_quant_subseq_range(**qargs, qmeta=qmeta, **qtile)
         torch.cuda.synchronize()
         full = fq.fused_subseq_range(**args, **qtile)
-        qplain = ref.fused_quant_subseq_range_ref(
-            **{k: v for k, v in qargs.items() if k != "alphabet"},
-            qmeta=qmeta)
+        qplain = ref.fused_quant_subseq_range_ref(**plain_of(fq, qargs),
+                                                  qmeta=qmeta)
         out[f"quant_{mode}"] = dict(
             range_agreement(qa, qplain, eps2),
             set_identical_to_full=bool(torch.equal(qa[0], full[0])),
@@ -1028,14 +1079,16 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
     if timing:
         z = sidx.index.series
         lib_ms = cuda_ms(torch, lambda: torch.matmul(args["q"], z.T), 20)
-        counts = alive_by_level(torch, ref, rows_of(sidx, args))
+        counts = alive_by_level(torch, ref, plain_of(fq, rows_of(sidx, args)))
         # Building the z tile: a subtract and a divide per window sample.
         z_ops = 2.0 * W * sidx.window
         common = [args["streams"], args["mu"], args["sd"], args["norms_sq"],
-                  args["q"], eps, *args["q_panels"], *args["q_residuals"]]
+                  args["q"], eps, *args["q_words"],
+                  fq._table(args["alphabet"], eps.device),
+                  *args["q_residuals"]]
         qargs = {k: v for k, v in args.items()
                  if k not in ("words", "residuals")}
-        qplain = {k: v for k, v in qargs.items() if k != "alphabet"}
+        qplain = plain_of(fq, qargs)
 
         def quant_case(mode):
             """Kernel 7 in ``mode``: its launcher, plain version, columns
@@ -1043,7 +1096,7 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
             qm = qmetas[mode]
             cols = (qm.words, qm.residuals, qm.scale, qm.zero, qm.err)
             cnt = quant_alive_by_level(torch, ref, cols, sidx.levels,
-                                       sidx.window, args["q_panels"],
+                                       sidx.window, plain["q_panels"],
                                        args["q_residuals"], eps)
             return (lambda: fq.fused_quant_subseq_range(**qargs, qmeta=qm,
                                                         **qtile),
@@ -1087,6 +1140,34 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
             f"materialised windows at {label}: fused_range "
             f"{out['fused_range_over_rows_ms']:.4f} ms, fused_topk "
             f"{out['fused_topk_over_rows_ms']:.4f} ms")
+        # fused_topk over the windows at this k_sel both ways: the stages
+        # the launcher chooses (one: the lists leave no room for a second
+        # at two blocks per SM) and two stages at one block per SM.
+        rows = rows_of(sidx, args)
+        chosen = fq.stages_of_kernel(True, sidx.window, sidx.levels,
+                                     sidx.alphabet, tq, Q, k_sel)
+        by_stages = {s: fq.fused_topk(**rows, k=k_sel, **ttile, stages=s)
+                     for s in (1, 2)}
+        same = all(torch.equal(by_stages[1][i].view(torch.int32),
+                               by_stages[2][i].view(torch.int32))
+                   for i in (0, 1))
+        check(same, f"fused_topk's partials depend on the ring stages at "
+              f"{label}, k_sel {k_sel}")
+        del by_stages
+        out["topk_over_rows_by_stages"] = {
+            "k_sel": k_sel, "chosen_stages": chosen,
+            "partials_bit_identical": same,
+            **{f"stages_{s}_ms": cuda_ms(
+                torch, lambda s=s: fq.fused_topk(**rows, k=k_sel, **ttile,
+                                                 stages=s), 20)
+               for s in (1, 2)},
+            **{f"stages_{s}_smem_bytes": fq.smem_bytes_of_kernel(
+                True, sidx.window, sidx.levels, sidx.alphabet, tq, Q, k_sel,
+                stages=s) for s in (1, 2)}}
+        del rows
+        log(f"[subseq-kernels] fused_topk over the materialised windows at "
+            f"k_sel {k_sel} by ring stages (chosen: {chosen}): "
+            + json.dumps(out["topk_over_rows_by_stages"], sort_keys=True))
         # The selection's own cost: kernel 4 less kernel 3 (same loader,
         # cascade and verify; kernel 3 also writes the (Q, W) mask and
         # d²), and torch.topk over kernel 3's d² in kernel 4's blocks, a
@@ -1171,7 +1252,6 @@ def subseq_knn_breakdown(torch, engine, fq, ss, sidx, qr, k: int,
     kf = ss.knn_fetch_count(k, excl, sidx.stride, sidx.n_windows)
     k_sel = kf + engine._TOPK_GUARD
     bq, bw = ss._subseq_blocks(sidx, Q, k_sel)
-    panels = engine._query_panels(qr, sidx.alphabet)
     names = ["seed_ms", "topk_pass_1_ms", "reverify_1_ms", "topk_pass_2_ms",
              "reverify_2_ms", "merge_and_certificate_ms"]
 
@@ -1179,7 +1259,7 @@ def subseq_knn_breakdown(torch, engine, fq, ss, sidx, qr, k: int,
         def topk(eps):
             return fq.fused_subseq_topk(
                 **ss._stream_inputs(sidx), words=index.words,
-                residuals=index.residuals, q=qr.q, q_panels=panels,
+                residuals=index.residuals, q=qr.q, q_words=qr.words,
                 q_residuals=qr.residuals,
                 eps=engine._cascade_eps(eps).reshape(-1).contiguous(),
                 k=k_sel, block_q=bq, block_b=bw)[0]
@@ -1883,12 +1963,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import engine
+    from repro_torch.core import subseq as ss
     from repro_torch.core.fastsax import FastSAXConfig, build_index
     from repro_torch.data.timeseries import make_queries, make_wafer_like
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_query as fq
     from repro_torch.kernels import level_ops as lo
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.serve import (SearchService, ServeConfig, WorkloadSpec,
                                    make_workload)
     from repro_torch.serve.service import _QuantizedBackend
@@ -1923,6 +2004,27 @@ def main() -> int:
         log(f"[build] the {len(topk_build)} top-k instantiations: "
             f"{min(regs)}-{max(regs)} registers, {spills} bytes of spill "
             f"stores and loads in all")
+    # Every non-streaming instantiation keeps its per-level state in
+    # registers: no stack frame and no spill.
+    frames = {line.split(":")[0]: (
+        int(re.search(r"(\d+) bytes stack frame", line).group(1)),
+        sum(int(m) for m in re.findall(r"(\d+) bytes spill", line)))
+        for line in report["build"]["kernels"]}
+    body = {k: v for k, v in frames.items() if "streaming" not in k}
+    report["build"]["stack_and_spill_bytes"] = frames
+    check(body, "no ptxas report of the fused kernels in the build log")
+    log(f"[build] stack frame and spill bytes of the {len(body)} "
+        f"non-streaming instantiations: max {max(v[0] for v in body.values())}"
+        f" and {max(v[1] for v in body.values())}; streaming: "
+        + ", ".join(f"{k} {v[0]}/{v[1]}" for k, v in frames.items()
+                    if "streaming" in k))
+    check(all(v == (0, 0) for v in body.values()),
+          f"a non-streaming instantiation has a stack frame or spills: "
+          f"{body}")
+    check(all(r <= 128 for r in regs), f"top-k registers above 128: {regs}")
+    report["build"]["ring_stages"] = ring_stages_at_path_tiles(fq, ops, ss)
+    log("[build] ring stages the launcher chooses at the path tiles: "
+        + json.dumps(report["build"]["ring_stages"], sort_keys=True))
 
     t0 = time.perf_counter()
     db = make_wafer_like(N_SERVE, 128, seed=0)

@@ -189,6 +189,11 @@ F32_TFLOPS = 67.0         # H100 SXM float32, non-tensor
 N_SMS = 132               # H100 SXM streaming multiprocessors
 SMEM_PER_SM = 232448      # shared memory a block may use (227 KB)
 MAX_BLOCKS_PER_SM = 8     # 2048 resident threads / 256-thread blocks
+# The fused kernels are compiled for two resident blocks per SM
+# (``__launch_bounds__(256, 2)``: up to 128 registers a thread), so a
+# smaller layout (the quantized ring, a streaming range tile) buys no
+# third block.
+FUSED_MAX_BLOCKS_PER_SM = 2
 
 # The reference demotes a fused k-NN whose in-kernel selection would keep
 # more than this many slots (k + guard) to the dense engine, because its
@@ -214,13 +219,21 @@ def blocks_per_sm(smem_bytes: int) -> int:
     return max(1, min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // (smem_bytes + 1024)))
 
 
+def fused_blocks_per_sm(smem_bytes: int) -> int:
+    """Resident thread blocks per SM of a fused kernel using
+    ``smem_bytes``: :func:`blocks_per_sm`, at most the two its launch
+    bounds give."""
+    return min(FUSED_MAX_BLOCKS_PER_SM, blocks_per_sm(smem_bytes))
+
+
 def fused_pass_estimate(Q: int, B: int, n: int, levels, alphabet: int,
                         block_q: int = 32, block_b: int = 1024, k: int = 0,
                         smem_bytes: int = 96 * 1024) -> dict:
     """Bytes / FLOPs / latency estimate of one fused pass.
 
     The database (series, norms, words and residuals of every level) is
-    charged one HBM read; the query side is re-read from L2 by every
+    charged one HBM read; the query side (each query's row, ε, residuals
+    and words, and the α × α MINDIST table) is re-read from L2 by every
     thread block (charged as HBM, conservatively); the outputs are the
     (Q, B) mask and d² (range form) or the (Q, nb·k) partials plus the
     engine's re-verify gather of (Q, nb·k, n) rows (top-k form).  The
@@ -231,14 +244,14 @@ def fused_pass_estimate(Q: int, B: int, n: int, levels, alphabet: int,
     levels = tuple(int(N) for N in levels)
     nb = math.ceil(B / max(1, block_b))
     row_bytes = (n + 1 + sum(levels) + len(levels)) * 4
-    q_row_bytes = (n + 2 + len(levels) + alphabet * sum(levels)) * 4
-    bytes_hbm = B * row_bytes + nb * Q * q_row_bytes
+    q_row_bytes = (n + 2 + len(levels) + sum(levels)) * 4
+    bytes_hbm = B * row_bytes + nb * (Q * q_row_bytes + alphabet ** 2 * 4)
     if k:
         bytes_hbm += Q * nb * k * (8 + 2 * n * 4)
     else:
         bytes_hbm += Q * B * 5
     flops = 2.0 * Q * B * n + float(Q * B) * (sum(levels) * 2 + 8)
-    slots = N_SMS * blocks_per_sm(smem_bytes)
+    slots = N_SMS * fused_blocks_per_sm(smem_bytes)
     waves = math.ceil(nb / slots)
     wave_eff = nb / (waves * slots)
     t_mem = bytes_hbm / (HBM_GBPS * 1e9) / wave_eff
@@ -265,8 +278,8 @@ def subseq_pass_estimate(Q: int, n_windows: int, window: int, stride: int,
     nb = math.ceil(n_windows / max(1, block_w))
     seg_len = (block_w - 1) * stride + window
     meta_row = (3 + sum(levels) + len(levels)) * 4
-    q_row_bytes = (window + 2 + len(levels) + alphabet * sum(levels)) * 4
-    rest = nb * Q * q_row_bytes
+    q_row_bytes = (window + 2 + len(levels) + sum(levels)) * 4
+    rest = nb * (Q * q_row_bytes + alphabet ** 2 * 4)
     if k:
         rest += Q * nb * k * (8 + 2 * window * 4)
     else:
@@ -274,7 +287,7 @@ def subseq_pass_estimate(Q: int, n_windows: int, window: int, stride: int,
     bytes_hbm = nb * seg_len * 4 + n_windows * meta_row + rest
     flops = 2.0 * Q * n_windows * window + float(Q * n_windows) * (
         sum(levels) * 2 + 8) + 2.0 * n_windows * window
-    slots = N_SMS * blocks_per_sm(smem_bytes)
+    slots = N_SMS * fused_blocks_per_sm(smem_bytes)
     waves = math.ceil(nb / slots)
     wave_eff = nb / (waves * slots)
     t_mem = bytes_hbm / (HBM_GBPS * 1e9) / wave_eff

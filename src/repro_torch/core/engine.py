@@ -585,17 +585,18 @@ def _fused_blocks(index, Q: int, k_sel: int = 0, block_q: int | None = None,
                   block_b: int | None = None, quant: bool = False):
     """Tiles of a fused pass over ``index`` (a :class:`DeviceIndex`, or a
     :class:`QuantizedDeviceIndex` with ``quant``)."""
+    mode = index.mode if quant else None
     if block_q is None or block_b is None:
         bq, bb = kernel_ops.choose_fused_blocks(
             Q, index.size, index.n, index.levels, index.alphabet, k_sel=k_sel,
-            quant=quant)
+            quant=mode)
         block_q, block_b = block_q or bq, block_b or bb
     if int(block_q) not in kernel_ops.FUSED_BLOCK_Q or int(block_b) % 64:
         raise ValueError(f"block_q must be one of {kernel_ops.FUSED_BLOCK_Q} "
                          f"and block_b a multiple of 64, got {block_q}, "
                          f"{block_b}")
     need = kernel_ops.fused_smem_bytes(int(block_q), index.n, index.levels,
-                                       index.alphabet, Q, k_sel, quant)
+                                       index.alphabet, Q, k_sel, mode)
     if need > kernel_ops.SMEM_BYTES:
         raise ValueError(f"fused tile block_q={block_q} needs {need} bytes "
                          f"of shared memory (> {kernel_ops.SMEM_BYTES})")
@@ -613,6 +614,8 @@ def _masked_residuals(index: DeviceIndex, valid_mask) -> tuple:
 
 
 def _query_panels(qr: QueryReprDev, alphabet: int) -> tuple:
+    """Per level the (Q, α, N) MINDIST panels the plain versions take (the
+    kernels take the query words)."""
     return tuple(kernel_ops.query_panels(w, alphabet) for w in qr.words)
 
 
@@ -641,11 +644,11 @@ def _mask_dense(ans: torch.Tensor, d2: torch.Tensor, valid_mask):
     return ans, torch.where(ans, d2, INF)
 
 
-def _fused_inputs(index: DeviceIndex, qr: QueryReprDev, residuals, panels,
+def _fused_inputs(index: DeviceIndex, qr: QueryReprDev, residuals,
                   eps_col: torch.Tensor) -> dict:
     return dict(series=index.series, norms_sq=index.norms_sq,
                 words=index.words, residuals=residuals, q=qr.q,
-                q_panels=panels, q_residuals=qr.residuals,
+                q_words=qr.words, q_residuals=qr.residuals,
                 eps=eps_col.reshape(-1).contiguous(), levels=index.levels,
                 alphabet=index.alphabet, n=index.n)
 
@@ -659,7 +662,6 @@ def range_query_fused(index: DeviceIndex, qr: QueryReprDev, epsilon,
     block_q, block_b = _fused_blocks(index, Q, 0, block_q, block_b)
     ans, d2 = _fused.fused_range(
         **_fused_inputs(index, qr, _masked_residuals(index, valid_mask),
-                        _query_panels(qr, index.alphabet),
                         _eps_qcol(epsilon, Q, index.device)),
         block_q=block_q, block_b=block_b)
     return _mask_dense(ans, d2, valid_mask)
@@ -677,13 +679,13 @@ _TOPK_TIE_ABS = 1e-3
 
 
 def _fused_tighten_eps(index, qr, eps, k, k_sel, n_iters, valid_mask,
-                       residuals, panels, block_q, block_b, knn_col=None):
+                       residuals, block_q, block_b, knn_col=None):
     """Fused twin of :func:`_tighten_eps`: each pass is one
     ``fused_topk`` read whose re-verified partials shrink the k-NN rows'
     radius (the reference's ``_fused_tighten_eps``)."""
     for _ in range(max(0, int(n_iters) - 1)):
         idxp, _ = _fused.fused_topk(
-            **_fused_inputs(index, qr, residuals, panels,
+            **_fused_inputs(index, qr, residuals,
                             _cascade_eps(eps, knn_col)),
             k=k_sel, block_q=block_q, block_b=block_b)
         d2v = _reverify_rows(index, qr, idxp, valid_mask)
@@ -721,13 +723,12 @@ def knn_query_fused(index: DeviceIndex, qr: QueryReprDev, k: int,
     block_q, block_b = _fused_blocks(index, Q, k + _TOPK_GUARD, block_q,
                                      block_b)
     k_sel = min(k + _TOPK_GUARD, block_b)
-    panels = _query_panels(qr, index.alphabet)
     residuals = _masked_residuals(index, valid_mask)
     eps = _seed_eps(index, qr, k, valid_mask)
     eps = _fused_tighten_eps(index, qr, eps, k, k_sel, n_iters, valid_mask,
-                             residuals, panels, block_q, block_b)
+                             residuals, block_q, block_b)
     idxp, _ = _fused.fused_topk(
-        **_fused_inputs(index, qr, residuals, panels, _cascade_eps(eps)),
+        **_fused_inputs(index, qr, residuals, _cascade_eps(eps)),
         k=k_sel, block_q=block_q, block_b=block_b)
     d2v = _reverify_rows(index, qr, idxp, valid_mask)
     nn_idx, nn_d2 = _fused.merge_topk_partials(idxp, d2v, k)
@@ -754,17 +755,15 @@ def mixed_query_fused(index: DeviceIndex, qr: QueryReprDev, epsilon, is_knn,
     k = min(int(k), B)
     knn_col = torch.as_tensor(is_knn, dtype=torch.bool, device=dev).reshape(Q, 1)
     eps_req = _eps_qcol(epsilon, Q, dev)
-    panels = _query_panels(qr, index.alphabet)
     residuals = _masked_residuals(index, valid_mask)
     eps = torch.where(knn_col, _seed_eps(index, qr, k, valid_mask), eps_req)
     tq, tb = _fused_blocks(index, Q, k + _TOPK_GUARD, block_q, block_b)
     eps = _fused_tighten_eps(index, qr, eps, k, min(k + _TOPK_GUARD, tb),
-                             n_iters, valid_mask, residuals, panels, tq, tb,
+                             n_iters, valid_mask, residuals, tq, tb,
                              knn_col=knn_col)
     rq, rb = _fused_blocks(index, Q, 0, block_q, block_b)
     ans, d2 = _fused.fused_range(
-        **_fused_inputs(index, qr, residuals, panels,
-                        _cascade_eps(eps, knn_col)),
+        **_fused_inputs(index, qr, residuals, _cascade_eps(eps, knn_col)),
         block_q=rq, block_b=rb)
     ans, d2 = _mask_dense(ans, d2, valid_mask)
     idx = _arange(B, dev, torch.int32)[None, :].expand(Q, B)
@@ -1055,7 +1054,7 @@ def _quantized_screen_backend(tindex: TieredIndex, qr: QueryReprDev,
     Q = qr.q.shape[0]
     block_q, block_b = _fused_blocks(qdev, Q, quant=True)
     return _fused.fused_quant_range(
-        qdev, qr.q, _query_panels(qr, qdev.alphabet), qr.residuals,
+        qdev, qr.q, qr.words, qr.residuals,
         _eps_vec(eps_col, Q, qdev.device), block_q=block_q, block_b=block_b)
 
 

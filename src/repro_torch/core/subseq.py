@@ -450,10 +450,11 @@ def represent_subseq_queries(sidx: SubseqDeviceIndex, queries,
 
 def _subseq_blocks(sidx: SubseqDeviceIndex, Q: int, k: int = 0,
                    block_q: int | None = None, block_w: int | None = None,
-                   quant: bool = False):
+                   quant: str | None = None):
     """Tiles of a streaming pass: ``(block_q, block_w)``, chosen by
-    ``ops.choose_subseq_blocks`` unless both are given; raises if they
-    do not fit shared memory."""
+    ``ops.choose_subseq_blocks`` unless both are given (``quant``: the
+    mode of quantized screen columns); raises if they do not fit shared
+    memory."""
     if block_q is None or block_w is None:
         bq, bw = kernel_ops.choose_subseq_blocks(
             Q, sidx.n_windows, sidx.window, sidx.stride, sidx.levels,
@@ -492,8 +493,7 @@ def subseq_range_query_fused(sidx: SubseqDeviceIndex, qr: QueryReprDev,
     return _fused.fused_subseq_range(
         **_stream_inputs(sidx), words=sidx.index.words,
         residuals=sidx.index.residuals, q=qr.q,
-        q_panels=_engine._query_panels(qr, sidx.alphabet),
-        q_residuals=qr.residuals,
+        q_words=qr.words, q_residuals=qr.residuals,
         eps=_engine._eps_vec(epsilon, Q, sidx.device),
         block_q=block_q, block_b=block_w)
 
@@ -528,12 +528,11 @@ def _subseq_knn_fused(sidx: SubseqDeviceIndex, qr: QueryReprDev, k: int,
     block_q, block_w = _subseq_blocks(sidx, Q, k + _engine._TOPK_GUARD,
                                       block_q, block_w)
     k_sel = min(k + _engine._TOPK_GUARD, block_w)
-    panels = _engine._query_panels(qr, sidx.alphabet)
 
     def topk_pass(eps):
         idxp, _ = _fused.fused_subseq_topk(
             **_stream_inputs(sidx), words=index.words,
-            residuals=index.residuals, q=qr.q, q_panels=panels,
+            residuals=index.residuals, q=qr.q, q_words=qr.words,
             q_residuals=qr.residuals,
             eps=_engine._cascade_eps(eps).reshape(-1).contiguous(),
             k=k_sel, block_q=block_q, block_b=block_w)
@@ -693,10 +692,9 @@ def subseq_range_query_quantized(sidx: SubseqDeviceIndex,
     samples is exact, so the ε cut is made on the same f32 distances."""
     Q = qr.q.shape[0]
     block_q, block_w = _subseq_blocks(sidx, Q, 0, block_q, block_w,
-                                      quant=True)
+                                      quant=qmeta.mode)
     return _fused.fused_quant_subseq_range(
-        **_stream_inputs(sidx), qmeta=qmeta, q=qr.q,
-        q_panels=_engine._query_panels(qr, sidx.alphabet),
+        **_stream_inputs(sidx), qmeta=qmeta, q=qr.q, q_words=qr.words,
         q_residuals=qr.residuals,
         eps=_engine._eps_vec(epsilon, Q, sidx.device),
         block_q=block_q, block_b=block_w)

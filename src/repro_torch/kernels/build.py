@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict = {}
 #: Per source name: ``{"seconds": build time, "log": nvcc's output}``
-#: (empty log when the library was already built).
+#: (0 s and the kept log when the library was already built).
 BUILD_INFO: dict = {}
 
 
@@ -67,12 +67,17 @@ def _compile(name: str):
 
 def _finish(name: str, job) -> None:
     if job is None:
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": ""})
+        # Built earlier: nvcc's output (ptxas's registers, stack frames and
+        # spills) was kept beside the library.
+        log = _target(name)[1].with_suffix(".log")
+        BUILD_INFO.setdefault(name, {
+            "seconds": 0.0, "log": log.read_text() if log.exists() else ""})
         return
     proc, src, out, tmp, t0 = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
 

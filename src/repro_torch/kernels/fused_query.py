@@ -30,7 +30,7 @@ import threading
 
 import torch
 
-from . import build, ref
+from . import build, ops, ref
 from .ref import merge_topk_partials  # noqa: F401  (re-exported)
 
 # Residual sentinel for masked database rows: C9 excludes them at any
@@ -38,6 +38,9 @@ from .ref import merge_topk_partials  # noqa: F401  (re-exported)
 PAD_RESIDUAL = 1e30
 # Longest per-block top-k list the CUDA selection keeps (csrc KSEL_MAX).
 KSEL_MAX = 128
+# Largest alphabet: the kernel stages query words as 16-bit offsets qw·α
+# (csrc MAX_ALPHABET).
+ALPHABET_MAX = 256
 MAX_LEVELS = 4
 
 _count_lock = threading.Lock()
@@ -50,21 +53,24 @@ def _lib():
         pvp = ctypes.POINTER(ctypes.c_void_p)
         lib.fused_query_launch.argtypes = [
             ci, vp, vp, ci, ci, ci, ctypes.POINTER(ci), pvp, pvp,
-            vp, ci, pvp, pvp, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
+            vp, ci, vp, pvp, pvp, vp, ci, ci, ci, ci, vp, vp, ci, vp, vp, vp]
         lib.fused_query_launch.restype = ci
         lib.fused_quant_launch.argtypes = [
             ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(ci), pvp,
-            pvp, pvp, pvp, pvp, vp, ci, pvp, pvp, vp, ci, ci, ci, vp, vp, ci,
-            vp, vp, vp]
+            pvp, pvp, pvp, pvp, vp, ci, vp, pvp, pvp, vp, ci, ci, ci, ci, vp,
+            vp, ci, vp, vp, vp]
         lib.fused_quant_launch.restype = ci
         lib.fused_subseq_launch.argtypes = [
             ci, ci, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci,
-            ctypes.POINTER(ci), pvp, pvp, pvp, pvp, pvp, vp, ci, pvp, pvp,
-            vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
+            ctypes.POINTER(ci), pvp, pvp, pvp, pvp, pvp, vp, ci, vp, pvp,
+            pvp, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
         lib.fused_subseq_launch.restype = ci
         lib.fused_query_smem_bytes.argtypes = [
-            ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci, ci]
+            ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci, ci, ci]
         lib.fused_query_smem_bytes.restype = ci
+        lib.fused_query_stages.argtypes = [
+            ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci, ci]
+        lib.fused_query_stages.restype = ci
         lib.fused_query_error.argtypes = [ci]
         lib.fused_query_error.restype = ctypes.c_char_p
         lib._typed = True
@@ -85,7 +91,40 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_inputs(series, norms_sq, words, residuals, q, q_panels,
+def _check_aligned(**tensors):
+    """The columns the kernel copies with 16-byte cp.async must start on a
+    16-byte boundary (a fresh allocation does; a view may not)."""
+    for name, t in tensors.items():
+        ts = t if isinstance(t, (list, tuple)) else (t,)
+        for i, x in enumerate(ts):
+            if x is not None and x.data_ptr() % 16:
+                raise ValueError(f"{name}{f'[{i}]' if t is not x else ''} "
+                                 f"must be 16-byte aligned for the kernel")
+
+
+def _check_query_words(q_words, levels, alphabet, Q, dev):
+    if len(q_words) != len(levels):
+        raise ValueError("q_words needs one entry per level")
+    if not 2 <= int(alphabet) <= ALPHABET_MAX:
+        raise ValueError(f"alphabet must be in [2, {ALPHABET_MAX}], "
+                         f"got {alphabet}")
+    for li, N in enumerate(levels):
+        _check(f"q_words[{li}]", q_words[li], torch.int32, (Q, int(N)), dev)
+
+
+def _panels(q_words, alphabet: int) -> tuple:
+    """The plain versions' per-level (Q, α, N) panels of the query words."""
+    return tuple(ops.query_panels(w, alphabet) for w in q_words)
+
+
+def _check_stages(stages):
+    if stages not in (None, 1, 2):
+        raise ValueError(f"stages must be None (from the shape), 1 or 2, "
+                         f"got {stages}")
+    return stages or 0
+
+
+def _check_inputs(series, norms_sq, words, residuals, q, q_words,
                   q_residuals, eps, levels, alphabet, n):
     """Validate the shared input pack; returns (B, Q, device)."""
     if not isinstance(series, torch.Tensor) or series.ndim != 2:
@@ -96,9 +135,9 @@ def _check_inputs(series, norms_sq, words, residuals, q, q_panels,
         raise ValueError(f"the fused kernels take 1 to {MAX_LEVELS} levels, "
                          f"got {len(levels)}")
     if len(words) != len(levels) or len(residuals) != len(levels) \
-            or len(q_panels) != len(levels) or len(q_residuals) != len(levels):
-        raise ValueError("words, residuals, q_panels and q_residuals need "
-                         "one entry per level")
+            or len(q_residuals) != len(levels):
+        raise ValueError("words, residuals and q_residuals need one entry "
+                         "per level")
     if B < 1:
         raise ValueError("the database is empty")
     if not isinstance(q, torch.Tensor) or q.ndim != 2 or q.shape[0] < 1:
@@ -114,12 +153,13 @@ def _check_inputs(series, norms_sq, words, residuals, q, q_panels,
             raise ValueError(f"level N={N} does not divide n={n}")
         _check(f"words[{li}]", words[li], torch.int32, (B, N), dev)
         _check(f"residuals[{li}]", residuals[li], f32, (B,), dev)
-        _check(f"q_panels[{li}]", q_panels[li], f32, (Q, alphabet, N), dev)
         _check(f"q_residuals[{li}]", q_residuals[li], f32, (Q,), dev)
+    _check_query_words(q_words, levels, alphabet, Q, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and series.data_ptr() % 16:
-        raise ValueError("series must be 16-byte aligned for the kernel")
+    if dev.type == "cuda":
+        _check_aligned(series=series, norms_sq=norms_sq, words=words,
+                       residuals=residuals)
     return B, Q, dev
 
 
@@ -147,57 +187,70 @@ def _raise_on(lib, code: int, what: str):
                            + lib.fused_query_error(code).decode())
 
 
-def _launch(topk, series, norms_sq, words, residuals, q, q_panels,
-            q_residuals, eps, levels, alphabet, n, block_q, block_b,
+def _table(alphabet: int, dev) -> torch.Tensor:
+    """The (α, α) MINDIST table the kernel stages for C10."""
+    return ops.mindist_table_cached(int(alphabet), str(dev))
+
+
+def _launch(topk, series, norms_sq, words, residuals, q, q_words,
+            q_residuals, eps, levels, alphabet, n, block_q, block_b, stages,
             ans=None, d2=None, k_sel=0, out_idx=None, out_d2=None):
     lib = _lib()
     L = len(levels)
     Ns = (ctypes.c_int * L)(*[int(N) for N in levels])
+    tab = _table(alphabet, series.device)
     with torch.cuda.device(series.device):
         stream = torch.cuda.current_stream(series.device).cuda_stream
         code = lib.fused_query_launch(
             int(topk), series.data_ptr(), norms_sq.data_ptr(),
             series.shape[0], n, L, Ns, _ptrs(words), _ptrs(residuals),
-            q.data_ptr(), q.shape[0], _ptrs(q_panels), _ptrs(q_residuals),
-            eps.data_ptr(), alphabet, block_q, block_b, _nullable(ans),
-            _nullable(d2), k_sel, _nullable(out_idx), _nullable(out_d2),
-            stream)
+            q.data_ptr(), q.shape[0], tab.data_ptr(), _ptrs(q_words),
+            _ptrs(q_residuals), eps.data_ptr(), alphabet, block_q, block_b,
+            stages, _nullable(ans), _nullable(d2), k_sel,
+            _nullable(out_idx), _nullable(out_d2), stream)
     _raise_on(lib, code, "fused_query")
 
 
-def fused_range(series, norms_sq, words, residuals, q, q_panels, q_residuals,
+def fused_range(series, norms_sq, words, residuals, q, q_words, q_residuals,
                 eps, *, levels, alphabet: int, n: int, block_q: int = 32,
-                block_b: int = 1024):
+                block_b: int = 1024, stages: int | None = None):
     """One fused range pass: ``(answers (Q, B) bool, d2 (Q, B) float32)``
     with +inf off the answers.
 
     ``series`` (B, n) f32, ``norms_sq`` (B,) f32 (‖u‖²), per level
     ``words`` (B, N) int32 in [0, alphabet) and ``residuals`` (B,) f32;
-    ``q`` (Q, n) f32, per level ``q_panels`` (Q, alphabet, N) f32
-    (``ops.query_panels``) and ``q_residuals`` (Q,) f32; ``eps`` (Q,)
-    f32.  All contiguous, on one device.  ``block_q`` (16 or 32) and
-    ``block_b`` (a multiple of 64) shape the kernel's tiles only: the
-    result does not depend on them.
+    ``q`` (Q, n) f32, per level ``q_words`` (Q, N) int32 in [0, alphabet)
+    and ``q_residuals`` (Q,) f32; ``eps`` (Q,) f32.  All contiguous, on
+    one device (on the card, the database columns 16-byte aligned).  The
+    kernel reads the MINDIST cells from ``ops.mindist_table_cached``
+    through the query words; the plain version takes their
+    ``ops.query_panels``.  ``block_q`` (16 or 32), ``block_b`` (a
+    multiple of 64) and ``stages`` (the ring's stages, 1 or 2; None: from
+    the shape, ``ops.ring_stages``) shape the kernel only: the result does
+    not depend on them.
     """
     B, Q, dev = _check_inputs(series, norms_sq, words, residuals, q,
-                              q_panels, q_residuals, eps, levels, alphabet, n)
+                              q_words, q_residuals, eps, levels, alphabet, n)
     _check_tiles(block_q, block_b)
+    stages = _check_stages(stages)
     if dev.type == "cpu":
         return ref.fused_range_ref(series, norms_sq, words, residuals, q,
-                                   q_panels, q_residuals, eps, levels, n)
+                                   _panels(q_words, alphabet), q_residuals,
+                                   eps, levels, n)
     ans = torch.empty((Q, B), dtype=torch.bool, device=dev)
     d2 = torch.empty((Q, B), dtype=torch.float32, device=dev)
-    _launch(False, series, norms_sq, words, residuals, q, q_panels,
-            q_residuals, eps, levels, alphabet, n, block_q, block_b,
+    _launch(False, series, norms_sq, words, residuals, q, q_words,
+            q_residuals, eps, levels, alphabet, n, block_q, block_b, stages,
             ans=ans, d2=d2)
     with _count_lock:
         fused_range.launches += 1
     return ans, d2
 
 
-def fused_topk(series, norms_sq, words, residuals, q, q_panels, q_residuals,
+def fused_topk(series, norms_sq, words, residuals, q, q_words, q_residuals,
                eps, *, levels, alphabet: int, n: int, k: int,
-               block_q: int = 32, block_b: int = 1024):
+               block_q: int = 32, block_b: int = 1024,
+               stages: int | None = None):
     """One fused pass emitting block-local top-k partials:
     ``(idx (Q, nb·k) int32, d2 (Q, nb·k) float32)``, ``nb = ⌈B/block_b⌉``.
 
@@ -209,21 +262,22 @@ def fused_topk(series, norms_sq, words, residuals, q, q_panels, q_residuals,
     KSEL_MAX).
     """
     B, Q, dev = _check_inputs(series, norms_sq, words, residuals, q,
-                              q_panels, q_residuals, eps, levels, alphabet, n)
+                              q_words, q_residuals, eps, levels, alphabet, n)
     _check_tiles(block_q, block_b)
+    stages = _check_stages(stages)
     k = int(k)
     if not 1 <= k <= min(block_b, KSEL_MAX):
         raise ValueError(f"k={k} must be in [1, min(block_b={block_b}, "
                          f"{KSEL_MAX})]")
     if dev.type == "cpu":
         return ref.fused_topk_ref(series, norms_sq, words, residuals, q,
-                                  q_panels, q_residuals, eps, levels, n, k,
-                                  block_b)
+                                  _panels(q_words, alphabet), q_residuals,
+                                  eps, levels, n, k, block_b)
     nb = -(-B // block_b)
     out_idx = torch.empty((Q, nb * k), dtype=torch.int32, device=dev)
     out_d2 = torch.empty((Q, nb * k), dtype=torch.float32, device=dev)
-    _launch(True, series, norms_sq, words, residuals, q, q_panels,
-            q_residuals, eps, levels, alphabet, n, block_q, block_b,
+    _launch(True, series, norms_sq, words, residuals, q, q_words,
+            q_residuals, eps, levels, alphabet, n, block_q, block_b, stages,
             k_sel=k, out_idx=out_idx, out_d2=out_d2)
     with _count_lock:
         fused_topk.launches += 1
@@ -237,7 +291,7 @@ def fused_topk(series, norms_sq, words, residuals, q, q_panels, q_residuals,
 _QUANT_MODES = {"int8": (1, torch.int8), "bf16": (2, torch.bfloat16)}
 
 
-def _check_quant_inputs(qdev, q, q_panels, q_residuals, eps):
+def _check_quant_inputs(qdev, q, q_words, q_residuals, eps):
     """Validate a quantized index (an ``engine.QuantizedDeviceIndex`` or
     any object with its fields) and the query pack; returns (B, Q, dev)."""
     if qdev.mode not in _QUANT_MODES:
@@ -254,11 +308,11 @@ def _check_quant_inputs(qdev, q, q_panels, q_residuals, eps):
         raise ValueError(f"the fused kernels take 1 to {MAX_LEVELS} levels, "
                          f"got {len(levels)}")
     cols = (qdev.words, qdev.residuals, qdev.resid_scale, qdev.resid_zero,
-            qdev.resid_err, q_panels, q_residuals)
+            qdev.resid_err, q_residuals)
     if any(len(c) != len(levels) for c in cols):
         raise ValueError("words, residuals, resid_scale, resid_zero, "
-                         "resid_err, q_panels and q_residuals need one "
-                         "entry per level")
+                         "resid_err and q_residuals need one entry per "
+                         "level")
     if not isinstance(q, torch.Tensor) or q.ndim != 2 or q.shape[0] < 1:
         raise ValueError("q must be a non-empty (Q, n) tensor")
     Q, nb = q.shape[0], -(-B // ref.RESID_BLOCK)
@@ -286,23 +340,26 @@ def _check_quant_inputs(qdev, q, q_panels, q_residuals, eps):
             elif t is not None:
                 raise ValueError(f"{name}[{li}] must be None in bf16 mode")
         _check(f"resid_err[{li}]", qdev.resid_err[li], f32, (nb,), dev)
-        _check(f"q_panels[{li}]", q_panels[li], f32,
-               (Q, qdev.alphabet, N), dev)
         _check(f"q_residuals[{li}]", q_residuals[li], f32, (Q,), dev)
+    _check_query_words(q_words, levels, qdev.alphabet, Q, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and series.data_ptr() % 16:
-        raise ValueError("series must be 16-byte aligned for the kernel")
+    if dev.type == "cuda":
+        _check_aligned(series=series, series_scale=qdev.series_scale,
+                       series_zero=qdev.series_zero,
+                       series_err=qdev.series_err, norms_sq=qdev.norms_sq,
+                       words=qdev.words, residuals=qdev.residuals)
     return B, Q, dev
 
 
-def _launch_quant(topk, qdev, q, q_panels, q_residuals, eps, block_q,
-                  block_b, ans=None, d2=None, k_sel=0, out_idx=None,
+def _launch_quant(topk, qdev, q, q_words, q_residuals, eps, block_q,
+                  block_b, stages, ans=None, d2=None, k_sel=0, out_idx=None,
                   out_d2=None):
     lib = _lib()
     L = len(qdev.levels)
     Ns = (ctypes.c_int * L)(*[int(N) for N in qdev.levels])
     series = qdev.series
+    tab = _table(qdev.alphabet, series.device)
     with torch.cuda.device(series.device):
         stream = torch.cuda.current_stream(series.device).cuda_stream
         code = lib.fused_quant_launch(
@@ -312,14 +369,16 @@ def _launch_quant(topk, qdev, q, q_panels, q_residuals, eps, block_q,
             series.shape[0], series.shape[1], L, Ns, _ptrs(qdev.words),
             _ptrs(qdev.residuals), _ptrs(qdev.resid_scale),
             _ptrs(qdev.resid_zero), _ptrs(qdev.resid_err), q.data_ptr(),
-            q.shape[0], _ptrs(q_panels), _ptrs(q_residuals), eps.data_ptr(),
-            qdev.alphabet, block_q, block_b, _nullable(ans), _nullable(d2),
-            k_sel, _nullable(out_idx), _nullable(out_d2), stream)
+            q.shape[0], tab.data_ptr(), _ptrs(q_words), _ptrs(q_residuals),
+            eps.data_ptr(), qdev.alphabet, block_q, block_b, stages,
+            _nullable(ans), _nullable(d2), k_sel, _nullable(out_idx),
+            _nullable(out_d2), stream)
     _raise_on(lib, code, "fused_quant")
 
 
-def fused_quant_range(qdev, q, q_panels, q_residuals, eps, *,
-                      block_q: int = 32, block_b: int = 1024):
+def fused_quant_range(qdev, q, q_words, q_residuals, eps, *,
+                      block_q: int = 32, block_b: int = 1024,
+                      stages: int | None = None):
     """One pass of the quantized screen: ``(keep (Q, B) bool, d̂² (Q, B)
     float32)`` with +inf off the kept rows.
 
@@ -331,43 +390,50 @@ def fused_quant_range(qdev, q, q_panels, q_residuals, eps, *,
     of :func:`fused_range`.  A row is kept when the widened cascade (C9
     ``gap ≤ ε + e_blk``, C10 unwidened) and the series screen
     ``d̂² ≤ ((ε + e_u)(1 + 1e-6) + 1e-6)²`` pass; kept rows still need
-    the raw tier's exact verify.  The tiles shape the kernel only.
+    the raw tier's exact verify.  The tiles and ``stages`` shape the kernel
+    only.
     """
-    B, Q, dev = _check_quant_inputs(qdev, q, q_panels, q_residuals, eps)
+    B, Q, dev = _check_quant_inputs(qdev, q, q_words, q_residuals, eps)
     _check_tiles(block_q, block_b)
+    stages = _check_stages(stages)
     if dev.type == "cpu":
-        return ref.fused_quant_range_ref(qdev, q, q_panels, q_residuals, eps)
+        return ref.fused_quant_range_ref(qdev, q,
+                                         _panels(q_words, qdev.alphabet),
+                                         q_residuals, eps)
     keep = torch.empty((Q, B), dtype=torch.bool, device=dev)
     d2 = torch.empty((Q, B), dtype=torch.float32, device=dev)
-    _launch_quant(False, qdev, q, q_panels, q_residuals, eps, block_q,
-                  block_b, ans=keep, d2=d2)
+    _launch_quant(False, qdev, q, q_words, q_residuals, eps, block_q,
+                  block_b, stages, ans=keep, d2=d2)
     with _count_lock:
         fused_quant_range.launches += 1
     return keep, d2
 
 
-def fused_quant_topk(qdev, q, q_panels, q_residuals, eps, *, k: int,
-                     block_q: int = 32, block_b: int = 1024):
+def fused_quant_topk(qdev, q, q_words, q_residuals, eps, *, k: int,
+                     block_q: int = 32, block_b: int = 1024,
+                     stages: int | None = None):
     """The quantized screen emitting block-local top-k partials of d̂²
     among the kept rows: ``(idx (Q, nb·k) int32, d̂² (Q, nb·k) float32)``
     in the layout of :func:`fused_topk`, merged by
     :func:`merge_topk_partials`.  The candidates are screen-level
     (distances to the dequantized rows); no engine of the port calls it,
     as none of the reference calls its Pallas twin."""
-    B, Q, dev = _check_quant_inputs(qdev, q, q_panels, q_residuals, eps)
+    B, Q, dev = _check_quant_inputs(qdev, q, q_words, q_residuals, eps)
     _check_tiles(block_q, block_b)
+    stages = _check_stages(stages)
     k = int(k)
     if not 1 <= k <= min(block_b, KSEL_MAX):
         raise ValueError(f"k={k} must be in [1, min(block_b={block_b}, "
                          f"{KSEL_MAX})]")
     if dev.type == "cpu":
-        return ref.fused_quant_topk_ref(qdev, q, q_panels, q_residuals, eps,
-                                        k, block_b)
+        return ref.fused_quant_topk_ref(qdev, q,
+                                        _panels(q_words, qdev.alphabet),
+                                        q_residuals, eps, k, block_b)
     nb = -(-B // block_b)
     out_idx = torch.empty((Q, nb * k), dtype=torch.int32, device=dev)
     out_d2 = torch.empty((Q, nb * k), dtype=torch.float32, device=dev)
-    _launch_quant(True, qdev, q, q_panels, q_residuals, eps, block_q,
-                  block_b, k_sel=k, out_idx=out_idx, out_d2=out_d2)
+    _launch_quant(True, qdev, q, q_words, q_residuals, eps, block_q,
+                  block_b, stages, k_sel=k, out_idx=out_idx, out_d2=out_d2)
     with _count_lock:
         fused_quant_topk.launches += 1
     return out_idx, out_d2
@@ -380,7 +446,7 @@ def fused_quant_topk(qdev, q, q_panels, q_residuals, eps, *, k: int,
 # ---------------------------------------------------------------------------
 
 
-def _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
+def _check_stream_inputs(streams, mu, sd, norms_sq, q, q_words,
                          q_residuals, eps, levels, alphabet, window, stride):
     """Validate the streams, the per-window moments and the query pack;
     returns (W, Q, device)."""
@@ -400,8 +466,8 @@ def _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
     if not 1 <= len(levels) <= MAX_LEVELS:
         raise ValueError(f"the fused kernels take 1 to {MAX_LEVELS} levels, "
                          f"got {len(levels)}")
-    if len(q_panels) != len(levels) or len(q_residuals) != len(levels):
-        raise ValueError("q_panels and q_residuals need one entry per level")
+    if len(q_residuals) != len(levels):
+        raise ValueError("q_residuals needs one entry per level")
     if not isinstance(q, torch.Tensor) or q.ndim != 2 or q.shape[0] < 1:
         raise ValueError("q must be a non-empty (Q, window) tensor")
     Q, f32 = q.shape[0], torch.float32
@@ -413,10 +479,12 @@ def _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
     for li, N in enumerate(levels):
         if window % N:
             raise ValueError(f"level N={N} does not divide window={window}")
-        _check(f"q_panels[{li}]", q_panels[li], f32, (Q, alphabet, N), dev)
         _check(f"q_residuals[{li}]", q_residuals[li], f32, (Q,), dev)
+    _check_query_words(q_words, levels, alphabet, Q, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        _check_aligned(norms_sq=norms_sq)
     return W, Q, dev
 
 
@@ -426,6 +494,8 @@ def _check_stream_columns(words, residuals, levels, W, dev):
     for li, N in enumerate(levels):
         _check(f"words[{li}]", words[li], torch.int32, (W, int(N)), dev)
         _check(f"residuals[{li}]", residuals[li], torch.float32, (W,), dev)
+    if dev.type == "cuda":
+        _check_aligned(words=words, residuals=residuals)
 
 
 def _check_quant_meta(qmeta, levels, W, dev):
@@ -450,10 +520,12 @@ def _check_quant_meta(qmeta, levels, W, dev):
             elif t is not None:
                 raise ValueError(f"{name}[{li}] must be None in bf16 mode")
         _check(f"err[{li}]", qmeta.err[li], torch.float32, (nb,), dev)
+    if dev.type == "cuda":
+        _check_aligned(words=qmeta.words, residuals=qmeta.residuals)
 
 
 def _launch_subseq(topk, mode, streams, mu, sd, norms_sq, words, residuals,
-                   q, q_panels, q_residuals, eps, levels, alphabet, window,
+                   q, q_words, q_residuals, eps, levels, alphabet, window,
                    stride, block_q, block_b, r_scale=None, r_zero=None,
                    r_err=None, ans=None, d2=None, k_sel=0, out_idx=None,
                    out_d2=None):
@@ -462,6 +534,7 @@ def _launch_subseq(topk, mode, streams, mu, sd, norms_sq, words, residuals,
     Ns = (ctypes.c_int * L)(*[int(N) for N in levels])
     none = (None,) * L
     S, n_stream = streams.shape
+    tab = _table(alphabet, streams.device)
     with torch.cuda.device(streams.device):
         stream = torch.cuda.current_stream(streams.device).cuda_stream
         code = lib.fused_subseq_launch(
@@ -469,15 +542,16 @@ def _launch_subseq(topk, mode, streams, mu, sd, norms_sq, words, residuals,
             mu.data_ptr(), sd.data_ptr(), norms_sq.data_ptr(), mu.shape[0],
             int(window), L, Ns, _ptrs(words), _ptrs(residuals),
             _ptrs(r_scale or none), _ptrs(r_zero or none),
-            _ptrs(r_err or none), q.data_ptr(), q.shape[0], _ptrs(q_panels),
-            _ptrs(q_residuals), eps.data_ptr(), alphabet, block_q, block_b,
+            _ptrs(r_err or none), q.data_ptr(), q.shape[0], tab.data_ptr(),
+            _ptrs(q_words), _ptrs(q_residuals), eps.data_ptr(), alphabet,
+            block_q, block_b,
             _nullable(ans), _nullable(d2), k_sel, _nullable(out_idx),
             _nullable(out_d2), stream)
     _raise_on(lib, code, "fused_subseq")
 
 
 def fused_subseq_range(streams, mu, sd, norms_sq, words, residuals, q,
-                       q_panels, q_residuals, eps, *, levels, alphabet: int,
+                       q_words, q_residuals, eps, *, levels, alphabet: int,
                        window: int, stride: int, block_q: int = 32,
                        block_b: int = 1024):
     """One streaming range pass: ``(answers (Q, W) bool, d2 (Q, W)
@@ -490,19 +564,21 @@ def fused_subseq_range(streams, mu, sd, norms_sq, words, residuals, q,
     query side is that of :func:`fused_range` with n = ``window``.
     ``block_b`` windows per thread block; the tiles shape the kernel
     only."""
-    W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
+    W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_words,
                                      q_residuals, eps, levels, alphabet,
                                      window, stride)
     _check_stream_columns(words, residuals, levels, W, dev)
     _check_tiles(block_q, block_b)
     if dev.type == "cpu":
         return ref.fused_subseq_range_ref(streams, mu, sd, norms_sq, words,
-                                          residuals, q, q_panels, q_residuals,
-                                          eps, levels, window, stride)
+                                          residuals, q,
+                                          _panels(q_words, alphabet),
+                                          q_residuals, eps, levels, window,
+                                          stride)
     ans = torch.empty((Q, W), dtype=torch.bool, device=dev)
     d2 = torch.empty((Q, W), dtype=torch.float32, device=dev)
     _launch_subseq(False, 0, streams, mu, sd, norms_sq, words, residuals, q,
-                   q_panels, q_residuals, eps, levels, alphabet, window,
+                   q_words, q_residuals, eps, levels, alphabet, window,
                    stride, block_q, block_b, ans=ans, d2=d2)
     with _count_lock:
         fused_subseq_range.launches += 1
@@ -510,7 +586,7 @@ def fused_subseq_range(streams, mu, sd, norms_sq, words, residuals, q,
 
 
 def fused_subseq_topk(streams, mu, sd, norms_sq, words, residuals, q,
-                      q_panels, q_residuals, eps, *, levels, alphabet: int,
+                      q_words, q_residuals, eps, *, levels, alphabet: int,
                       window: int, stride: int, k: int, block_q: int = 32,
                       block_b: int = 1024):
     """One streaming pass emitting block-local top-k partials: ``(idx
@@ -518,7 +594,7 @@ def fused_subseq_topk(streams, mu, sd, norms_sq, words, residuals, q,
     the layout of :func:`fused_topk` with canonical window ids (−1 / +inf
     on empty slots).  The inputs are those of :func:`fused_subseq_range`;
     ``k`` ≤ min(block_b, KSEL_MAX)."""
-    W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
+    W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_words,
                                      q_residuals, eps, levels, alphabet,
                                      window, stride)
     _check_stream_columns(words, residuals, levels, W, dev)
@@ -529,14 +605,15 @@ def fused_subseq_topk(streams, mu, sd, norms_sq, words, residuals, q,
                          f"{KSEL_MAX})]")
     if dev.type == "cpu":
         return ref.fused_subseq_topk_ref(streams, mu, sd, norms_sq, words,
-                                         residuals, q, q_panels, q_residuals,
-                                         eps, levels, window, stride, k,
-                                         block_b)
+                                         residuals, q,
+                                         _panels(q_words, alphabet),
+                                         q_residuals, eps, levels, window,
+                                         stride, k, block_b)
     nb = -(-W // block_b)
     out_idx = torch.empty((Q, nb * k), dtype=torch.int32, device=dev)
     out_d2 = torch.empty((Q, nb * k), dtype=torch.float32, device=dev)
     _launch_subseq(True, 0, streams, mu, sd, norms_sq, words, residuals, q,
-                   q_panels, q_residuals, eps, levels, alphabet, window,
+                   q_words, q_residuals, eps, levels, alphabet, window,
                    stride, block_q, block_b, k_sel=k, out_idx=out_idx,
                    out_d2=out_d2)
     with _count_lock:
@@ -544,7 +621,7 @@ def fused_subseq_topk(streams, mu, sd, norms_sq, words, residuals, q,
     return out_idx, out_d2
 
 
-def fused_quant_subseq_range(streams, mu, sd, norms_sq, qmeta, q, q_panels,
+def fused_quant_subseq_range(streams, mu, sd, norms_sq, qmeta, q, q_words,
                              q_residuals, eps, *, levels, alphabet: int,
                              window: int, stride: int, block_q: int = 32,
                              block_b: int = 1024):
@@ -558,7 +635,7 @@ def fused_quant_subseq_range(streams, mu, sd, norms_sq, qmeta, q, q_panels,
     windows.  C9 widens to ``gap ≤ ε + e_blk``, C10 runs on the int8
     words, the verify is exact over the streamed samples and cut at ε².
     The rest is as :func:`fused_subseq_range`."""
-    W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_panels,
+    W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_words,
                                      q_residuals, eps, levels, alphabet,
                                      window, stride)
     levels = tuple(int(N) for N in levels)
@@ -566,12 +643,12 @@ def fused_quant_subseq_range(streams, mu, sd, norms_sq, qmeta, q, q_panels,
     _check_tiles(block_q, block_b)
     if dev.type == "cpu":
         return ref.fused_quant_subseq_range_ref(
-            streams, mu, sd, norms_sq, qmeta, q, q_panels, q_residuals, eps,
-            levels, window, stride)
+            streams, mu, sd, norms_sq, qmeta, q, _panels(q_words, alphabet),
+            q_residuals, eps, levels, window, stride)
     ans = torch.empty((Q, W), dtype=torch.bool, device=dev)
     d2 = torch.empty((Q, W), dtype=torch.float32, device=dev)
     _launch_subseq(False, _QUANT_MODES[qmeta.mode][0], streams, mu, sd,
-                   norms_sq, qmeta.words, qmeta.residuals, q, q_panels,
+                   norms_sq, qmeta.words, qmeta.residuals, q, q_words,
                    q_residuals, eps, levels, alphabet, window, stride,
                    block_q, block_b, r_scale=qmeta.scale, r_zero=qmeta.zero,
                    r_err=qmeta.err, ans=ans, d2=d2)
@@ -593,15 +670,32 @@ def reset_launch_counts() -> None:
             kernel.launches = 0
 
 
+_MODE_CODES = {None: 0, "int8": 1, "bf16": 2}
+
+
 def smem_bytes_of_kernel(topk: bool, n: int, levels, alphabet: int,
                          block_q: int, Q: int = 0, k_sel: int = 0,
-                         quant: bool = False, stride: int = 0) -> int:
+                         quant=None, stride: int = 0,
+                         stages: int | None = None) -> int:
     """The kernel's own count of its shared memory (needs the built
     library); ``ops.fused_smem_bytes`` (``stride`` 0) and
     ``ops.subseq_smem_bytes`` (the streaming kernels at ``stride`` > 0,
-    rows of length n = window) must agree with it."""
+    rows of length n = window) must agree with it.  ``quant``: None or
+    the tier's mode; ``stages``: None for the launcher's choice."""
     L = len(levels)
     Ns = (ctypes.c_int * L)(*[int(N) for N in levels])
-    return int(_lib().fused_query_smem_bytes(int(topk), n, L, Ns, alphabet,
-                                             block_q, Q, k_sel, int(quant),
-                                             int(stride)))
+    return int(_lib().fused_query_smem_bytes(
+        int(topk), n, L, Ns, alphabet, block_q, Q, k_sel,
+        _MODE_CODES[quant or None], int(stride), int(stages or 0)))
+
+
+def stages_of_kernel(topk: bool, n: int, levels, alphabet: int,
+                     block_q: int, Q: int = 0, k_sel: int = 0, quant=None,
+                     stride: int = 0) -> int:
+    """The ring stages the kernel's launcher chooses for a launch shape
+    (needs the built library); ``ops.ring_stages`` mirrors it."""
+    L = len(levels)
+    Ns = (ctypes.c_int * L)(*[int(N) for N in levels])
+    return int(_lib().fused_query_stages(
+        int(topk), n, L, Ns, alphabet, block_q, Q, k_sel,
+        _MODE_CODES[quant or None], int(stride)))

@@ -1,4 +1,5 @@
-"""Support for the fused kernels: the MINDIST panels and the tile chooser.
+"""Support for the fused kernels: the MINDIST table and panels, the shared
+memory layout and the tile chooser.
 
 Counterpart of ``repro/kernels/ops.py``.  The reference sized its blocks
 against 16 MiB of TPU VMEM; here the budget is the 227 KB of shared
@@ -41,48 +42,97 @@ def mindist_table_cached(alphabet: int, device: str) -> torch.Tensor:
 
 def query_panels(qwords: torch.Tensor, alphabet: int) -> torch.Tensor:
     """(Q, N) query words -> (Q, α, N) panels, ``panels[q, a, i] =
-    tab[a, qwords[q, i]]``."""
+    tab[a, qwords[q, i]]``.  The plain versions take the panels; the CUDA
+    kernels stage the (α, α) table and the query words instead and read
+    this cell as ``tabT[qwords[q, i]·α + a]`` of the transposed table."""
     tab = mindist_table_cached(alphabet, str(qwords.device))
     return tab[:, qwords.long()].permute(1, 0, 2).contiguous()
 
 
-def _r4(x: int) -> int:
-    return (x + 3) // 4 * 4
+def _al16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _al128(x: int) -> int:
+    return (x + 127) // 128 * 128
+
+
+# Bytes per element the kernel stages per quantized mode (None: full
+# precision): the series codes and the residual codes.
+_ELEM_BYTES = {None: 4, "int8": 1, "bf16": 2}
 
 
 def _smem_bytes(block_q: int, n: int, levels, alphabet: int, Q: int,
-                k_sel: int, qseries: bool, qmeta: bool, seg_cap: int) -> int:
-    """The arithmetic of the kernel's ``Layout`` (``csrc/fused_query.cu``)."""
+                k_sel: int, quant, stream: bool, seg_cap: int,
+                stages: int) -> int:
+    """The arithmetic of the kernel's ``Layout`` (``csrc/fused_query.cu``),
+    in bytes: ``stages`` ring stages of one sub-tile's columns as stored,
+    then the query side, the top-k lists and the streaming loader's
+    sections.  ``quant``: None (or False) for full precision, else the
+    tier's mode."""
+    mode = quant or None
+    if mode not in _ELEM_BYTES:
+        raise ValueError(f"quant must be None, 'int8' or 'bf16', got "
+                         f"{quant!r}")
     levels = tuple(int(N) for N in levels)
     L, T = len(levels), ROW_TILE
-    words = _r4(T * (n | 1)) + _r4(T) + _r4(L * T)
-    if qseries:
-        words += _r4(T)
-    if qmeta:
-        words += _r4(L * T)
-    words += sum(_r4(T * (N | 1)) for N in levels)
-    words += _r4(n * block_q) + 3 * _r4(block_q) + _r4(L * block_q)
-    words += sum(_r4(block_q * N * alphabet) for N in levels)
+    elem = _ELEM_BYTES[mode]
+    word = 4 if mode is None else 1
+    stage = T * 4                                   # norms
+    if mode is not None and not stream:
+        stage += T * 4                              # series errors
+        if mode == "int8":
+            stage += 2 * T * 4                      # scales and zeros
+    stage += L * _al128(T * elem)                   # residuals
+    stage += sum(_al128(T * N * word) for N in levels)
+    stage += _al128(T * n * (4 if stream else elem))
+    total = stages * stage
+    total += _al16(n * block_q * 4) + 3 * _al16(block_q * 4)
+    total += _al16(L * block_q * 4) + _al16(alphabet * alphabet * 4)
+    total += _al16(sum(levels) * block_q * 2)       # query words, 16 bit
     if k_sel:
-        words += _r4(block_q * T) + 2 * _r4(Q * k_sel)
+        total += _al16(block_q * T * 4) + 2 * _al16(Q * k_sel * 4)
     if seg_cap:
         # The streaming loader's sections share the top-k candidates'
         # space when they fit.
-        need = 3 * _r4(T) + _r4(seg_cap)
-        if not (k_sel and need <= _r4(block_q * T)):
-            words += need
-    return 4 * words
+        need = 3 * T * 4 + _al16(seg_cap * 4)
+        if not (k_sel and need <= _al16(block_q * T * 4)):
+            total += need
+    return total
+
+
+def _blocks_per_sm(smem: int) -> int:
+    """Resident blocks per SM by shared memory, at most the two the
+    kernels' launch bounds give."""
+    return min(2, SMEM_BYTES // (smem + 1024))
+
+
+def ring_stages(block_q: int, n: int, levels, alphabet: int, Q: int = 0,
+                k_sel: int = 0, quant=None, seg_cap: int = 0) -> int:
+    """The ring stages the kernel's launcher chooses (csrc
+    ``ring_stages``): two where they keep the blocks per SM that one
+    stage gives, else one; one for the streaming loader (``seg_cap``)."""
+    if seg_cap:
+        return 1
+    one, two = (_smem_bytes(block_q, n, levels, alphabet, Q, k_sel, quant,
+                            False, 0, s) for s in (1, 2))
+    return 2 if two <= SMEM_BYTES and \
+        _blocks_per_sm(two) >= _blocks_per_sm(one) else 1
 
 
 def fused_smem_bytes(block_q: int, n: int, levels, alphabet: int,
-                     Q: int = 0, k_sel: int = 0, quant: bool = False) -> int:
+                     Q: int = 0, k_sel: int = 0, quant=None,
+                     stages: int | None = None) -> int:
     """Dynamic shared memory of one thread block of the fused kernel
     (``k_sel > 0``: the top-k form, whose per-query lists for all Q
     queries of the launch stay resident; ``quant``: the quantized tier's
-    form, which also stages each row's series error and each level's
-    residual error beside the dequantized f32 tile)."""
-    return _smem_bytes(block_q, n, levels, alphabet, Q, k_sel, quant, quant,
-                       0)
+    mode, "int8" or "bf16", whose ring holds the codes with each row's
+    series error (and int8 scale and zero)).  ``stages``: the ring's
+    stages, by default :func:`ring_stages`' choice."""
+    if stages is None:
+        stages = ring_stages(block_q, n, levels, alphabet, Q, k_sel, quant)
+    return _smem_bytes(block_q, n, levels, alphabet, Q, k_sel, quant, False,
+                       0, stages)
 
 
 def subseq_seg_cap(window: int, stride: int) -> int:
@@ -94,21 +144,20 @@ def subseq_seg_cap(window: int, stride: int) -> int:
 
 def subseq_smem_bytes(block_q: int, window: int, stride: int, levels,
                       alphabet: int, Q: int = 0, k_sel: int = 0,
-                      quant: bool = False) -> int:
+                      quant=None) -> int:
     """Dynamic shared memory of one thread block of the streaming
-    subsequence kernel: the fused layout over rows of length ``window``
-    (``quant``: quantized screen columns, whose residual errors are
-    staged; the series is raw) plus each sub-tile's window starts, μ, σ
-    and staged stream range."""
-    return _smem_bytes(block_q, window, levels, alphabet, Q, k_sel, False,
-                       quant, subseq_seg_cap(window, stride))
+    subsequence kernel: one stage of the fused layout over rows of length
+    ``window`` (the f32 z tile; ``quant``: the mode of the quantized
+    screen columns) plus each sub-tile's window starts, μ, σ and staged
+    stream range."""
+    return _smem_bytes(block_q, window, levels, alphabet, Q, k_sel, quant,
+                       True, subseq_seg_cap(window, stride), 1)
 
 
 def choose_fused_blocks(Q: int, B: int, n: int, levels, alphabet: int,
-                        k_sel: int = 0, smem: int = SMEM_BYTES,
-                        quant: bool = False):
+                        k_sel: int = 0, smem: int = SMEM_BYTES, quant=None):
     """Pick ``(block_q, block_b)`` for a fused pass (``quant``: over the
-    quantized tier).
+    quantized tier of that mode).
 
     Feasible shapes fit ``smem``; among them the cheapest under
     ``core/cost_model.fused_pass_estimate`` wins (its memory term, the
@@ -140,7 +189,7 @@ def choose_fused_blocks(Q: int, B: int, n: int, levels, alphabet: int,
 
 def choose_subseq_blocks(Q: int, n_windows: int, window: int, stride: int,
                          levels, alphabet: int, k: int = 0,
-                         smem: int = SMEM_BYTES, quant: bool = False):
+                         smem: int = SMEM_BYTES, quant=None):
     """Pick ``(block_q, block_w)`` for a streaming subsequence pass
     (``block_w``: windows per thread block and the top-k partial-list
     granularity, ``k``: the top-k form's k_sel): the feasible shape the

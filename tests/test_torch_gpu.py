@@ -52,6 +52,23 @@ def band(d2):
     return 1e-3 + 1e-5 * np.abs(d2)
 
 
+def plain_args(args):
+    """A wrapper's keyword arguments as its plain version takes them: the
+    query words' MINDIST panels in place of the words, no alphabet."""
+    out = {k: v for k, v in args.items() if k not in ("alphabet", "q_words")}
+    out["q_panels"] = tuple(ops.query_panels(w, args["alphabet"])
+                            for w in args["q_words"])
+    return out
+
+
+def quant_plain(args):
+    """The quantized wrappers' positional arguments as the plain versions
+    take them (panels in place of the query words)."""
+    qdev, q, q_words, q_res, eps = args
+    return (qdev, q, tuple(ops.query_panels(w, qdev.alphabet)
+                           for w in q_words), q_res, eps)
+
+
 def kernel_args(case, device, seed=2):
     Q, B, levels, alphabet = case
     db = make_wafer_like(B, 128, seed=seed)
@@ -62,15 +79,14 @@ def kernel_args(case, device, seed=2):
                         dtype=torch.float32, device=device), levels, alphabet,
         normalize=False)
     eps = torch.linspace(1.0, 3.0, Q, device=device)
-    return index, qr, engine._fused_inputs(
-        index, qr, index.residuals, engine._query_panels(qr, alphabet), eps)
+    return index, qr, engine._fused_inputs(index, qr, index.residuals, eps)
 
 
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("block_q", [16, 32])
 def test_kernels_match_plain_versions(cuda, case, block_q):
     _, _, args = kernel_args(case, cuda)
-    plain = {k: v for k, v in args.items() if k != "alphabet"}
+    plain = plain_args(args)
     n0 = fq.fused_range.launches
     ga, gd = fq.fused_range(**args, block_q=block_q, block_b=128)
     torch.cuda.synchronize()
@@ -231,20 +247,20 @@ def quant_case(Q, B, mode, device, seed=5, levels=(8, 16)):
         torch.as_tensor(make_queries(db, Q, seed=seed + 1),
                         dtype=torch.float32, device=device), levels, 10)
     eps = torch.linspace(1.0, 3.0, Q, device=device)
-    return qdev, qr, eps, engine._query_panels(qr, 10)
+    return qdev, qr, eps, qr.words
 
 
 @pytest.mark.parametrize("mode", ["int8", "bf16"])
 @pytest.mark.parametrize("shape", [(27, 50_001), (32, 65_536)])
 def test_quant_kernels_match_plain_versions(cuda, mode, shape):
     Q, B = shape
-    qdev, qr, eps, panels = quant_case(Q, B, mode, cuda)
-    args = (qdev, qr.q, panels, qr.residuals, eps)
+    qdev, qr, eps, q_words = quant_case(Q, B, mode, cuda)
+    args = (qdev, qr.q, q_words, qr.residuals, eps)
     n0 = fq.fused_quant_range.launches
     gk, gd = fq.fused_quant_range(*args, block_q=32, block_b=1024)
     torch.cuda.synchronize()
     assert fq.fused_quant_range.launches == n0 + 1
-    wk, wd = ref.fused_quant_range_ref(*args)
+    wk, wd = ref.fused_quant_range_ref(*quant_plain(args))
     lim2 = ref.screen_limit_sq(eps, qdev.series_err).cpu().numpy()
     gk, gd, wk, wd = (t.cpu().numpy() for t in (gk, gd, wk, wd))
     assert not wk[:, 128:256].any() and not gk[:, 128:256].any()
@@ -260,7 +276,8 @@ def test_quant_kernels_match_plain_versions(cuda, mode, shape):
         gi, gdd = fq.fused_quant_topk(*args, k=k, block_q=16,
                                       block_b=block_b)
         torch.cuda.synchronize()
-        wi, wdd = ref.fused_quant_topk_ref(*args, k=k, block_b=block_b)
+        wi, wdd = ref.fused_quant_topk_ref(*quant_plain(args), k=k,
+                                           block_b=block_b)
         mg = fq.merge_topk_partials(gi, gdd, 5)
         mw = fq.merge_topk_partials(wi, wdd, 5)
         gd_m, wd_m = mg[1].cpu().numpy(), mw[1].cpu().numpy()
@@ -277,9 +294,9 @@ def test_quant_shared_memory_layout_matches_chooser(cuda, mode):
     for topk, k_sel in ((False, 0), (True, 12)):
         for bq in ops.FUSED_BLOCK_Q:
             assert fq.smem_bytes_of_kernel(topk, 128, (8, 16), 10, bq, 32,
-                                           k_sel, quant=True) == \
+                                           k_sel, quant=mode) == \
                 ops.fused_smem_bytes(bq, 128, (8, 16), 10, 32, k_sel,
-                                     quant=True)
+                                     quant=mode)
 
 
 def test_tiered_service_on_card_is_exact_and_uses_the_kernel(cuda):
@@ -382,7 +399,7 @@ def subseq_case(case, device, seed=3, flat=False):
     args = dict(streams=sidx.streams, mu=sidx.mu, sd=sidx.sd,
                 norms_sq=sidx.index.norms_sq, words=sidx.index.words,
                 residuals=sidx.index.residuals, q=qr.q,
-                q_panels=engine._query_panels(qr, 10),
+                q_words=qr.words,
                 q_residuals=qr.residuals, eps=eps.reshape(-1).contiguous(),
                 levels=levels, alphabet=10, window=window, stride=stride)
     return hidx, sidx, qr, args
@@ -392,13 +409,9 @@ def rows_args(sidx, args):
     """The whole-series kernels' inputs over the materialised windows."""
     return dict(series=sidx.index.series, norms_sq=args["norms_sq"],
                 words=args["words"], residuals=args["residuals"],
-                q=args["q"], q_panels=args["q_panels"],
+                q=args["q"], q_words=args["q_words"],
                 q_residuals=args["q_residuals"], eps=args["eps"],
                 levels=args["levels"], alphabet=10, n=args["window"])
-
-
-def plain_args(args):
-    return {k: v for k, v in args.items() if k != "alphabet"}
 
 
 @pytest.mark.parametrize("case", SUBSEQ_CASES)
@@ -458,8 +471,8 @@ def test_quant_subseq_kernel_is_set_identical(cuda, mode, case):
     fa, fd = fq.fused_subseq_range(**args, block_q=16, block_b=256)
     assert ga.sum() > 0
     assert torch.equal(ga, fa) and torch.equal(gd, fd)
-    wa, wd = ref.fused_quant_subseq_range_ref(
-        **{k: v for k, v in full.items() if k != "alphabet"}, qmeta=qmeta)
+    wa, wd = ref.fused_quant_subseq_range_ref(**plain_args(full),
+                                              qmeta=qmeta)
     eps2 = (args["eps"] ** 2).cpu().numpy()[:, None]
     ga, gd, wa, wd = (t.cpu().numpy() for t in (ga, gd, wa, wd))
     d_ref = np.where(np.isfinite(wd), wd, gd)
@@ -483,8 +496,8 @@ def test_subseq_constant_windows_on_card(cuda):
 @pytest.mark.parametrize("case", SUBSEQ_CASES)
 def test_subseq_shared_memory_layout_matches_chooser(cuda, case):
     _, _, window, stride, levels, Q = case
-    for topk, k_sel, quant in ((False, 0, False), (True, 12, False),
-                               (False, 0, True)):
+    for topk, k_sel, quant in ((False, 0, None), (True, 12, None),
+                               (False, 0, "int8"), (False, 0, "bf16")):
         for bq in ops.FUSED_BLOCK_Q:
             assert fq.smem_bytes_of_kernel(
                 topk, window, levels, 10, bq, Q, k_sel, quant,
@@ -701,11 +714,10 @@ def select_case():
         normalize=False)
     res0 = index.residuals[0].clone()
     res0[DEAD_ROWS] = fq.PAD_RESIDUAL
-    panels = engine._query_panels(qr, 10)
     residuals = (res0,) + tuple(index.residuals[1:])
     open_eps = torch.full((SELECT_Q,), OPEN_EPS, device=dev)
     path_eps = torch.linspace(1.0, 3.0, SELECT_Q, device=dev)
-    return {name: engine._fused_inputs(index, qr, residuals, panels, eps)
+    return {name: engine._fused_inputs(index, qr, residuals, eps)
             for name, eps in (("open", open_eps), ("path", path_eps))}
 
 
@@ -750,7 +762,7 @@ def select_subseq_case():
     base = dict(streams=sidx.streams, mu=sidx.mu, sd=sidx.sd,
                 norms_sq=sidx.index.norms_sq, words=sidx.index.words,
                 residuals=(res0,) + tuple(sidx.index.residuals[1:]),
-                q=qr.q, q_panels=engine._query_panels(qr, 10),
+                q=qr.q, q_words=qr.words,
                 q_residuals=qr.residuals, levels=(4, 8), alphabet=10,
                 window=64, stride=4)
     # The path's radii: alternate rows at the k-NN seed radius and at 2.
@@ -807,8 +819,7 @@ def select_quant_case(request):
     qr = engine.represent_queries(
         torch.as_tensor(make_queries(db, SELECT_Q, seed=12),
                         dtype=torch.float32, device=dev), (8, 16), 10)
-    panels = engine._query_panels(qr, 10)
-    return {name: (qdev, qr.q, panels, qr.residuals, eps) for name, eps in (
+    return {name: (qdev, qr.q, qr.words, qr.residuals, eps) for name, eps in (
         ("open", torch.full((SELECT_Q,), OPEN_EPS, device=dev)),
         ("path", torch.linspace(1.0, 3.0, SELECT_Q, device=dev)))}
 
@@ -837,3 +848,141 @@ def test_topk_tiles_keep_two_blocks_per_sm(cuda):
         smem = fq.smem_bytes_of_kernel(True, 128, (8, 16), 10, 32, 32, k_sel,
                                        stride=stride)
         assert cost_model.blocks_per_sm(smem) == 2, (k_sel, stride, smem)
+
+
+# ---------------------------------------------------------------------------
+# The ring of asynchronous stages (csrc/fused_query.cu): its room at the
+# path's tiles, its ragged edges and its independence of the stage count.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "bf16"])
+def test_range_tiles_keep_two_blocks_per_sm(cuda, quant):
+    # The range form at the serve-1M tile (Q = 32, block_q 32, n = 128,
+    # levels (8, 16)), full precision and both quantized tiers: two
+    # ring stages and two thread blocks resident per SM.
+    smem = fq.smem_bytes_of_kernel(False, 128, (8, 16), 10, 32, 32, 0,
+                                   quant=quant)
+    assert smem == ops.fused_smem_bytes(32, 128, (8, 16), 10, 32, 0, quant)
+    assert cost_model.fused_blocks_per_sm(smem) == 2, (quant, smem)
+    assert fq.stages_of_kernel(False, 128, (8, 16), 10, 32, 32, 0,
+                               quant=quant) == 2
+
+
+def test_ring_stages_match_the_mirror(cuda):
+    # Two stages wherever they keep the block count one stage gives: the
+    # serve-1M tiles; one at k_sel 67 over 128-sample rows (the lists
+    # leave no room) and on the streaming loader.
+    for topk, k_sel, quant, stride, want in (
+            (False, 0, None, 0, 2), (True, 12, None, 0, 2),
+            (True, 12, "int8", 0, 2), (True, 12, "bf16", 0, 2),
+            (True, 67, None, 0, 1), (True, 128, None, 0, 1),
+            (False, 0, None, 4, 1), (True, 67, None, 4, 1)):
+        got = fq.stages_of_kernel(topk, 128, (8, 16), 10, 32, 32, k_sel,
+                                  quant=quant, stride=stride)
+        seg = ops.subseq_seg_cap(128, stride) if stride else 0
+        assert got == want == ops.ring_stages(32, 128, (8, 16), 10, 32,
+                                              k_sel, quant, seg)
+        for stages in (1, 2):
+            if stride and stages == 2:
+                continue
+            assert fq.smem_bytes_of_kernel(
+                topk, 128, (8, 16), 10, 32, 32, k_sel, quant=quant,
+                stride=stride, stages=stages) == (
+                ops.subseq_smem_bytes(32, 128, stride, (8, 16), 10, 32,
+                                      k_sel, quant) if stride else
+                ops.fused_smem_bytes(32, 128, (8, 16), 10, 32, k_sel, quant,
+                                     stages=stages))
+
+
+def padded_views(index, B):
+    """The first B rows of ``index``'s columns as views of buffers whose
+    rows past B hold NaN (series) and out-of-range words and residuals."""
+    def pad(t, fill):
+        buf = torch.full((t.shape[0] + 64,) + tuple(t.shape[1:]), fill,
+                         dtype=t.dtype, device=t.device)
+        buf[:B] = t[:B]
+        return buf[:B]
+    return dict(series=pad(index.series, float("nan")),
+                norms_sq=pad(index.norms_sq, float("nan")),
+                words=tuple(pad(w, 1 << 20) for w in index.words),
+                residuals=tuple(pad(r, float("nan"))
+                                for r in index.residuals))
+
+
+@pytest.mark.parametrize("B", [37, 50_001])
+def test_ring_ragged_edges(cuda, B):
+    # A B smaller than one 64-row sub-tile and a ragged B: the kernels
+    # agree with their plain versions, give the same bits whatever lies
+    # past row B in the columns' buffers (nothing past B is read, the
+    # masked rows of the last sub-tile are zero-filled), and with one or
+    # two stages.
+    index, qr, args = kernel_args((9, B, (8, 16), 10), cuda)
+    tile = dict(block_q=32, block_b=1024)
+    ga, gd = fq.fused_range(**args, **tile)
+    wa, wd = ref.fused_range_ref(**plain_args(args))
+    ga_, gd_, wa, wd = (t.cpu().numpy() for t in (ga, gd, wa, wd))
+    eps2 = (args["eps"] ** 2).cpu().numpy()[:, None]
+    d_ref = np.where(np.isfinite(wd), wd, gd_)
+    assert not ((ga_ != wa) & (np.abs(d_ref - eps2) > band(eps2))).any()
+    gi, gdd = fq.fused_topk(**args, k=9, **tile)
+    assert int(gi.max()) < B and bool((gi >= 0).any())
+    views = dict(args, **padded_views(index, B))
+    for stages in (1, 2):
+        va, vd = fq.fused_range(**views, **tile, stages=stages)
+        assert torch.equal(va, ga) and torch.equal(vd.view(torch.int32),
+                                                   gd.view(torch.int32))
+        vi, vdd = fq.fused_topk(**views, k=9, **tile, stages=stages)
+        assert torch.equal(vi, gi) and torch.equal(vdd.view(torch.int32),
+                                                   gdd.view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("B", [37, 50_001])
+def test_quant_ring_ragged_edges(cuda, mode, B):
+    from repro_torch.core.fastsax import FastSAXConfig, build_index
+    from repro_torch.index import quantized as quant
+
+    db = make_wafer_like(B, 128, seed=9)
+    qhost = quant.quantize_host_index(
+        build_index(db, FastSAXConfig(n_segments=(8, 16), alphabet=10)),
+        mode)
+    qdev = engine.quantized_device_index(qhost, cuda)
+    qr = engine.represent_queries(
+        torch.as_tensor(make_queries(db, 9, seed=10), dtype=torch.float32,
+                        device=cuda), (8, 16), 10)
+    eps = torch.linspace(1.0, 3.0, 9, device=cuda)
+    args = (qdev, qr.q, qr.words, qr.residuals, eps)
+    gk, gd = fq.fused_quant_range(*args, block_q=32, block_b=1024)
+    wk, wd = ref.fused_quant_range_ref(*quant_plain(args))
+    lim2 = ref.screen_limit_sq(eps, qdev.series_err).cpu().numpy()
+    gk_, gd_, wk, wd = (t.cpu().numpy() for t in (gk, gd, wk, wd))
+    d_ref = np.where(np.isfinite(wd), wd, gd_)
+    assert not ((gk_ != wk) & (np.abs(d_ref - lim2) > band(lim2))).any()
+    for stages in (1, 2):
+        sk, sd = fq.fused_quant_range(*args, block_q=32, block_b=1024,
+                                      stages=stages)
+        assert torch.equal(sk, gk) and torch.equal(sd.view(torch.int32),
+                                                   gd.view(torch.int32))
+    gi, _ = fq.fused_quant_topk(*args, k=9, block_q=16, block_b=1024)
+    assert int(gi.max()) < B
+
+
+def test_stage_count_does_not_change_results(cuda):
+    # One stage (synchronous) and two (the ring) run the same arithmetic:
+    # range answers, d² and top-k partials equal bit for bit, at Q > one
+    # query chunk and with four levels.
+    for case in ((33, 1000, (8, 16), 10), (5, 300, (4, 8, 16, 32), 10)):
+        _, _, args = kernel_args(case, cuda)
+        for tile in (dict(block_q=32, block_b=128),
+                     dict(block_q=16, block_b=1024)):
+            one = fq.fused_range(**args, **tile, stages=1)
+            two = fq.fused_range(**args, **tile, stages=2)
+            assert torch.equal(one[0], two[0])
+            assert torch.equal(one[1].view(torch.int32),
+                               two[1].view(torch.int32))
+            one = fq.fused_topk(**args, k=9, **tile, stages=1)
+            two = fq.fused_topk(**args, k=9, **tile, stages=2)
+            assert torch.equal(one[0], two[0])
+            assert torch.equal(one[1].view(torch.int32),
+                               two[1].view(torch.int32))

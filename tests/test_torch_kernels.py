@@ -72,9 +72,10 @@ def fused_case(Q, B, levels, alphabet, seed=2):
 
 
 def pack(tdev, tqr, eps):
-    panels = tuple(tops.query_panels(w, tdev.alphabet) for w in tqr.words)
+    # The wrappers take the query words (the kernel reads the MINDIST table
+    # through them); the reference takes their panels (j_panels).
     return dict(series=tdev.series, norms_sq=tdev.norms_sq, words=tdev.words,
-                residuals=tdev.residuals, q=tqr.q, q_panels=panels,
+                residuals=tdev.residuals, q=tqr.q, q_words=tqr.words,
                 q_residuals=tqr.residuals,
                 eps=torch.as_tensor(eps, dtype=torch.float32),
                 levels=tdev.levels, alphabet=tdev.alphabet, n=tdev.n)

@@ -205,11 +205,11 @@ def test_fused_quant_range_plain_matches_oracle(B, mode):
     Q = eps.size
     want_k, want_d = jeng.quantized_screen(
         jtier.dev, jqr, jnp.asarray(eps).reshape(Q, 1))
-    panels = teng._query_panels(tqr, ALPHABET)
     eps_t = torch.as_tensor(eps)
     before = tfq.fused_quant_range.launches
-    got_k, got_d = tfq.fused_quant_range(tdev, tqr.q, panels, tqr.residuals,
-                                         eps_t, block_q=16, block_b=128)
+    got_k, got_d = tfq.fused_quant_range(tdev, tqr.q, tqr.words,
+                                         tqr.residuals, eps_t, block_q=16,
+                                         block_b=128)
     assert tfq.fused_quant_range.launches == before    # CPU: plain version
     assert got_k.dtype == torch.bool and got_k.shape == (Q, B)
     lim2 = tref.screen_limit_sq(eps_t, tdev.series_err).numpy()
@@ -231,7 +231,7 @@ def test_fused_quant_range_plain_matches_pallas_interpret(B, mode):
         block_b=128, interpret=True)
     eps_t = torch.as_tensor(eps)
     got_k, got_d = tfq.fused_quant_range(
-        tdev, tqr.q, teng._query_panels(tqr, ALPHABET), tqr.residuals, eps_t)
+        tdev, tqr.q, tqr.words, tqr.residuals, eps_t)
     lim2 = tref.screen_limit_sq(eps_t, tdev.series_err).numpy()
     assert_screen_parity(got_k.numpy(), got_d.numpy(), want_k, want_d, lim2)
 
@@ -272,9 +272,8 @@ def test_fused_quant_topk_plain_matches_oracle_top_k(B, mode):
                                      jnp.asarray(eps).reshape(Q, 1))
     dense = np.asarray(dense)
     eps_t = torch.as_tensor(eps)
-    panels = teng._query_panels(tqr, ALPHABET)
     for block_b in (64, 128):
-        idx, d2 = tfq.fused_quant_topk(tdev, tqr.q, panels, tqr.residuals,
+        idx, d2 = tfq.fused_quant_topk(tdev, tqr.q, tqr.words, tqr.residuals,
                                        eps_t, k=k, block_q=16,
                                        block_b=block_b)
         assert idx.shape == (Q, -(-B // block_b) * k)
@@ -316,16 +315,16 @@ def test_carried_and_port_built_tiers_are_equal():
 
 def test_wrapper_checks_its_inputs():
     _, _, tdev, tqr, eps = screen_case(300, "int8", Q=2)
-    panels = teng._query_panels(tqr, ALPHABET)
+    qw = tqr.words
     eps_t = torch.as_tensor(eps)
     bad = dataclasses.replace(tdev, series_scale=None)
     with pytest.raises(TypeError, match="series_scale"):
-        tfq.fused_quant_range(bad, tqr.q, panels, tqr.residuals, eps_t)
+        tfq.fused_quant_range(bad, tqr.q, qw, tqr.residuals, eps_t)
     bad = dataclasses.replace(tdev, words=tuple(w.int() for w in tdev.words))
     with pytest.raises(TypeError, match="words"):
-        tfq.fused_quant_range(bad, tqr.q, panels, tqr.residuals, eps_t)
+        tfq.fused_quant_range(bad, tqr.q, qw, tqr.residuals, eps_t)
     with pytest.raises(ValueError, match="k=0"):
-        tfq.fused_quant_topk(tdev, tqr.q, panels, tqr.residuals, eps_t, k=0)
+        tfq.fused_quant_topk(tdev, tqr.q, qw, tqr.residuals, eps_t, k=0)
 
 
 # ---------------------------------------------------------------------------

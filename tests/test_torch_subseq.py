@@ -213,10 +213,9 @@ def test_subseq_topk_partials_match_reference_pallas(case, block_b):
     _, _, jd, jqr, td, tqr, _ = make_case(*case)
     eps = eps_of(4)
     k = 6
-    panels = teng._query_panels(tqr, ALPHABET)
     gi, gd = tfq.fused_subseq_topk(
         td.streams, td.mu, td.sd, td.index.norms_sq, td.index.words,
-        td.index.residuals, tqr.q, panels, tqr.residuals,
+        td.index.residuals, tqr.q, tqr.words, tqr.residuals,
         torch.as_tensor(eps), levels=td.levels, alphabet=ALPHABET,
         window=td.window, stride=td.stride, k=k, block_b=block_b)
     assert gi.shape == (4, -(-td.n_windows // block_b) * k)
