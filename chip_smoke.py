@@ -93,9 +93,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    row); ``mindist_sq``, ``sqdist`` and ``prune_level`` (10-12) bit-
    identical to their plain versions at B = 2^20 and all five at the edge
    shapes (B = 1, ragged B at n = 96, L = 1, N = 1, L = 128, bf16 rows,
-   the extreme symbols, a PAD_RESIDUAL row).  Times, plain times, the
-   one-call yardsticks (``torch.matmul`` by the averaging matrix for
-   ``paa``, ``torch.cdist`` for ``sqdist``) and the bounds.
+   the extreme symbols, a PAD_RESIDUAL row).  Times of each kernel alone
+   and of its wrapper's whole call, plain times, the one-call yardsticks
+   (``torch.matmul`` by the averaging matrix for ``paa``, ``torch.cdist``
+   for ``sqdist``) and the bounds (``prune_level``'s counts the words of
+   the rows C9 keeps, the only ones it reads; the full-read bound is
+   logged beside it).  The build's linfit and word instantiations must
+   have no stack frame and no spill.
 13. The paper's online phase, one query and one level at a time: the
    port's host ``FastSAXIndex`` of phase 7, its columns uploaded once; 16
    queries at ε ∈ {1, 2}; with the counts set to 0, FAST_SAX on the card
@@ -108,7 +112,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    must have launched.  Each engine's op-counted latency, candidates,
    exclusions and time per query; ``sqdist`` timed at the phase's mean
    survivor count, the shape it runs at, beside phase 12's 2^20 rows
-   (the kernels line carries the survivor-count figures).
+   (the kernels line carries the survivor-count figures); then, outside
+   the counted run, where a query's card time goes: the wrapper calls'
+   host work, the wait for their kernels, ``nonzero``, the verify, the
+   copies, and the kernels alone.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -197,6 +204,38 @@ def cuda_ms(torch, fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# A spin of ~10 ms at the H100's clocks: longer than the host takes to
+# queue 20 wrapper launches.
+SPIN_CYCLES = 20_000_000
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time per call of ``fn``, its launches queued behind a spin
+    kernel so that the card runs them back to back: a kernel shorter than
+    its launch's host work (the level kernels 10 and 12) would otherwise
+    be timed at the host's pace.  Fails if the host took longer to queue
+    them than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    spin = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    check(queued_ms < spin[0].elapsed_time(start),
+          f"queuing {reps} launches took {queued_ms:.2f} ms, longer than "
+          f"the spin")
     return start.elapsed_time(end) / reps
 
 
@@ -1546,19 +1585,29 @@ def subseq_phases(torch, engine, fq, ref, report) -> tuple:
 # ---------------------------------------------------------------------------
 
 def level_ptxas_summary(log_text: str) -> list:
-    """:func:`ptxas_summary` for ``level_ops.cu``: the segment bodies
-    (0 paa, 1 linfit, 2 sqdist; f32 or bf16 rows) and the word gather
-    (mindist, prune)."""
-    bodies = {"0": "paa", "1": "linfit", "2": "sqdist"}
+    """:func:`ptxas_summary` for ``level_ops.cu``: the segment body (paa,
+    sqdist; f32 or bf16 rows), the linfit bodies (per segment length L,
+    and the generic one) and the word bodies (mindist, prune; per width N,
+    and the generic ones by the size of their query-word parameter)."""
+    dtype = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    names = (
+        (r"segment_kernelILi(\d)E(f|13__nv_bfloat16)E",
+         lambda m: f"{('paa', 'linfit', 'sqdist')[int(m[1])]} "
+                   f"{dtype[m[2]]}"),
+        (r"linfit_kernelILi(\d+)E(f|13__nv_bfloat16)E",
+         lambda m: f"linfit L={m[1]} {dtype[m[2]]}"),
+        (r"linfit_generic_kernelI(f|13__nv_bfloat16)E",
+         lambda m: f"linfit generic {dtype[m[1]]}"),
+        (r"word_kernelILi(\d+)ELb(\d)E",
+         lambda m: f"{('mindist', 'prune')[int(m[2])]} N={m[1]}"),
+        (r"word_generic_kernelILi(\d+)ELb(\d)E",
+         lambda m: f"{('mindist', 'prune')[int(m[2])]} generic "
+                   f"(query word up to {m[1]})"))
     out, name, spill = [], None, ""
     for line in log_text.splitlines():
-        m = re.search(r"segment_kernelILi(\d)E(f|13__nv_bfloat16)E", line)
-        w = re.search(r"word_kernelILb(\d)E", line)
-        if m and "Compiling entry function" in line:
-            name = (f"{bodies[m.group(1)]} "
-                    f"{'f32' if m.group(2) == 'f' else 'bf16'}")
-        elif w and "Compiling entry function" in line:
-            name = "prune" if w.group(1) == "1" else "mindist"
+        if "Compiling entry function" in line:
+            name = next((label(m) for pat, label in names
+                         if (m := re.search(pat, line))), None)
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
@@ -1567,6 +1616,13 @@ def level_ptxas_summary(log_text: str) -> list:
                        f"{spill}")
             name = None
     return out
+
+
+def frame_and_spills(line: str) -> tuple:
+    """(stack frame bytes, spill store + load bytes) of a ptxas summary
+    line."""
+    return (int(re.search(r"(\d+) bytes stack frame", line).group(1)),
+            sum(int(m) for m in re.findall(r"(\d+) bytes spill", line)))
 
 
 def max_abs_diff(torch, got, want) -> float:
@@ -1650,6 +1706,7 @@ def level_phase12(torch, engine, lo, ref, index, queries, report) -> tuple:
     8-9 also against the engine's device build of phase 3; their times.
     Returns (the build comparison's launch counts, per-kernel figures)."""
     from repro_torch.core import cost_model
+    from repro_torch.kernels import ops
     from repro_torch.core.sax import discretize
     from repro_torch.data.timeseries import make_wafer_like
 
@@ -1720,18 +1777,26 @@ def level_phase12(torch, engine, lo, ref, index, queries, report) -> tuple:
         f"max |kernel − plain| {errs}")
 
     # Times at B = 2^20, n = 128, the finest level N = 16: "ms" launches
-    # the kernel alone (the query's panel made once; a launch outside the
-    # wrapper is not counted), "call_ms" is the wrapper's whole call, whose
-    # host work (checks, the panel from the word) can exceed a short
-    # kernel's time.
+    # the kernel alone (the table and the query word's offsets looked up
+    # once; a launch outside the wrapper is not counted) and times the
+    # card's work (device_ms), "call_ms" is the wrapper's whole call in a
+    # loop, whose host work (checks, the offsets from the word) can exceed
+    # a short kernel's time.
     M = torch.zeros((n, N), dtype=torch.float32, device=x.device)
     for s_ in range(N):
         M[s_ * (n // N):(s_ + 1) * (n // N), s_] = 1.0 / (n // N)
     f4 = 4.0
+    tab = ops.mindist_table_cached(A, str(x.device))
+    qoff = lo.query_offsets(qword, A)
+    # Kernel 12 reads the words of the rows C9 keeps (alive ∧ |res − qres|
+    # ≤ ε) only: its bound counts those of this run's inputs, beside the
+    # bound of reading every row's words.
+    q32 = float(np.float32(qres))
+    c10_rows = int((torch.abs(r - q32) <= 2.0).sum())
+    prune_full = B * (1 + 4 + N * 4 + 1) + A * A * f4
     o_res = torch.empty(B, dtype=torch.float32, device=x.device)
     o_paa = torch.empty((B, N), dtype=torch.float32, device=x.device)
     o_alive = torch.empty(B, dtype=torch.bool, device=x.device)
-    q32 = float(np.float32(qres))
     timed = {
         "linfit_residual_sq": (
             lambda: lo._segment(1, x, N, None, o_res, "linfit"),
@@ -1743,26 +1808,28 @@ def level_phase12(torch, engine, lo, ref, index, queries, report) -> tuple:
                 lambda: torch.matmul(x, M), B * n * f4 + B * N * f4,
                 B * n * 1.0 + B * N),
         "mindist_sq": (
-            lambda: lo._word(0, w, tq, n, A, None, None, 0.0, 0.0, o_res,
-                             "mindist_sq"),
+            lambda: lo._word(0, w, tab, qoff, n, A, None, None, 0.0, 0.0,
+                             o_res, "mindist_sq"),
             lambda: lo.mindist_sq(w, qword, n, A),
             lambda: ref.mindist_sq_level_ref(w, tq, n), None,
-            B * N * f4 + A * N * f4 + B * f4, B * N * 2.0 + B),
+            B * N * f4 + A * A * f4 + B * f4, B * N * 2.0 + B),
         "sqdist": (lambda: lo._segment(2, x, 1, q, o_res, "sqdist"),
                    lambda: lo.sqdist(x, q), lambda: ref.sqdist_ref(x, q),
                    lambda: torch.cdist(x, q[None]),
                    B * n * f4 + n * f4 + B * f4, B * n * 3.0),
         "prune_level": (
-            lambda: lo._word(1, w, tq, n, A, ones, r, q32, 2.0, o_alive,
-                             "prune_level"),
+            lambda: lo._word(1, w, tab, qoff, n, A, ones, r, q32, 2.0,
+                             o_alive, "prune_level"),
             lambda: lo.prune_level(ones, r, w, qword, qres, 2.0, n, A),
             lambda: ref.prune_level_ref(ones, r, w, tq, q32, 2.0, n), None,
-            B * (1 + 4 + N * 4 + 1) + A * N * f4, B * N * 2.0 + B * 6.0)}
+            prune_full - (B - c10_rows) * N * f4,
+            c10_rows * N * 2.0 + B * 6.0)}
     figures = {}
     for name, (kern, call, plain, lib, nbytes, ops) in timed.items():
         b_ms, b_by = level_bound(nbytes, ops)
         figures[name] = {
-            "ms": cuda_ms(torch, kern, 20), "call_ms": cuda_ms(torch, call, 20),
+            "ms": device_ms(torch, kern, 20),
+            "call_ms": cuda_ms(torch, call, 20),
             "plain_ms": cuda_ms(torch, plain, 3),
             "library_ms": cuda_ms(torch, lib, 20) if lib else None,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
@@ -1772,7 +1839,14 @@ def level_phase12(torch, engine, lo, ref, index, queries, report) -> tuple:
             f"(the wrapper's call {f['call_ms']:.4f} ms, plain "
             f"{f['plain_ms']:.3f} ms, library "
             f"{'—' if lib is None else format(f['library_ms'], '.4f')} ms, "
-            f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.1f} MB)")
+            f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.1f} MB; "
+            f"{100 * b_ms / f['ms']:.1f} % of it)")
+    full_ms = level_bound(prune_full, B * N * 2.0 + B * 6.0)[0]
+    figures["prune_level"].update(c10_rows=c10_rows, full_read_bound_ms=full_ms)
+    log(f"[level-kernels] prune_level read the words of the {c10_rows} "
+        f"rows C9 keeps at eps=2.0; reading every row's words "
+        f"({prune_full / 1e6:.1f} MB) would bound it at {full_ms:.4f} ms, "
+        f"{100 * full_ms / figures['prune_level']['ms']:.1f} % of its time")
     # The direct launches computed what the wrappers compute.
     check(torch.equal(o_alive, ref.prune_level_ref(ones, r, w, tq, q32, 2.0,
                                                    n))
@@ -1781,7 +1855,7 @@ def level_phase12(torch, engine, lo, ref, index, queries, report) -> tuple:
     tiles = {}
     for kind, Nk in (("linfit", N), ("paa", N), ("sqdist", 1),
                      ("words", N)):
-        rows, smem = lo.tile_of(kind, n, Nk, A)
+        rows, smem = lo.tile_of(kind, n, Nk)
         tiles[kind] = {"rows": rows, "smem": smem,
                        "blocks_per_sm": cost_model.blocks_per_sm(smem)}
     log(f"[level-kernels] tiles at n={n}: {tiles}")
@@ -1902,8 +1976,10 @@ def level_phase13(torch, engine, lo, ref, host, index, queries,
                 f"{st['latency']:.0f}, candidates {st['candidates']:.1f}, "
                 f"excluded C9 {st['excluded_c9']:.1f} C10 "
                 f"{st['excluded_c10']:.1f} (means over {len(qs)} queries); "
-                f"card {st['card_ms']:.2f} ms, host f64 {st['host_ms']:.1f} "
-                f"ms per query")
+                f"card {st['card_ms']:.2f} ms in this checked run (FAST_SAX "
+                f"first after the host engines; [level-breakdown] times "
+                f"them back to back), host f64 {st['host_ms']:.1f} ms per "
+                f"query")
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in lo.KERNELS}
     check(tally["answer_wrong"] == 0 and tally["cand_wrong"] == 0
@@ -1918,11 +1994,111 @@ def level_phase13(torch, engine, lo, ref, host, index, queries,
         f"uploaded in {upload_s:.2f}s; launches {launches}")
     sq = sqdist_at_survivors(torch, lo, ref, series, dqr.q[0].contiguous(),
                              stats)
+    split = level_query_breakdown(torch, lo, host, series, words, resid, qs,
+                                  fine)
     report["level_search"] = {"stats": {str(e): v for e, v in stats.items()},
                               "agreement": tally, "launches": launches,
                               "upload_s": upload_s,
-                              "sqdist_at_survivors": sq}
+                              "sqdist_at_survivors": sq,
+                              "breakdown": split}
     return launches, sq
+
+
+def level_query_breakdown(torch, lo, host, series, words, resid, qs,
+                          fine) -> dict:
+    """Where a level-at-a-time query's card time goes, after phase 13's
+    counted run; means over its queries per ε and engine.  "card" is the
+    whole query as phase 13 runs it, the engines back to back with no
+    host-engine work between queries and in alternating order (FAST_SAX
+    first on even queries, SAX first on odd): in the counted run the
+    engine that comes first after the host engines' 70-400 ms finds the
+    card idle.  Then the same steps, each on the host clock and ended by
+    a synchronize: "host" the wrapper calls' return (checks, offsets, the
+    launches: host work), "wait" the rest of their kernels, "nonzero" the
+    candidates' indices (a device-to-host sync of its own), "verify" the
+    gather, ``sqdist`` and the ε² cut, "copy" the ids to the host; and
+    "kernels", the prune or MINDIST kernels alone on the card (CUDA
+    events over 20 back-to-back launches)."""
+    from repro_torch.core.fastsax import represent_query
+    from repro_torch.kernels import ops, ref
+
+    cfg, B, n = host.config, host.size, host.n
+    A, dev = cfg.alphabet, series.device
+    tab = ops.mindist_table_cached(A, str(dev))
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    steps = ("host", "wait", "nonzero", "verify", "copy")
+
+    def query(eng, qr, q, eps, eps2, clock=None):
+        """One query on the card; with ``clock``, a synchronize and a
+        time stamp after each step."""
+        def mark():
+            if clock is not None:
+                torch.cuda.synchronize()
+                clock.append(time.perf_counter())
+        if clock is not None:
+            clock.append(time.perf_counter())
+        if eng == "fastsax":
+            alive = ones
+            for li in range(len(words)):
+                alive = lo.prune_level(alive, resid[li], words[li],
+                                       qr.words[li], qr.residuals[li], eps,
+                                       n, A)
+        else:
+            md2 = lo.mindist_sq(words[fine], qr.words[fine], n, A)
+        if clock is not None:
+            clock.append(time.perf_counter())
+        mark()
+        cand = torch.nonzero(alive if eng == "fastsax"
+                             else md2 <= eps2).flatten()
+        mark()
+        ans = cand[lo.sqdist(series[cand], q) <= eps2]
+        mark()
+        cand.cpu().numpy(), ans.cpu().numpy()
+        if clock is not None:
+            clock.append(time.perf_counter())
+
+    def kernels(eng, offs, q32, eps):
+        if eng == "fastsax":
+            o = [torch.empty(B, dtype=torch.bool, device=dev) for _ in words]
+            ins = [ones] + o[:-1]
+            return lambda: [lo._word(1, words[li], tab, offs[li], n, A,
+                                     ins[li], resid[li], q32[li], eps, o[li],
+                                     "prune") for li in range(len(words))]
+        o = torch.empty(B, dtype=torch.float32, device=dev)
+        return lambda: lo._word(0, words[fine], tab, offs[fine], n, A, None,
+                                None, 0.0, 0.0, o, "mindist")
+
+    out = {}
+    for eps in LEVEL_EPS:
+        eps2 = ref.eps_sq_f32(eps)
+        acc = {eng: dict.fromkeys(("card",) + steps + ("kernels",), 0.0)
+               for eng in ("fastsax", "sax")}
+        for qi, qv in enumerate(qs):
+            qr = represent_query(qv, cfg)
+            q = torch.as_tensor(qr.q, dtype=torch.float32, device=dev)
+            q32 = [float(np.float32(r)) for r in qr.residuals]
+            offs = [lo.query_offsets(w, A) for w in qr.words]
+            order = ("fastsax", "sax") if qi % 2 == 0 else ("sax", "fastsax")
+            for eng in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                query(eng, qr, q, eps, eps2)
+                acc[eng]["card"] += (time.perf_counter() - t0) * 1e3 / len(qs)
+            for eng in order:
+                torch.cuda.synchronize()
+                clock = []
+                query(eng, qr, q, eps, eps2, clock)
+                for key, a, b in zip(steps, clock, clock[1:]):
+                    acc[eng][key] += (b - a) * 1e3 / len(qs)
+                acc[eng]["kernels"] += device_ms(
+                    torch, kernels(eng, offs, q32, float(np.float32(eps))),
+                    20) / len(qs)
+        out[str(eps)] = acc
+        for eng, a in acc.items():
+            log(f"[level-breakdown] eps={eps} {eng}, ms per query: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in a.items())
+                + f" (steps sum {sum(a[k] for k in steps):.4f})")
+    return out
 
 
 def sqdist_at_survivors(torch, lo, ref, series, q, stats) -> dict:
@@ -1941,7 +2117,7 @@ def sqdist_at_survivors(torch, lo, ref, series, q, stats) -> dict:
           f"sqdist differs from its plain version at {m} rows")
     nbytes, ops = m * n * 4.0 + n * 4.0 + m * 4.0, m * n * 3.0
     b_ms, b_by = level_bound(nbytes, ops)
-    f = {"rows": m, "ms": cuda_ms(torch, lambda: lo._segment(
+    f = {"rows": m, "ms": device_ms(torch, lambda: lo._segment(
             2, x, 1, q, out, "sqdist"), 20),
          "call_ms": cuda_ms(torch, lambda: lo.sqdist(x, q), 20),
          "plain_ms": cuda_ms(torch, lambda: ref.sqdist_ref(x, q), 3),
@@ -2006,10 +2182,8 @@ def main() -> int:
             f"stores and loads in all")
     # Every non-streaming instantiation keeps its per-level state in
     # registers: no stack frame and no spill.
-    frames = {line.split(":")[0]: (
-        int(re.search(r"(\d+) bytes stack frame", line).group(1)),
-        sum(int(m) for m in re.findall(r"(\d+) bytes spill", line)))
-        for line in report["build"]["kernels"]}
+    frames = {line.split(":")[0]: frame_and_spills(line)
+              for line in report["build"]["kernels"]}
     body = {k: v for k, v in frames.items() if "streaming" not in k}
     report["build"]["stack_and_spill_bytes"] = frames
     check(body, "no ptxas report of the fused kernels in the build log")
@@ -2022,6 +2196,20 @@ def main() -> int:
           f"a non-streaming instantiation has a stack frame or spills: "
           f"{body}")
     check(all(r <= 128 for r in regs), f"top-k registers above 128: {regs}")
+    # The linfit and word bodies of level_ops.cu keep their state in
+    # registers: no stack frame and no spill in any instantiation.
+    level_frames = {line.split(":")[0]: frame_and_spills(line)
+                    for line in report["build"]["level_kernels"]
+                    if not line.startswith(("paa ", "sqdist "))}
+    report["build"]["level_stack_and_spill_bytes"] = level_frames
+    check(level_frames, "no ptxas report of the level kernels in the log")
+    log(f"[build] stack frame and spill bytes of the {len(level_frames)} "
+        f"linfit and word instantiations of level_ops.cu: max "
+        f"{max(v[0] for v in level_frames.values())} and "
+        f"{max(v[1] for v in level_frames.values())}")
+    check(all(v == (0, 0) for v in level_frames.values()),
+          f"a level instantiation has a stack frame or spills: "
+          f"{level_frames}")
     report["build"]["ring_stages"] = ring_stages_at_path_tiles(fq, ops, ss)
     log("[build] ring stages the launcher chooses at the path tiles: "
         + json.dumps(report["build"]["ring_stages"], sort_keys=True))

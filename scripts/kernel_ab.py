@@ -1,29 +1,40 @@
 #!/usr/bin/env python3
-"""The fused kernels of this checkout against another checkout's, on one
-NVIDIA GPU: bit for bit on the same inputs, timed in turns, and (with
+"""The kernels of this checkout against another checkout's, on one NVIDIA
+GPU: bit for bit on the same inputs, timed in turns, and (with
 ``--split``) where each kernel body's time goes.
 
     mkdir -p build/base && git archive <commit> | tar -x -C build/base
     python3 scripts/kernel_ab.py build/base [--split] [--rows 65536]
+    python3 scripts/kernel_ab.py build/base --level [--split]
 
 The other checkout (``build/`` is git-ignored) is loaded in the same
 process as the package ``repro_torch_base``; each side builds its own
-``csrc/fused_query.cu``.  The inputs are those ``chip_smoke.py`` makes:
-serve-1M (Q = 32, B = 2^20, n = 128, levels (8, 16), α 10) for kernels 1,
-2, 5 and 6 (int8 and bf16) at the path's tiles, and subseq-1M (16 streams
-of 262,144 samples, windows of 128 at stride 4) for kernels 3, 4 and 7.
-A side whose wrappers take the per-query MINDIST panels gets them
-(``ops.query_panels``); one that takes the query words gets those.
+sources.  By default the fused kernels (``csrc/fused_query.cu``) on the
+inputs ``chip_smoke.py`` makes: serve-1M (Q = 32, B = 2^20, n = 128,
+levels (8, 16), α 10) for kernels 1, 2, 5 and 6 (int8 and bf16) at the
+path's tiles, and subseq-1M (16 streams of 262,144 samples, windows of
+128 at stride 4) for kernels 3, 4 and 7.  A side whose wrappers take the
+per-query MINDIST panels gets them (``ops.query_panels``); one that takes
+the query words gets those.  With ``--level``, the per-level kernels 8,
+10 and 12 (``csrc/level_ops.cu``) on phase 12's and 13's inputs: the
+serve-1M index's z-normalised rows, words and residuals at N = 8 and 16,
+one query, ε = 2; ``prune_level`` with every row alive (phase 12) and
+with the survivors of the level before (phase 13's second call).
 
 Each kernel's outputs must be equal bit for bit on both sides (the run
 fails otherwise).  Times: CUDA events over 20 launches, in the order
-base, change, change, base.  ``--split`` builds a copy of each side's
-source with ``clock64()`` stamps summed per warp into staging (the
-barrier and copy time at the top of a sub-tile), cascade (C9 + C10),
-verify and the rest (outputs, top-k merge), and reports each share; the
-copies live in ``build/kernel_ab/`` and the sources stay as they are.
-Everything is written to ``chiprun_out/kernel_ab.json``.  Needs a card;
-``chip_smoke.py`` does not use this script.
+base, change, change, base; with ``--level`` both the kernel launched
+alone, its launches queued behind a spin kernel so that the card's time
+is measured and not the host's (``chip_smoke.device_ms``), and the
+wrapper's whole call in a loop.  ``--split`` builds a copy of each
+side's source with ``clock64()`` stamps summed per warp into the body's
+phases and reports each share: for the fused body staging (the barrier
+and copy time at the top of a sub-tile), cascade (C9 + C10), verify and
+the rest (outputs, top-k merge); for the level bodies the phases each
+version has (``LEVEL_SPLITS``).  The copies live in ``build/kernel_ab/``
+and the sources stay as they are.  Everything is written to
+``chiprun_out/kernel_ab.json`` (``kernel_ab_level.json`` with
+``--level``).  Needs a card; ``chip_smoke.py`` does not use this script.
 """
 from __future__ import annotations
 
@@ -37,6 +48,8 @@ import re
 import subprocess
 import sys
 import threading
+
+import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SPLIT_DIR = ROOT / "build" / "kernel_ab"
@@ -114,12 +127,98 @@ def instrument(text: str) -> str:
     return text[:i] + FLUSH + text[i:] + TAIL
 
 
-def build_split(side: str, pkg) -> ctypes.CDLL:
+# The level bodies (``--level``): per version of ``level_ops.cu``, per
+# kernel, the phases, the line after which the stamps start, the marks
+# (anchor, mark, before the anchor?) and the end of the body, where the
+# last mark and the flush go.  Mark k closes phase k at that point.
+LEVEL_SPLITS = {
+    # The block-cooperative bodies: tiles staged in shared memory and
+    # halved there one barriered step at a time.
+    "shared": {
+        "linfit": (
+            ("stage", "L-halving", "closed form", "N-halving+out"),
+            "  const int tile = p.rows * n;\n",
+            [("  row_sum_slices<BODY == LINFIT ? 3 : 1>(b0, b1, b2, rows * N,"
+              " L, L);\n", 0, True),
+             ("  row_sum_slices<BODY == LINFIT ? 3 : 1>(b0, b1, b2, rows * N,"
+              " L, L);\n", 1, False),
+             ("  row_sum_slices<1>(seg, nullptr, nullptr, rows, N, N);\n", 2,
+              True)],
+            "    p.out[row0 + r] = seg[r * N];\n}\n"),
+        "words": (
+            ("panel", "stage+gather", "halving", "write"),
+            "  float* cells = sm + word_panel_floats(N, A);\n",
+            [("  stage(p.words + row0 * N, rows * N,", 0, True),
+             ("  row_sum_slices<1>(cells, nullptr, nullptr, rows, N, N);\n", 1,
+              True),
+             ("  row_sum_slices<1>(cells, nullptr, nullptr, rows, N, N);\n", 2,
+              False)],
+            "      static_cast<float*>(p.out)[row] = md2;\n    }\n  }\n}\n"),
+    },
+    # The register bodies: a segment per lane (linfit), a row per G lanes
+    # (words), shuffles.  A load's wait shows in the phase of its first
+    # use, not in the one that issues it.
+    "registers": {
+        "linfit": (
+            ("issue loads", "wait+segment sums", "closed form",
+             "N-shuffles+out"),
+            "  const bool live = r < per_warp && row < p.B;\n",
+            [("    // ---- segment sums:", 0, True),
+             ("    // ---- closed form\n", 1, True),
+             ("  // ---- the row's segments:", 2, True)],
+            "  if (live && s == 0) p.out[row] = v;\n}\n"),
+        "words": (
+            ("table", "C9", "load+gather", "tree", "write"),
+            "  constexpr int P = 32 / G;          // rows per step; G steps "
+            "take 32 rows\n",
+            [("  const int j = lane % G, k = lane / G;\n", 0, True),
+             ("  const unsigned mask = __ballot_sync(FULL, need);\n", 1,
+              False),
+             ("      // ---- tree:", 2, True),
+             ("      if (lane / P == st) md = t;\n", 3, False)],
+            "  if (valid) write_row<PRUNE>(p, row, need, "
+            "__fmul_rn(p.scale, md));\n}\n"),
+    },
+}
+LEVEL_INIT = ("  long long _sp[6] = {0, 0, 0, 0, 0, 0};\n"
+              "  long long _tl = clock64();\n")
+LEVEL_FLUSH = r"""  SPLIT_MARK(%d);
+  if ((threadIdx.x & 31) == 0) {
+    for (int k = 0; k < 6; ++k) atomicAdd(&g_split[k], (unsigned long long)_sp[k]);
+    atomicAdd(&g_split[7], 1ull);
+  }
+"""
+
+
+def level_version(text: str) -> str:
+    return "shared" if "word_panel_floats" in text else "registers"
+
+
+def instrument_level(text: str) -> str:
+    """``level_ops.cu`` with clock64() stamps in the linfit and word
+    bodies of its version (``LEVEL_SPLITS``)."""
+    text = text.replace("namespace {\n", "namespace {\n" + HEADER, 1)
+    for phases, init, marks, end in LEVEL_SPLITS[level_version(text)].values():
+        assert text.count(init) == 1, init
+        text = text.replace(init, init + LEVEL_INIT, 1)
+        for anchor, mark, before in marks:
+            assert text.count(anchor) == 1, anchor
+            stamp = f"  SPLIT_MARK({mark});\n"
+            text = text.replace(anchor, stamp + anchor if before
+                                else anchor + stamp)
+        assert text.count(end) == 1, end
+        text = text.replace(end, end[:-2] + LEVEL_FLUSH % (len(phases) - 1)
+                            + "}\n")
+    return text + TAIL
+
+
+def build_split(side: str, pkg, source: str = "fused_query") -> ctypes.CDLL:
     SPLIT_DIR.mkdir(parents=True, exist_ok=True)
-    src = pathlib.Path(pkg.kernels.build.CSRC) / "fused_query.cu"
-    cu = SPLIT_DIR / f"{side}_split.cu"
-    so = SPLIT_DIR / f"lib{side}_split.so"
-    cu.write_text(instrument(src.read_text()))
+    src = pathlib.Path(pkg.kernels.build.CSRC) / f"{source}.cu"
+    cu = SPLIT_DIR / f"{side}_{source}_split.cu"
+    so = SPLIT_DIR / f"lib{side}_{source}_split.so"
+    cu.write_text((instrument_level if source == "level_ops" else
+                   instrument)(src.read_text()))
     b = pkg.kernels.build
     proc = subprocess.run([b.nvcc_path(), *b.NVCC_FLAGS, "-o", str(so),
                            str(cu)], capture_output=True, text=True)
@@ -143,6 +242,13 @@ class Side:
         self.name, self.pkg = name, pkg
         self.fq = import_module(f"{pkg.__name__}.kernels.fused_query")
         self.ops = import_module(f"{pkg.__name__}.kernels.ops")
+        self.lo = import_module(f"{pkg.__name__}.kernels.level_ops")
+        # A side whose word launcher takes the query's panel (tq) or the
+        # MINDIST table with the query word's offsets.
+        self.panel = "tq" in inspect.signature(self.lo._word).parameters
+        self.version = level_version(
+            (pathlib.Path(pkg.kernels.build.CSRC) / "level_ops.cu")
+            .read_text())
         self.words = "q_words" in inspect.signature(
             self.fq.fused_range).parameters
 
@@ -162,8 +268,44 @@ class Side:
         qdev, q, q_words, q_res, eps = args
         return qdev, q, self.query(q_words, qdev.alphabet), q_res, eps
 
-    def use(self, lib):
-        self.pkg.kernels.build._libs["fused_query"] = lib
+    def use(self, lib, source="fused_query"):
+        self.pkg.kernels.build._libs[source] = lib
+
+    def level_call(self, kind, args):
+        """The wrapper's whole call."""
+        lo = self.lo
+        fn = {"linfit": lo.linfit_residual_sq, "mindist": lo.mindist_sq,
+              "prune": lo.prune_level}[kind]
+        return lambda: fn(*args)
+
+    def level_kernel(self, torch, kind, args):
+        """The kernel launched alone, its output and query side made once
+        (a launch outside the wrapper is not counted)."""
+        lo = self.lo
+        if kind == "linfit":
+            x, N = args
+            out = torch.empty(x.shape[0], dtype=torch.float32,
+                              device=x.device)
+            return lambda: (lo._segment(1, x, N, None, out, "linfit"),
+                            out)[1]
+        if kind == "mindist":
+            w, qword, n, A = args
+            alive = res = None
+            qres = eps = 0.0
+            out = torch.empty(w.shape[0], dtype=torch.float32,
+                              device=w.device)
+        else:
+            alive, res, w, qword, qres, eps, n, A = args
+            qres, eps = float(np.float32(qres)), float(np.float32(eps))
+            out = torch.empty(w.shape[0], dtype=torch.bool, device=w.device)
+        prune = int(kind == "prune")
+        if self.panel:
+            query = (lo.query_table(qword, A, w.device),)
+        else:
+            query = (self.ops.mindist_table_cached(A, str(w.device)),
+                     lo.query_offsets(qword, A))
+        return lambda: (lo._word(prune, w, *query, n, A, alive, res, qres,
+                                 eps, out, kind), out)[1]
 
 
 def cases(torch, cs, engine, ss, FastSAXConfig, build_index, make_queries,
@@ -223,6 +365,127 @@ def cases(torch, cs, engine, ss, FastSAXConfig, build_index, make_queries,
     return out
 
 
+def level_cases(torch, cs, engine, make_queries, make_wafer_like):
+    """(label, kind, wrapper arguments) at phase 12's and 13's inputs."""
+    db = make_wafer_like(cs.N_SERVE, 128, seed=0)
+    index = engine.build_device_index(db, (8, 16), 10)
+    queries = make_queries(db, 64, seed=1)
+    del db
+    x, n, A, dev = index.series, index.n, index.alphabet, index.device
+    qr = engine.represent_queries(
+        torch.as_tensor(queries[:1], dtype=torch.float32, device=dev),
+        index.levels, A)
+    ones = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+    eps = 2.0
+    out, alive = [], ones
+    for li, N in enumerate(index.levels):
+        qword = qr.words[li][0].cpu().numpy()
+        qres = float(qr.residuals[li][0])
+        w, r = index.words[li], index.residuals[li]
+        out += [(f"8 linfit_residual_sq f32 N={N}", "linfit", (x, N)),
+                (f"10 mindist_sq N={N}", "mindist", (w, qword, n, A)),
+                (f"12 prune_level N={N} all alive", "prune",
+                 (ones, r, w, qword, qres, eps, n, A))]
+        if li:
+            out.append((f"12 prune_level N={N} after N={index.levels[li - 1]}"
+                        f" ({int(alive.sum())} alive)", "prune",
+                        (alive, r, w, qword, qres, eps, n, A)))
+        alive = ref_prune(torch, index, li, alive, qword, qres, eps)
+    out.append((f"8 linfit_residual_sq bf16 N={index.levels[-1]}", "linfit",
+                (x.to(torch.bfloat16), index.levels[-1])))
+    return out
+
+
+def ref_prune(torch, index, li, alive, qword, qres, eps):
+    """The level's survivors by the change's plain version."""
+    from repro_torch.kernels import level_ops, ref
+    tq = level_ops.query_table(qword, index.alphabet, index.device)
+    return ref.prune_level_ref(alive, index.residuals[li], index.words[li],
+                               tq, float(np.float32(qres)),
+                               float(np.float32(eps)), index.n)
+
+
+def split_of(torch, cs, lib, fn, phases) -> dict:
+    """Run ``fn`` (launching through the stamped ``lib``) 20 times and
+    read each phase's share of the warps' summed clock64() time."""
+    fn()
+    torch.cuda.synchronize()
+    lib.split_reset()
+    t = cs.device_ms(torch, fn, 20)
+    buf = (ctypes.c_ulonglong * 8)()
+    lib.split_read(buf)
+    total = sum(buf[:len(phases)])
+    return {"ms_instrumented": t, "cycles_per_warp": total / max(1, buf[7]),
+            **{p: buf[i] / max(1, total) for i, p in enumerate(phases)}}
+
+
+def run_level(torch, cs, sides, libs, opts, engine, make_queries,
+              make_wafer_like, report) -> None:
+    """Kernels 8, 10 and 12 on both sides: outputs bit for bit, the
+    kernel alone and the wrapper's call timed in turns, the split."""
+    order = ("base", "change", "change", "base")
+    # Back-to-back launches find a 32 MB input (the N = 8 words) in the
+    # 50 MB L2; the "cold" turns overwrite 128 MB before each launch and
+    # take that write's own time off.
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    flush_ms = cs.device_ms(torch, flush.zero_, 20)
+    for label, kind, args in level_cases(torch, cs, engine, make_queries,
+                                         make_wafer_like):
+        for n, s in sides.items():
+            s.use(libs[n], "level_ops")
+        calls = {n: s.level_call(kind, args) for n, s in sides.items()}
+        kerns = {n: s.level_kernel(torch, kind, args)
+                 for n, s in sides.items()}
+        outs = {n: [bits(torch, [calls[n]()])[0],
+                    bits(torch, [kerns[n]()])[0].clone()] for n in sides}
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a in outs["base"] + outs["change"]
+                   for b in outs["base"][:1])
+        del outs
+        turns = [(n, cs.device_ms(torch, kerns[n], 20)) for n in order]
+        cold_turns = [(n, cs.device_ms(
+            torch, lambda f=kerns[n]: (flush.zero_(), f()), 20) - flush_ms)
+            for n in order]
+        call_turns = [(n, cs.cuda_ms(torch, calls[n], 20)) for n in order]
+        ms, cold_ms, call_ms = ({n: sum(t for m, t in tt if m == n) / 2
+                                 for n in sides}
+                                for tt in (turns, cold_turns, call_turns))
+        row = {"bit_identical": same, "turns_ms": turns,
+               "cold_turns_ms": cold_turns, "call_turns_ms": call_turns,
+               "flush_ms": flush_ms, "base_ms": ms["base"],
+               "change_ms": ms["change"], "base_cold_ms": cold_ms["base"],
+               "change_cold_ms": cold_ms["change"],
+               "base_call_ms": call_ms["base"],
+               "change_call_ms": call_ms["change"]}
+        if opts.split:
+            body = "linfit" if kind == "linfit" else "words"
+            for n, s in sides.items():
+                lib = libs[f"{n}_split"]
+                s.use(lib, "level_ops")
+                phases = LEVEL_SPLITS[s.version][body][0]
+                row[f"{n}_split"] = split_of(torch, cs, lib, kerns[n],
+                                             phases)
+                s.use(libs[n], "level_ops")
+        report["kernels"][label] = row
+        split = "".join(
+            f"; {n} split " + ", ".join(
+                f"{p} {100 * v:.1f}%" for p, v in row[f"{n}_split"].items()
+                if p not in ("ms_instrumented", "cycles_per_warp"))
+            for n in sides if opts.split)
+        print(f"[ab] {label}: kernel base {ms['base']:.4f} ms, change "
+              f"{ms['change']:.4f} ms (turns "
+              + ", ".join(f"{n} {t:.4f}" for n, t in turns)
+              + f"); L2 cold base {cold_ms['base']:.4f} ms, change "
+              f"{cold_ms['change']:.4f} ms (turns "
+              + ", ".join(f"{n} {t:.4f}" for n, t in cold_turns)
+              + f"); call base {call_ms['base']:.4f} ms, change "
+              f"{call_ms['change']:.4f} ms (turns "
+              + ", ".join(f"{n} {t:.4f}" for n, t in call_turns)
+              + f"); bit-identical {same}{split}", flush=True)
+        if not same:
+            raise RuntimeError(f"{label}: the outputs differ")
+
+
 def caller(side, kernel, kind, args, tile):
     fn = getattr(side.fq, kernel)
     if kind == "pos":
@@ -246,7 +509,11 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=None,
                     help="whole-series kernels only, over this many rows "
                          "(default: serve-1M and subseq-1M)")
+    ap.add_argument("--level", action="store_true",
+                    help="the per-level kernels 8, 10 and 12 "
+                         "(csrc/level_ops.cu) instead of the fused ones")
     opts = ap.parse_args()
+    source = "level_ops" if opts.level else "fused_query"
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -279,12 +546,11 @@ def main() -> int:
     for name, side in sides.items():
         b = side.pkg.kernels.build
         jobs.append(threading.Thread(target=job, args=(
-            name, lambda b=b: (b.build(["fused_query"]),
-                               b.load("fused_query"))[1])))
+            name, lambda b=b: (b.build([source]), b.load(source))[1])))
         if opts.split:
             jobs.append(threading.Thread(target=job, args=(
-                f"{name}_split", lambda n=name, s=side: build_split(n,
-                                                                    s.pkg))))
+                f"{name}_split", lambda n=name, s=side: build_split(
+                    n, s.pkg, source))))
     for j in jobs:
         j.start()
     for j in jobs:
@@ -297,11 +563,22 @@ def main() -> int:
     print(smi, flush=True)
     report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
               "base": str(opts.base), "kernels": {},
-              "ptxas": {n: s.pkg.kernels.build.BUILD_INFO["fused_query"]
-                        ["log"] for n, s in sides.items()}}
+              "ptxas": {n: s.pkg.kernels.build.BUILD_INFO[source]["log"]
+                        for n, s in sides.items()}}
+    summary = cs.level_ptxas_summary if opts.level else cs.ptxas_summary
     for name, side in sides.items():
-        for line in cs.ptxas_summary(report["ptxas"][name]):
+        for line in summary(report["ptxas"][name]):
             print(f"[ptxas] {name}: {line}", flush=True)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    if opts.level:
+        try:
+            run_level(torch, cs, sides, libs, opts, engine, make_queries,
+                      make_wafer_like, report)
+        finally:
+            (out / "kernel_ab_level.json").write_text(
+                json.dumps(report, indent=1))
+        return 0
 
     for label, kernel, kind, args, tile in cases(
             torch, cs, engine, ss, FastSAXConfig, build_index, make_queries,
@@ -347,8 +624,6 @@ def main() -> int:
               + f"); bit-identical {same}{split}", flush=True)
         if not same:
             raise RuntimeError(f"{label}: the outputs differ")
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
     name = f"kernel_ab_{opts.rows}.json" if opts.rows else "kernel_ab.json"
     (out / name).write_text(json.dumps(report, indent=1))
     return 0

@@ -22,6 +22,14 @@ raises on a mismatch — nothing is copied or converted — then
 Nothing is padded: the kernels mask ragged B themselves, so the
 reference's ``block_b`` is gone.  An empty batch (B = 0) needs no launch
 and returns an empty result on either device.
+
+``mindist_sq`` and ``prune_level`` take the query word on the host (a
+numpy array or sequence; a CUDA tensor is read back first).  On the card
+each makes one launch and allocates only its output: the kernel reads
+the (α, α) MINDIST table cached per device (``ops.
+mindist_table_cached``) through the word's offsets ``q_i·α``
+(:func:`query_offsets`), which travel in the launch's parameters — no
+per-query panel, no host-to-device copy.
 """
 from __future__ import annotations
 
@@ -36,6 +44,9 @@ from .ops import mindist_table_cached
 
 _FLOATS = {torch.float32: 0, torch.bfloat16: 1}
 _PAA, _LINFIT, _SQDIST, _WORDS = 0, 1, 2, 3
+#: The longest query word the word kernels take (csrc ``WORD_N_MAX``: its
+#: offsets fill the launch's parameters).
+WORD_N_MAX = 16000
 
 _count_lock = threading.Lock()
 
@@ -47,10 +58,10 @@ def _lib():
         lib.level_segment_launch.argtypes = [ci, ci, vp, ci, ci, ci, vp, ci,
                                              vp, vp]
         lib.level_segment_launch.restype = ci
-        lib.level_word_launch.argtypes = [ci, vp, ci, ci, ci, vp, cf, vp, vp,
-                                          cf, cf, cf, vp, vp]
+        lib.level_word_launch.argtypes = [ci, vp, ci, ci, ci, vp, vp, cf, vp,
+                                          vp, cf, cf, cf, vp, vp]
         lib.level_word_launch.restype = ci
-        lib.level_ops_tile.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.level_ops_tile.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
         lib.level_ops_tile.restype = ci
         lib.level_ops_error.argtypes = [ci]
         lib.level_ops_error.restype = ctypes.c_char_p
@@ -156,45 +167,66 @@ def sqdist(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def query_table(qword, alphabet: int, device=None) -> torch.Tensor:
-    """(N,) query word -> (α, N) float32 MINDIST panel ``tq[a, i] =
-    tab[a, q_i]`` on ``device`` (default: the word's, or the CPU)."""
+def _word_array(qword, alphabet: int) -> np.ndarray:
+    """The (N,) query word on the host, its symbols checked."""
     if isinstance(qword, torch.Tensor):
-        device = qword.device if device is None else device
         qword = qword.cpu().numpy()
     qword = np.asarray(qword)
     if qword.ndim != 1:
         raise ValueError(f"qword must be (N,), got {qword.shape}")
     if qword.size and (qword.min() < 0 or qword.max() >= alphabet):
         raise ValueError(f"qword leaves [0, {alphabet})")
+    return qword
+
+
+def query_table(qword, alphabet: int, device=None) -> torch.Tensor:
+    """(N,) query word -> (α, N) float32 MINDIST panel ``tq[a, i] =
+    tab[a, q_i]`` on ``device`` (default: the word's, or the CPU): what the
+    plain versions take."""
+    if isinstance(qword, torch.Tensor) and device is None:
+        device = qword.device
+    qword = _word_array(qword, alphabet)
     tab = mindist_table_cached(int(alphabet), str(torch.device(device or
                                                                "cpu")))
     idx = torch.as_tensor(qword.astype(np.int64), device=tab.device)
     return tab[:, idx].contiguous()
 
 
-def _panel(words, qword, alphabet: int) -> torch.Tensor:
-    """Check ``words`` and return the query's panel on their device."""
+def query_offsets(qword, alphabet: int) -> np.ndarray:
+    """(N,) query word -> (N,) uint16 offsets ``q_i·α``: the cell
+    ``tab[w, q_i]`` of the panel is ``tab.T.flatten()[q_i·α + w]``, which
+    the word kernels read from the table they stage transposed."""
+    return (_word_array(qword, alphabet).astype(np.int64)
+            * int(alphabet)).astype(np.uint16)
+
+
+def _query(words, qword, alphabet: int) -> np.ndarray:
+    """Check ``words`` and the query word; return its offsets."""
     _check("words", words, (torch.int32,), 2)
     if not 2 <= int(alphabet) <= 20:
         raise ValueError(f"alphabet must be in [2, 20], got {alphabet}")
-    tq = query_table(qword, alphabet, words.device)
-    if tq.shape[1] != words.shape[1]:
-        raise ValueError(f"qword has {tq.shape[1]} symbols, words "
+    qoff = query_offsets(qword, alphabet)
+    if qoff.shape[0] != words.shape[1]:
+        raise ValueError(f"qword has {qoff.shape[0]} symbols, words "
                          f"{words.shape[1]}")
-    return tq
+    if words.device.type == "cuda" and qoff.shape[0] > WORD_N_MAX:
+        raise ValueError(f"words of {qoff.shape[0]} symbols: the kernels "
+                         f"take at most {WORD_N_MAX}")
+    return qoff
 
 
-def _word(prune, words, tq, n, alphabet, alive, res, qres, eps, out, what):
+def _word(prune, words, tab, qoff, n, alphabet, alive, res, qres, eps, out,
+          what):
+    """Launch kernel 10 (``prune`` 0) or 12 on the current stream."""
     lib = _lib()
     B, N = words.shape
     with torch.cuda.device(words.device):
         code = lib.level_word_launch(
-            prune, words.data_ptr(), B, N, int(alphabet), tq.data_ptr(),
-            float(n / N), None if alive is None else alive.data_ptr(),
+            prune, words.data_ptr(), B, N, int(alphabet), tab.data_ptr(),
+            qoff.ctypes.data, float(n / N),
+            None if alive is None else alive.data_ptr(),
             None if res is None else res.data_ptr(), qres, eps,
-            ref.eps_sq_f32(eps),
-            out.data_ptr(), _stream(words.device))
+            ref.eps_sq_f32(eps), out.data_ptr(), _stream(words.device))
     _raise_on(lib, code, what)
 
 
@@ -202,14 +234,16 @@ def mindist_sq(words: torch.Tensor, qword, n: int,
                alphabet: int) -> torch.Tensor:
     """(B, N) int32 words in [0, alphabet) × one (N,) query word -> (B,)
     float32 squared MINDIST ``(n/N)·Σᵢ tab[wᵢ, qᵢ]²`` (kernel 10)."""
-    tq = _panel(words, qword, alphabet)
+    qoff = _query(words, qword, alphabet)
     if words.device.type == "cpu":
-        return ref.mindist_sq_level_ref(words, tq, n)
+        return ref.mindist_sq_level_ref(words, query_table(qword, alphabet),
+                                        n)
     out = torch.empty((words.shape[0],), dtype=torch.float32,
                       device=words.device)
     if words.shape[0]:
-        _word(0, words, tq, n, alphabet, None, None, 0.0, 0.0, out,
-              "mindist_sq")
+        _word(0, words, mindist_table_cached(int(alphabet),
+                                             str(words.device)),
+              qoff, n, alphabet, None, None, 0.0, 0.0, out, "mindist_sq")
         _count(mindist_sq)
     return out
 
@@ -228,27 +262,29 @@ def prune_level(alive: torch.Tensor, residuals: torch.Tensor,
     _check("residuals", residuals, (torch.float32,), 1, dev)
     if alive.shape[0] != B or residuals.shape[0] != B:
         raise ValueError(f"alive and residuals must have {B} rows")
-    tq = _panel(words, qword, alphabet)
+    qoff = _query(words, qword, alphabet)
     qres, eps = float(np.float32(qres)), float(np.float32(eps))
     if dev.type == "cpu":
-        return ref.prune_level_ref(alive, residuals, words, tq, qres, eps, n)
+        return ref.prune_level_ref(alive, residuals, words,
+                                   query_table(qword, alphabet), qres, eps, n)
     out = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
-        _word(1, words, tq, n, alphabet, alive, residuals, qres, eps, out,
-              "prune_level")
+        _word(1, words, mindist_table_cached(int(alphabet), str(dev)), qoff,
+              n, alphabet, alive, residuals, qres, eps, out, "prune_level")
         _count(prune_level)
     return out
 
 
-def tile_of(kind: str, n: int, N: int, alphabet: int = 10) -> tuple:
-    """(rows per thread block, dynamic shared-memory bytes) of a launch
-    (needs the built library): ``kind`` is ``"paa"``, ``"linfit"``,
-    ``"sqdist"`` over rows of length ``n`` with ``N`` segments, or
-    ``"words"`` over N-symbol words."""
+def tile_of(kind: str, n: int, N: int) -> tuple:
+    """(rows per thread block, shared-memory bytes) of a launch over
+    aligned inputs (needs the built library): ``kind`` is ``"paa"``,
+    ``"linfit"``, ``"sqdist"`` over rows of length ``n`` with ``N``
+    segments, or ``"words"`` over N-symbol words (its static 20 × 20
+    table included)."""
     code = {"paa": _PAA, "linfit": _LINFIT, "sqdist": _SQDIST,
             "words": _WORDS}[kind]
     smem = ctypes.c_int(0)
-    rows = _lib().level_ops_tile(code, n, N, alphabet, ctypes.byref(smem))
+    rows = _lib().level_ops_tile(code, n, N, ctypes.byref(smem))
     return int(rows), int(smem.value)
 
 

@@ -44,8 +44,16 @@ from .stats import StatsTracker
 _LATER = {
     "failover_shards": ("the multi-device slice", 8),
     "mesh": ("the multi-device slice", 8),
+    "shard_timeout_s": ("the multi-device slice", 8),
+    "shard_retries": ("the multi-device slice", 8),
+    "shard_backoff_s": ("the multi-device slice", 8),
     "trace": ("the observability slice", 7),
+    "trace_ring": ("the observability slice", 7),
+    "calibration_ring": ("the observability slice", 7),
+    "profile_dir": ("the observability slice", 7),
     "from_store": ("the index-lifecycle slice", 1),
+    "refresh_min_interval_s": ("the index-lifecycle slice", 1),
+    "async_refresh": ("the index-lifecycle slice", 1),
 }
 
 
@@ -75,19 +83,28 @@ class ServeConfig:
     n_iters: int = 2               # k-NN tightening passes
     capacity0: Optional[int] = None  # first candidate capacity (None: auto)
     dense_fallback_frac: float = 0.125   # capacity > frac·B → dense dispatch
+    refresh_min_interval_s: float = 0.0  # only the default in this slice
     warmup_ks: Sequence[int] = (8,)       # k buckets to warm up
     failover_shards: int = 0       # only 0 in this slice
+    shard_timeout_s: float = 30.0  # only the default in this slice
+    shard_retries: int = 2         # only the default in this slice
+    shard_backoff_s: float = 0.02  # only the default in this slice
     breaker_threshold: int = 5     # consecutive dispatch failures → open
     breaker_cooldown: int = 8      # shed batches before half-open probe
+    async_refresh: bool = True     # only the default in this slice
     trace: bool = False            # only False in this slice
+    trace_ring: int = 4096         # only the default in this slice
+    calibration_ring: int = 2048   # only the default in this slice
+    profile_dir: str = ""          # only the default in this slice
 
     def __post_init__(self):
         check_mode(self.quantization)
         check_device_stack(self.stack, "ServeConfig")
-        if self.failover_shards:
-            raise _not_ported("failover_shards")
-        if self.trace:
-            raise _not_ported("trace")
+        # The reference's settings of slices not ported yet: accepted at
+        # their defaults, refused with the slice's item otherwise.
+        for f in dataclasses.fields(self):
+            if f.name in _LATER and getattr(self, f.name) != f.default:
+                raise _not_ported(f.name)
 
 
 def _pow2_at_least(n: int, cap: int) -> int:

@@ -537,11 +537,19 @@ def test_subseq_engine_on_card_matches_torch_engine(cuda):
 
 # (B, n, N): B = 1; ragged B at n = 96 with L = 12 and L = 3; L = 1
 # (N = n); N = 1 (L = n); a segment longer than a warp (n = 1024, L = 128).
+# linfit's register body takes L = 2, 4, 8, 16, 32 with N ≤ 32 (N = 24 and
+# 3 leave idle lanes and odd tails in its shuffle tree), the generic body
+# the others.
 SEG_CASES = [(1, 128, 8), (50_001, 96, 8), (700, 96, 32), (513, 128, 128),
-             (300, 128, 1), (257, 1024, 8), (4096, 128, 16)]
+             (300, 128, 1), (257, 1024, 8), (4096, 128, 16),
+             (1000, 64, 32), (777, 128, 32), (2049, 256, 8), (999, 96, 24),
+             (501, 96, 3)]
 # (B, N, alphabet): B = 1, ragged B, N = 1 and N = 128, alphabets 3-20.
+# The register word body takes N = 1, 2, 4, …, 128; 12 and 200 (a query
+# word past the short parameter array) go through the generic one.
 WORD_CASES = [(1, 8, 10), (50_001, 16, 10), (513, 128, 3), (300, 1, 20),
-              (4096, 8, 20)]
+              (4096, 8, 20), (700, 4, 10), (333, 2, 5), (1000, 32, 10),
+              (500, 64, 7), (300, 12, 10), (257, 200, 20), (5000, 16, 3)]
 
 
 def level_rows(device, B, n, dtype, seed=6):
@@ -597,6 +605,74 @@ def test_word_kernels_are_bit_identical(cuda, case):
         assert not bool((got & ~alive).any())
 
 
+def test_level_kernels_take_unaligned_inputs(cuda):
+    # Rows and words that start 4 bytes past a 16-byte boundary cannot be
+    # loaded in vectors: the generic bodies take them, bit for bit.
+    B, n, N = 1001, 128, 16
+    flat = level_rows(cuda, B + 1, n, torch.float32).flatten()
+    x = flat[1:1 + B * n].view(B, n)
+    assert x.data_ptr() % 16 == 4
+    for N_ in (8, 16):
+        got = lo.linfit_residual_sq(x, N_)
+        assert torch.equal(got, ref.linfit_residual_sq_ref(x, N_))
+    rng = np.random.default_rng(3)
+    buf = torch.as_tensor(rng.integers(0, 10, B * N + 1).astype(np.int32),
+                          device=cuda)
+    w = buf[1:].view(B, N)
+    qword = rng.integers(0, 10, N)
+    tq = lo.query_table(qword, 10, cuda)
+    assert torch.equal(lo.mindist_sq(w, qword, 8 * N, 10),
+                       ref.mindist_sq_level_ref(w, tq, 8 * N))
+    alive = torch.ones(B, dtype=torch.bool, device=cuda)
+    res = torch.zeros(B, device=cuda)
+    got = lo.prune_level(alive, res, w, qword, 0.0, 2.0, 8 * N, 10)
+    assert torch.equal(got, ref.prune_level_ref(alive, res, w, tq, 0.0, 2.0,
+                                                8 * N))
+
+
+@pytest.mark.parametrize("kind", ["mindist_sq", "prune_level"])
+def test_word_wrappers_launch_once_and_allocate_only_the_output(cuda, kind):
+    # One launch per call: no per-query panel, no index kernel, no
+    # host-to-device copy (a call that copied from the host could not be
+    # captured in a CUDA graph), nothing allocated but the output.
+    B, N, alphabet, n = 4096, 16, 10, 128
+    rng = np.random.default_rng(11)
+    w = torch.as_tensor(rng.integers(0, alphabet, (B, N)).astype(np.int32),
+                        device=cuda)
+    qword = rng.integers(0, alphabet, N)
+    alive = torch.as_tensor(rng.random(B) < 0.8, device=cuda)
+    res = torch.as_tensor((rng.random(B) * 3).astype(np.float32),
+                          device=cuda)
+    wrapper = getattr(lo, kind)
+
+    def call():
+        if kind == "mindist_sq":
+            return lo.mindist_sq(w, qword, n, alphabet)
+        return lo.prune_level(alive, res, w, qword, 1.0, 2.0, n, alphabet)
+    eager = call()                     # caches the table on the device
+    torch.cuda.synchronize()
+    n0 = wrapper.launches
+    torch.cuda.reset_peak_memory_stats(cuda)
+    live = torch.cuda.memory_allocated(cuda)
+    out = call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    out_bytes = -(-out.numel() * out.element_size() // 512) * 512
+    assert torch.cuda.max_memory_allocated(cuda) - live == out_bytes
+    assert torch.equal(out, eager)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
 @pytest.mark.parametrize("n,levels", [(128, (8, 16)), (96, (8, 32))])
 def test_build_kernels_reproduce_the_device_index(cuda, n, levels):
     index = engine.build_device_index(make_wafer_like(20_001, n, seed=8),
@@ -616,6 +692,7 @@ def test_level_wrappers_refuse_without_copying(cuda):
     w64 = words.long()
     alive_t = torch.ones((64, 2), dtype=torch.bool, device=cuda)[:, 0]
     res = torch.zeros(64, device=cuda)
+    long = torch.zeros((1, lo.WORD_N_MAX + 1), dtype=torch.int32, device=cuda)
     torch.cuda.synchronize()
     launches = [k.launches for k in lo.KERNELS]
     torch.cuda.reset_peak_memory_stats(cuda)
@@ -633,6 +710,9 @@ def test_level_wrappers_refuse_without_copying(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         lo.prune_level(alive_t, res, words, np.zeros(8, np.int32), 0.0, 1.0,
                        128, 10)
+    with pytest.raises(ValueError, match="at most 16000"):
+        lo.mindist_sq(long, np.zeros(lo.WORD_N_MAX + 1, np.int32),
+                      lo.WORD_N_MAX + 1, 10)
     torch.cuda.synchronize()
     # Nothing was launched, and nothing was allocated: no input was copied.
     assert [k.launches for k in lo.KERNELS] == launches
@@ -644,8 +724,20 @@ def test_level_tiles_keep_four_blocks_per_sm(cuda):
     # thread blocks resident per SM.
     for kind, N in (("paa", 16), ("linfit", 8), ("linfit", 16),
                     ("sqdist", 1), ("words", 16)):
-        rows, smem = lo.tile_of(kind, 128, N, 10)
+        rows, smem = lo.tile_of(kind, 128, N)
         assert rows >= 1 and cost_model.blocks_per_sm(smem) >= 4, (kind, N)
+    # linfit's register body holds 32 / N rows a warp and no shared
+    # memory; the word body 32 rows a warp and the 20 × 20 table: both
+    # full occupancy, eight blocks of 256 threads.
+    for N in (8, 16):
+        assert lo.tile_of("linfit", 128, N) == (8 * (32 // N), 0)
+        assert lo.tile_of("words", 128, N) == (256, 1600)
+    assert cost_model.blocks_per_sm(1600) == cost_model.blocks_per_sm(0) == 8
+    # The generic bodies: one row per thread, its slices at odd strides.
+    rows, smem = lo.tile_of("linfit", 96, 8)     # L = 12
+    assert (rows, smem) == (256, 256 * 23 * 4)
+    rows, smem = lo.tile_of("words", 96, 12)
+    assert (rows, smem) == (256, 1600 + 256 * 13 * 4)
 
 
 # ---------------------------------------------------------------------------

@@ -114,6 +114,26 @@ def test_later_slices_raise_not_implemented(db):
         teng.TieredIndex.from_store("/nonexistent")
 
 
+# The reference's ServeConfig settings of slices the port lacks, a value
+# other than the reference's default, and the ROADMAP.md item they wait on.
+UNPORTED_SETTINGS = [
+    ("refresh_min_interval_s", 0.5, 1), ("async_refresh", False, 1),
+    ("shard_timeout_s", 5.0, 8), ("shard_retries", 0, 8),
+    ("shard_backoff_s", 0.1, 8), ("trace_ring", 64, 7),
+    ("calibration_ring", 64, 7), ("profile_dir", "prof", 7)]
+
+
+@pytest.mark.parametrize("name,value,item", UNPORTED_SETTINGS)
+def test_reference_settings_wait_for_their_slice(name, value, item):
+    # Accepted at the reference's default, refused with the item's number
+    # otherwise (not a TypeError for an unknown field).
+    ref_default = jserve.ServeConfig.__dataclass_fields__[name].default
+    assert getattr(ServeConfig(), name) == ref_default
+    assert getattr(ServeConfig(**{name: ref_default}), name) == ref_default
+    with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\)"):
+        ServeConfig(**{name: value})
+
+
 def test_batch_and_replay_take_the_same_float_path(db):
     # The fused engine's (query, row) results do not depend on the batch:
     # a query alone and inside a batch of 16 give bit-equal rows, the
