@@ -11,10 +11,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 2. Build: compile ``kernels/csrc/fused_query.cu`` and
    ``kernels/csrc/level_ops.cu`` for sm_90a, one nvcc each, in parallel;
    print each kernel's registers, stack frame and spills, and the top-k
-   instantiations' range of registers and total spill bytes.  Every
-   non-streaming fused instantiation must have a 0-byte stack frame and
-   no spills, the top-k ones at most 128 registers.  The ring stages the
-   launcher chooses at each path tile (``stages_of_kernel``).
+   instantiations' range of registers and total spill bytes.  Every fused
+   instantiation, the streaming ones included, must have a 0-byte stack
+   frame and no spills, the top-k ones at most 128 registers.  The ring
+   stages the launcher chooses at each path tile (``stages_of_kernel``),
+   the streaming forms' too.
 3. Serving index: ``SearchService.from_series`` over
    ``make_wafer_like(1_048_576, 128, seed=0)`` with the default
    ``ServeConfig`` (levels (8, 16), alphabet 10, max_batch 32), then
@@ -74,6 +75,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    blocks and ``fused_topk`` over the materialised windows, which is
    also timed with one ring stage (the launcher's choice at k_sel 67)
    and with two (one block per SM), its partials equal both ways.
+   Kernels 3, 4 and 7 (int8 and bf16) at one and at two ring stages of
+   the streaming loader: outputs bit-identical both ways, at subseq-1M
+   and at the ragged shape, and at subseq-1M both times.
 10. The subsequence slice: with the counts set to 0, ``subseq_range_query``
    at ε = 2, ``subseq_knn_query`` at k = 3, excl = 64 (backend auto) and
    ``subseq_range_query_quantized`` in int8; each streaming kernel must
@@ -497,8 +501,9 @@ def ring_stages_at_path_tiles(fq, ops, ss) -> dict:
     """The kernels' own choice of ring stages (``stages_of_kernel``) at
     the tiles the paths choose: serve-1M (Q = 32, B = 2^20, n = 128,
     levels (8, 16), α 10; top-k at the served k bucket 8 + guard 4) in
-    f32, int8 and bf16, subseq-1M's streaming forms (stride 4, k_sel 67)
-    and fused_topk over its materialised windows at k_sel 67."""
+    f32, int8 and bf16, subseq-1M's streaming forms (stride 4: range in
+    f32, int8 and bf16, top-k at k_sel 67) and fused_topk over its
+    materialised windows at k_sel 67."""
     lv, Q, out = (8, 16), 32, {}
     for quant in (None, "int8", "bf16"):
         for k_sel in (0, 12):
@@ -509,12 +514,14 @@ def ring_stages_at_path_tiles(fq, ops, ss) -> dict:
                 bool(k_sel), 128, lv, 10, bq, Q, k_sel, quant=quant)
     W = SUBSEQ["streams"] * ((SUBSEQ["stream_len"] - SUBSEQ["window"])
                              // SUBSEQ["stride"] + 1)
-    for k_sel in (0, 67):
+    for k_sel, quant in ((0, None), (67, None), (0, "int8"), (0, "bf16")):
         bq, _ = ops.choose_subseq_blocks(Q, W, SUBSEQ["window"],
-                                         SUBSEQ["stride"], lv, 10, k=k_sel)
-        out[f"subseq-1M {'top-k' if k_sel else 'range'}"] = \
-            fq.stages_of_kernel(bool(k_sel), SUBSEQ["window"], lv, 10, bq,
-                                Q, k_sel, stride=SUBSEQ["stride"])
+                                         SUBSEQ["stride"], lv, 10, k=k_sel,
+                                         quant=quant)
+        out[f"subseq-1M {quant or 'f32'} "
+            f"{'top-k' if k_sel else 'range'}"] = fq.stages_of_kernel(
+            bool(k_sel), SUBSEQ["window"], lv, 10, bq, Q, k_sel,
+            quant=quant, stride=SUBSEQ["stride"])
         if k_sel:
             out["subseq-1M top-k over the materialised windows"] = \
                 fq.stages_of_kernel(True, SUBSEQ["window"], lv, 10, bq, Q,
@@ -1115,6 +1122,41 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
         + str({m: out[f'quant_{m}']['set_identical_to_full']
                for m in qmetas}))
 
+    # Kernels 3, 4 and 7 at one ring stage and at two: the same bits; with
+    # ``timing`` both times, beside the whole-series kernels' below.
+    qargs = {k: v for k, v in args.items() if k not in ("words", "residuals")}
+    forms = {
+        "fused_subseq_range": (
+            lambda s: fq.fused_subseq_range(**args, **rtile, stages=s),
+            (False, rq, 0, None)),
+        "fused_subseq_topk": (
+            lambda s: fq.fused_subseq_topk(**args, k=k_sel, **ttile,
+                                           stages=s),
+            (True, tq, k_sel, None)),
+        **{f"fused_quant_subseq_range{'' if m == 'int8' else '_' + m}": (
+            lambda s, m=m: fq.fused_quant_subseq_range(
+                **qargs, qmeta=qmetas[m], **qtile, stages=s),
+            (False, qq, 0, m)) for m in qmetas}}
+    by_stages = {}
+    for name, (fn, (topk, bq, ks, quant)) in forms.items():
+        one, two = fn(1), fn(2)
+        same = all(torch.equal(a.view(torch.int32) if a.is_floating_point()
+                               else a, b.view(torch.int32)
+                               if b.is_floating_point() else b)
+                   for a, b in zip(one, two))
+        del one, two
+        check(same, f"{name}'s outputs depend on the ring stages at {label}")
+        row = {"bit_identical": same, "chosen_stages": fq.stages_of_kernel(
+            topk, sidx.window, sidx.levels, sidx.alphabet, bq, Q, ks,
+            quant=quant, stride=sidx.stride)}
+        if timing:
+            row.update({f"stages_{s}_ms": cuda_ms(
+                torch, lambda s=s: fn(s), 20) for s in (1, 2)})
+        by_stages[name] = row
+    out["by_stages"] = by_stages
+    log(f"[subseq-kernels] {label}: kernels 3, 4 and 7 bit-identical at one "
+        f"and two ring stages: " + json.dumps(by_stages, sort_keys=True))
+
     if timing:
         z = sidx.index.series
         lib_ms = cuda_ms(torch, lambda: torch.matmul(args["q"], z.T), 20)
@@ -1125,8 +1167,6 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
                   args["q"], eps, *args["q_words"],
                   fq._table(args["alphabet"], eps.device),
                   *args["q_residuals"]]
-        qargs = {k: v for k, v in args.items()
-                 if k not in ("words", "residuals")}
         qplain = plain_of(fq, qargs)
 
         def quant_case(mode):
@@ -1178,7 +1218,11 @@ def compare_subseq_kernels(torch, engine, fq, ref, ss, sidx, qmetas, qr,
         log(f"[subseq-kernels] the whole-series kernels over the "
             f"materialised windows at {label}: fused_range "
             f"{out['fused_range_over_rows_ms']:.4f} ms, fused_topk "
-            f"{out['fused_topk_over_rows_ms']:.4f} ms")
+            f"{out['fused_topk_over_rows_ms']:.4f} ms; the streaming ones "
+            f"at one and two ring stages: " + ", ".join(
+                f"{name} {row['stages_1_ms']:.4f} and "
+                f"{row['stages_2_ms']:.4f} ms"
+                for name, row in by_stages.items()))
         # fused_topk over the windows at this k_sel both ways: the stages
         # the launcher chooses (one: the lists leave no room for a second
         # at two blocks per SM) and two stages at one block per SM.
@@ -2180,21 +2224,20 @@ def main() -> int:
         log(f"[build] the {len(topk_build)} top-k instantiations: "
             f"{min(regs)}-{max(regs)} registers, {spills} bytes of spill "
             f"stores and loads in all")
-    # Every non-streaming instantiation keeps its per-level state in
-    # registers: no stack frame and no spill.
+    # Every instantiation, the streaming ones included, keeps its
+    # per-level state in registers: no stack frame and no spill.
     frames = {line.split(":")[0]: frame_and_spills(line)
               for line in report["build"]["kernels"]}
-    body = {k: v for k, v in frames.items() if "streaming" not in k}
     report["build"]["stack_and_spill_bytes"] = frames
-    check(body, "no ptxas report of the fused kernels in the build log")
-    log(f"[build] stack frame and spill bytes of the {len(body)} "
-        f"non-streaming instantiations: max {max(v[0] for v in body.values())}"
-        f" and {max(v[1] for v in body.values())}; streaming: "
-        + ", ".join(f"{k} {v[0]}/{v[1]}" for k, v in frames.items()
-                    if "streaming" in k))
-    check(all(v == (0, 0) for v in body.values()),
-          f"a non-streaming instantiation has a stack frame or spills: "
-          f"{body}")
+    check(frames, "no ptxas report of the fused kernels in the build log")
+    streaming = [k for k in frames if "streaming" in k]
+    check(streaming, "no streaming instantiation in the build log")
+    log(f"[build] stack frame and spill bytes of the {len(frames)} fused "
+        f"instantiations ({len(streaming)} streaming): max "
+        f"{max(v[0] for v in frames.values())} and "
+        f"{max(v[1] for v in frames.values())}")
+    check(all(v == (0, 0) for v in frames.values()),
+          f"a fused instantiation has a stack frame or spills: {frames}")
     check(all(r <= 128 for r in regs), f"top-k registers above 128: {regs}")
     # The linfit and word bodies of level_ops.cu keep their state in
     # registers: no stack frame and no spill in any instantiation.

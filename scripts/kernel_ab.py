@@ -29,10 +29,13 @@ is measured and not the host's (``chip_smoke.device_ms``), and the
 wrapper's whole call in a loop.  ``--split`` builds a copy of each
 side's source with ``clock64()`` stamps summed per warp into the body's
 phases and reports each share: for the fused body staging (the barrier
-and copy time at the top of a sub-tile), cascade (C9 + C10), verify and
-the rest (outputs, top-k merge); for the level bodies the phases each
-version has (``LEVEL_SPLITS``).  The copies live in ``build/kernel_ab/``
-and the sources stay as they are.  Everything is written to
+and copy time at the top of a sub-tile and the one-stage copy at its
+bottom), cascade (C9 + C10), verify and the rest (outputs, top-k merge)
+— a body with the streaming ring splits staging into the wait at the
+top of a sub-tile, the copies' issue and the z-tile build, and reports
+their sum as staging too; for the level bodies the phases each version
+has (``LEVEL_SPLITS``).  The copies live in
+``build/kernel_ab/`` and the sources stay as they are.  Everything is written to
 ``chiprun_out/kernel_ab.json`` (``kernel_ab_level.json`` with
 ``--level``).  Needs a card; ``chip_smoke.py`` does not use this script.
 """
@@ -53,7 +56,6 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SPLIT_DIR = ROOT / "build" / "kernel_ab"
-PHASES = ("stage", "cascade", "verify", "rest")
 
 
 def load_package(src_dir: pathlib.Path, name: str):
@@ -75,10 +77,10 @@ HEADER = r"""
 __device__ unsigned long long g_split[8];
 #define SPLIT_MARK(k) { const long long _n = clock64(); _sp[k] += _n - _tl; _tl = _n; }
 """
-FLUSH = r"""  SPLIT_MARK(3);
+FLUSH = r"""  SPLIT_MARK(%d);
   if ((threadIdx.x & 31) == 0) {
-    for (int k = 0; k < 4; ++k) atomicAdd(&g_split[k], (unsigned long long)_sp[k]);
-    atomicAdd(&g_split[4], 1ull);
+    for (int k = 0; k < %d; ++k) atomicAdd(&g_split[k], (unsigned long long)_sp[k]);
+    atomicAdd(&g_split[7], 1ull);
   }
 """
 TAIL = r"""
@@ -90,33 +92,54 @@ extern "C" int split_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_split, 8 * sizeof(unsigned long long));
 }
 """
-# (anchor, mark, before the anchor?) per body version; mark k closes the
-# phase PHASES[k] at that point.
-ANCHORS = {
-    "ring": [
-        ("    cp_async_wait_all();\n    __syncthreads();\n", 3, True),
-        ("                                row0 + TB, next_rows);\n", 0, False),
-        ("      // ---- verify:", 1, True),
-        ("      // The limit on d²:", 2, True),
-        ("  if (TOPK) {\n    __syncthreads();\n    const long width", 3, True)],
-    "synchronous": [
+# Per version of the fused body, its phases and its stamps (anchor, mark,
+# before the anchor?); mark k closes phase k at that point.  The ring
+# bodies stamp the top-of-loop wait and the two-stage issue, and the
+# one-stage issue at the bottom of the loop (the streaming loader's only
+# stage before the streaming ring), so that the loader counts as
+# "stage", not "rest".  The streaming ring splits "stage" into the wait
+# and barrier at the top of a sub-tile, the copies' issue and the z-tile
+# build (with its barrier); their sum is reported as "stage" too.
+WAIT = "    cp_async_wait_all();\n    __syncthreads();\n"
+ISSUE2 = "                                row0 + TB, next_rows);\n"
+ISSUE1 = " row0 + TB, next_rows);\n    }\n"
+ONE_STAGE = "    // One stage: the next copy waits"
+VERIFY, LIMIT = "      // ---- verify:", "      // The limit on d²:"
+END = "  if (TOPK) {\n    __syncthreads();\n    const long width"
+Z_BUILD = "      build_windows(p, lay, sm, st, rows);\n      __syncthreads();\n"
+STAGE = ("stage", "cascade", "verify", "rest")
+SPLITS = {
+    "synchronous": (STAGE, [
         ("    __syncthreads();\n    stage_rows<MODE, STREAM>(", 3, True),
         ("      // ---- cascade: alive bits", 0, True),
-        ("      // ---- verify:", 1, True),
-        ("      // The limit on d²:", 2, True),
-        ("  if (TOPK) {\n    __syncthreads();\n    const long width", 3, True)],
+        (VERIFY, 1, True), (LIMIT, 2, True), (END, 3, True)]),
+    "ring": (STAGE, [
+        (WAIT, 3, True), (ISSUE2, 0, False), (VERIFY, 1, True),
+        (LIMIT, 2, True), (ONE_STAGE, 3, True), (ISSUE1, 0, False),
+        (END, 3, True)]),
+    "streaming ring": (
+        ("wait", "issue", "z build", "cascade", "verify", "rest"), [
+            (WAIT, 5, True), (WAIT, 0, False), (ISSUE2, 1, False),
+            (Z_BUILD, 2, False), (VERIFY, 3, True), (LIMIT, 4, True),
+            (ONE_STAGE, 5, True), (ISSUE1, 1, False), (END, 5, True)]),
 }
 INIT = "  const float INF = __int_as_float(0x7f800000);\n"
 BODY_END = re.compile(r"\n}\n\n// (Both forms|The range form)")
 
 
+def fused_version(text: str) -> str:
+    return ("streaming ring" if Z_BUILD in text else
+            "ring" if "cp_async_wait_all();" in text else "synchronous")
+
+
 def instrument(text: str) -> str:
-    kind = "ring" if "cp_async_wait_all();" in text else "synchronous"
+    phases, marks = SPLITS[fused_version(text)]
+    P = len(phases)
     text = text.replace("namespace {\n", "namespace {\n" + HEADER, 1)
     assert text.count(INIT) == 1
-    text = text.replace(INIT, INIT + "  long long _sp[4] = {0, 0, 0, 0};\n"
+    text = text.replace(INIT, INIT + f"  long long _sp[{P}] = {{0}};\n"
                         "  long long _tl = clock64();\n", 1)
-    for anchor, mark, before in ANCHORS[kind]:
+    for anchor, mark, before in marks:
         assert text.count(anchor) == 1, anchor
         stamp = f"SPLIT_MARK({mark});\n"
         text = text.replace(anchor, ("  " * 3 + stamp + anchor) if before
@@ -124,7 +147,7 @@ def instrument(text: str) -> str:
     m = list(BODY_END.finditer(text))
     assert len(m) == 1
     i = m[0].start() + 1
-    return text[:i] + FLUSH + text[i:] + TAIL
+    return text[:i] + FLUSH % (P - 1, P) + text[i:] + TAIL
 
 
 # The level bodies (``--level``): per version of ``level_ops.cu``, per
@@ -246,9 +269,10 @@ class Side:
         # A side whose word launcher takes the query's panel (tq) or the
         # MINDIST table with the query word's offsets.
         self.panel = "tq" in inspect.signature(self.lo._word).parameters
-        self.version = level_version(
-            (pathlib.Path(pkg.kernels.build.CSRC) / "level_ops.cu")
-            .read_text())
+        csrc = pathlib.Path(pkg.kernels.build.CSRC)
+        self.version = level_version((csrc / "level_ops.cu").read_text())
+        self.fused_phases = SPLITS[fused_version(
+            (csrc / "fused_query.cu").read_text())][0]
         self.words = "q_words" in inspect.signature(
             self.fq.fused_range).parameters
 
@@ -405,13 +429,14 @@ def ref_prune(torch, index, li, alive, qword, qres, eps):
                                float(np.float32(eps)), index.n)
 
 
-def split_of(torch, cs, lib, fn, phases) -> dict:
-    """Run ``fn`` (launching through the stamped ``lib``) 20 times and
-    read each phase's share of the warps' summed clock64() time."""
+def split_of(torch, cs, lib, fn, phases, timer=None) -> dict:
+    """Run ``fn`` (launching through the stamped ``lib``) 20 times, timed
+    by ``timer`` (default ``cs.device_ms``), and read each phase's share
+    of the warps' summed clock64() time."""
     fn()
     torch.cuda.synchronize()
     lib.split_reset()
-    t = cs.device_ms(torch, fn, 20)
+    t = (timer or cs.device_ms)(torch, fn, 20)
     buf = (ctypes.c_ulonglong * 8)()
     lib.split_read(buf)
     total = sum(buf[:len(phases)])
@@ -601,22 +626,17 @@ def main() -> int:
             for n, s in sides.items():
                 lib = libs[f"{n}_split"]
                 s.use(lib)
-                fns[n]()
-                torch.cuda.synchronize()
-                lib.split_reset()
-                t = cs.cuda_ms(torch, fns[n], 20)
-                buf = (ctypes.c_ulonglong * 8)()
-                lib.split_read(buf)
-                total = sum(buf[:4])
-                row[f"{n}_split"] = {
-                    "ms_instrumented": t,
-                    "cycles_per_warp": total / max(1, buf[4]),
-                    **{p: buf[i] / total for i, p in enumerate(PHASES)}}
+                sp = split_of(torch, cs, lib, fns[n], s.fused_phases,
+                              cs.cuda_ms)
+                if "stage" not in sp:
+                    sp["stage"] = sp["wait"] + sp["issue"] + sp["z build"]
+                row[f"{n}_split"] = sp
                 s.use(libs[n])
         report["kernels"][label] = row
         split = "".join(
             f"; {n} split " + ", ".join(
-                f"{p} {100 * row[f'{n}_split'][p]:.1f}%" for p in PHASES)
+                f"{p} {100 * v:.1f}%" for p, v in row[f"{n}_split"].items()
+                if p not in ("ms_instrumented", "cycles_per_warp"))
             for n in sides if opts.split)
         print(f"[ab] {label}: base {ms['base']:.4f} ms, change "
               f"{ms['change']:.4f} ms (turns "

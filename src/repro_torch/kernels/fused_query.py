@@ -63,7 +63,7 @@ def _lib():
         lib.fused_subseq_launch.argtypes = [
             ci, ci, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci,
             ctypes.POINTER(ci), pvp, pvp, pvp, pvp, pvp, vp, ci, vp, pvp,
-            pvp, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp]
+            pvp, vp, ci, ci, ci, ci, vp, vp, ci, vp, vp, vp]
         lib.fused_subseq_launch.restype = ci
         lib.fused_query_smem_bytes.argtypes = [
             ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci, ci, ci]
@@ -71,6 +71,8 @@ def _lib():
         lib.fused_query_stages.argtypes = [
             ci, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci, ci]
         lib.fused_query_stages.restype = ci
+        lib.fused_query_div_check.argtypes = [vp, vp, vp, vp, ci, vp]
+        lib.fused_query_div_check.restype = ci
         lib.fused_query_error.argtypes = [ci]
         lib.fused_query_error.restype = ctypes.c_char_p
         lib._typed = True
@@ -484,7 +486,7 @@ def _check_stream_inputs(streams, mu, sd, norms_sq, q, q_words,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":
-        _check_aligned(norms_sq=norms_sq)
+        _check_aligned(streams=streams, mu=mu, sd=sd, norms_sq=norms_sq)
     return W, Q, dev
 
 
@@ -526,9 +528,9 @@ def _check_quant_meta(qmeta, levels, W, dev):
 
 def _launch_subseq(topk, mode, streams, mu, sd, norms_sq, words, residuals,
                    q, q_words, q_residuals, eps, levels, alphabet, window,
-                   stride, block_q, block_b, r_scale=None, r_zero=None,
-                   r_err=None, ans=None, d2=None, k_sel=0, out_idx=None,
-                   out_d2=None):
+                   stride, block_q, block_b, stages, r_scale=None,
+                   r_zero=None, r_err=None, ans=None, d2=None, k_sel=0,
+                   out_idx=None, out_d2=None):
     lib = _lib()
     L = len(levels)
     Ns = (ctypes.c_int * L)(*[int(N) for N in levels])
@@ -544,7 +546,7 @@ def _launch_subseq(topk, mode, streams, mu, sd, norms_sq, words, residuals,
             _ptrs(r_scale or none), _ptrs(r_zero or none),
             _ptrs(r_err or none), q.data_ptr(), q.shape[0], tab.data_ptr(),
             _ptrs(q_words), _ptrs(q_residuals), eps.data_ptr(), alphabet,
-            block_q, block_b,
+            block_q, block_b, stages,
             _nullable(ans), _nullable(d2), k_sel, _nullable(out_idx),
             _nullable(out_d2), stream)
     _raise_on(lib, code, "fused_subseq")
@@ -553,7 +555,7 @@ def _launch_subseq(topk, mode, streams, mu, sd, norms_sq, words, residuals,
 def fused_subseq_range(streams, mu, sd, norms_sq, words, residuals, q,
                        q_words, q_residuals, eps, *, levels, alphabet: int,
                        window: int, stride: int, block_q: int = 32,
-                       block_b: int = 1024):
+                       block_b: int = 1024, stages: int | None = None):
     """One streaming range pass: ``(answers (Q, W) bool, d2 (Q, W)
     float32)`` in canonical window order, +inf off the answers — those of
     :func:`fused_range` over the materialised windows, bit for bit.
@@ -561,14 +563,18 @@ def fused_subseq_range(streams, mu, sd, norms_sq, words, residuals, q,
     ``streams`` (S, n_stream) f32 raw; per window ``mu``, ``sd`` and
     ``norms_sq`` (‖z‖²) (W,) f32, per level ``words`` (W, N) int32 and
     ``residuals`` (W,) f32, W = S·((n_stream − window)//stride + 1); the
-    query side is that of :func:`fused_range` with n = ``window``.
-    ``block_b`` windows per thread block; the tiles shape the kernel
-    only."""
+    query side is that of :func:`fused_range` with n = ``window``.  On the
+    card the streams, μ, σ and the columns must be 16-byte aligned (the
+    loader copies them with cp.async): a misaligned view is refused.
+    ``block_b`` windows per thread block; the tiles and ``stages`` (the
+    ring's stages, 1 or 2; None: from the shape, ``ops.ring_stages``)
+    shape the kernel only."""
     W, Q, dev = _check_stream_inputs(streams, mu, sd, norms_sq, q, q_words,
                                      q_residuals, eps, levels, alphabet,
                                      window, stride)
     _check_stream_columns(words, residuals, levels, W, dev)
     _check_tiles(block_q, block_b)
+    stages = _check_stages(stages)
     if dev.type == "cpu":
         return ref.fused_subseq_range_ref(streams, mu, sd, norms_sq, words,
                                           residuals, q,
@@ -579,7 +585,7 @@ def fused_subseq_range(streams, mu, sd, norms_sq, words, residuals, q,
     d2 = torch.empty((Q, W), dtype=torch.float32, device=dev)
     _launch_subseq(False, 0, streams, mu, sd, norms_sq, words, residuals, q,
                    q_words, q_residuals, eps, levels, alphabet, window,
-                   stride, block_q, block_b, ans=ans, d2=d2)
+                   stride, block_q, block_b, stages, ans=ans, d2=d2)
     with _count_lock:
         fused_subseq_range.launches += 1
     return ans, d2
@@ -588,7 +594,7 @@ def fused_subseq_range(streams, mu, sd, norms_sq, words, residuals, q,
 def fused_subseq_topk(streams, mu, sd, norms_sq, words, residuals, q,
                       q_words, q_residuals, eps, *, levels, alphabet: int,
                       window: int, stride: int, k: int, block_q: int = 32,
-                      block_b: int = 1024):
+                      block_b: int = 1024, stages: int | None = None):
     """One streaming pass emitting block-local top-k partials: ``(idx
     (Q, nb·k) int32, d2 (Q, nb·k) float32)``, ``nb = ⌈W/block_b⌉``, in
     the layout of :func:`fused_topk` with canonical window ids (−1 / +inf
@@ -599,6 +605,7 @@ def fused_subseq_topk(streams, mu, sd, norms_sq, words, residuals, q,
                                      window, stride)
     _check_stream_columns(words, residuals, levels, W, dev)
     _check_tiles(block_q, block_b)
+    stages = _check_stages(stages)
     k = int(k)
     if not 1 <= k <= min(block_b, KSEL_MAX):
         raise ValueError(f"k={k} must be in [1, min(block_b={block_b}, "
@@ -614,8 +621,8 @@ def fused_subseq_topk(streams, mu, sd, norms_sq, words, residuals, q,
     out_d2 = torch.empty((Q, nb * k), dtype=torch.float32, device=dev)
     _launch_subseq(True, 0, streams, mu, sd, norms_sq, words, residuals, q,
                    q_words, q_residuals, eps, levels, alphabet, window,
-                   stride, block_q, block_b, k_sel=k, out_idx=out_idx,
-                   out_d2=out_d2)
+                   stride, block_q, block_b, stages, k_sel=k,
+                   out_idx=out_idx, out_d2=out_d2)
     with _count_lock:
         fused_subseq_topk.launches += 1
     return out_idx, out_d2
@@ -624,7 +631,8 @@ def fused_subseq_topk(streams, mu, sd, norms_sq, words, residuals, q,
 def fused_quant_subseq_range(streams, mu, sd, norms_sq, qmeta, q, q_words,
                              q_residuals, eps, *, levels, alphabet: int,
                              window: int, stride: int, block_q: int = 32,
-                             block_b: int = 1024):
+                             block_b: int = 1024,
+                             stages: int | None = None):
     """One streaming range pass over quantized screen columns: ``(answers
     (Q, W) bool, d2 (Q, W) float32)``, final answers set-identical to
     :func:`fused_subseq_range`'s.
@@ -641,6 +649,7 @@ def fused_quant_subseq_range(streams, mu, sd, norms_sq, qmeta, q, q_words,
     levels = tuple(int(N) for N in levels)
     _check_quant_meta(qmeta, levels, W, dev)
     _check_tiles(block_q, block_b)
+    stages = _check_stages(stages)
     if dev.type == "cpu":
         return ref.fused_quant_subseq_range_ref(
             streams, mu, sd, norms_sq, qmeta, q, _panels(q_words, alphabet),
@@ -650,8 +659,8 @@ def fused_quant_subseq_range(streams, mu, sd, norms_sq, qmeta, q, q_words,
     _launch_subseq(False, _QUANT_MODES[qmeta.mode][0], streams, mu, sd,
                    norms_sq, qmeta.words, qmeta.residuals, q, q_words,
                    q_residuals, eps, levels, alphabet, window, stride,
-                   block_q, block_b, r_scale=qmeta.scale, r_zero=qmeta.zero,
-                   r_err=qmeta.err, ans=ans, d2=d2)
+                   block_q, block_b, stages, r_scale=qmeta.scale,
+                   r_zero=qmeta.zero, r_err=qmeta.err, ans=ans, d2=d2)
     with _count_lock:
         fused_quant_subseq_range.launches += 1
     return ans, d2
@@ -699,3 +708,24 @@ def stages_of_kernel(topk: bool, n: int, levels, alphabet: int,
     return int(_lib().fused_query_stages(
         int(topk), n, L, Ns, alphabet, block_q, Q, k_sel,
         _MODE_CODES[quant or None], int(stride)))
+
+
+def divide_check(a, b):
+    """The streaming loader's z-tile divide and the card's IEEE divide
+    (``__fdiv_rn``) elementwise on two f32 CUDA tensors of one shape:
+    ``(fast, rn)``, which must be equal bit for bit.  A check for the
+    card tests: it is on no path, counts no launch and has no plain
+    version."""
+    for name, t in (("a", a), ("b", b)):
+        _check(name, t, torch.float32, a.shape, a.device)
+    if a.device.type != "cuda":
+        raise ValueError("divide_check runs on the card only")
+    fast, rn = torch.empty_like(a), torch.empty_like(a)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = lib.fused_query_div_check(a.data_ptr(), b.data_ptr(),
+                                         fast.data_ptr(), rn.data_ptr(),
+                                         a.numel(), stream)
+    _raise_on(lib, code, "divide_check")
+    return fast, rn

@@ -66,10 +66,11 @@ def _smem_bytes(block_q: int, n: int, levels, alphabet: int, Q: int,
                 k_sel: int, quant, stream: bool, seg_cap: int,
                 stages: int) -> int:
     """The arithmetic of the kernel's ``Layout`` (``csrc/fused_query.cu``),
-    in bytes: ``stages`` ring stages of one sub-tile's columns as stored,
-    then the query side, the top-k lists and the streaming loader's
-    sections.  ``quant``: None (or False) for full precision, else the
-    tier's mode."""
+    in bytes: ``stages`` ring stages of one sub-tile's columns as stored
+    (``stream``: with μ, σ, the window starts and ``seg_cap`` floats of
+    stream range in place of the rows, and the f32 z tile after the
+    ring), then the query side and the top-k lists.  ``quant``: None (or
+    False) for full precision, else the tier's mode."""
     mode = quant or None
     if mode not in _ELEM_BYTES:
         raise ValueError(f"quant must be None, 'int8' or 'bf16', got "
@@ -85,19 +86,17 @@ def _smem_bytes(block_q: int, n: int, levels, alphabet: int, Q: int,
             stage += 2 * T * 4                      # scales and zeros
     stage += L * _al128(T * elem)                   # residuals
     stage += sum(_al128(T * N * word) for N in levels)
-    stage += _al128(T * n * (4 if stream else elem))
-    total = stages * stage
+    tile = _al128(T * n * (4 if stream else elem))
+    if stream:
+        stage += 3 * T * 4 + _al128(seg_cap * 4)    # μ, σ, starts, range
+        total = stages * stage + tile               # one z tile per block
+    else:
+        total = stages * (stage + tile)
     total += _al16(n * block_q * 4) + 3 * _al16(block_q * 4)
     total += _al16(L * block_q * 4) + _al16(alphabet * alphabet * 4)
     total += _al16(sum(levels) * block_q * 2)       # query words, 16 bit
     if k_sel:
         total += _al16(block_q * T * 4) + 2 * _al16(Q * k_sel * 4)
-    if seg_cap:
-        # The streaming loader's sections share the top-k candidates'
-        # space when they fit.
-        need = 3 * T * 4 + _al16(seg_cap * 4)
-        if not (k_sel and need <= _al16(block_q * T * 4)):
-            total += need
     return total
 
 
@@ -111,11 +110,10 @@ def ring_stages(block_q: int, n: int, levels, alphabet: int, Q: int = 0,
                 k_sel: int = 0, quant=None, seg_cap: int = 0) -> int:
     """The ring stages the kernel's launcher chooses (csrc
     ``ring_stages``): two where they keep the blocks per SM that one
-    stage gives, else one; one for the streaming loader (``seg_cap``)."""
-    if seg_cap:
-        return 1
+    stage gives, else one (``seg_cap`` > 0: the streaming loader's
+    layout, rows of length n = window)."""
     one, two = (_smem_bytes(block_q, n, levels, alphabet, Q, k_sel, quant,
-                            False, 0, s) for s in (1, 2))
+                            bool(seg_cap), seg_cap, s) for s in (1, 2))
     return 2 if two <= SMEM_BYTES and \
         _blocks_per_sm(two) >= _blocks_per_sm(one) else 1
 
@@ -138,20 +136,26 @@ def fused_smem_bytes(block_q: int, n: int, levels, alphabet: int,
 def subseq_seg_cap(window: int, stride: int) -> int:
     """Longest stream range (floats) the streaming loader stages for a
     64-window sub-tile: one stream boundary's worth, ``63·stride + 2·w``,
-    capped at ``SEG_MAX`` (csrc ``subseq_seg_cap``)."""
-    return min((ROW_TILE - 1) * int(stride) + 2 * int(window), SEG_MAX)
+    and the 3 floats of rounding its start down to 16 bytes, capped at
+    ``SEG_MAX`` (csrc ``subseq_seg_cap``)."""
+    return min((ROW_TILE - 1) * int(stride) + 2 * int(window) + 3, SEG_MAX)
 
 
 def subseq_smem_bytes(block_q: int, window: int, stride: int, levels,
                       alphabet: int, Q: int = 0, k_sel: int = 0,
-                      quant=None) -> int:
+                      quant=None, stages: int | None = None) -> int:
     """Dynamic shared memory of one thread block of the streaming
-    subsequence kernel: one stage of the fused layout over rows of length
-    ``window`` (the f32 z tile; ``quant``: the mode of the quantized
-    screen columns) plus each sub-tile's window starts, μ, σ and staged
-    stream range."""
+    subsequence kernel: ``stages`` ring stages of a sub-tile's screen
+    columns (``quant``: their quantized mode), μ, σ, window starts and
+    stream range, then the f32 z tile of rows of length ``window`` and
+    the query side.  ``stages``: by default :func:`ring_stages`'
+    choice."""
+    seg_cap = subseq_seg_cap(window, stride)
+    if stages is None:
+        stages = ring_stages(block_q, window, levels, alphabet, Q, k_sel,
+                             quant, seg_cap)
     return _smem_bytes(block_q, window, levels, alphabet, Q, k_sel, quant,
-                       True, subseq_seg_cap(window, stride), 1)
+                       True, seg_cap, stages)
 
 
 def choose_fused_blocks(Q: int, B: int, n: int, levels, alphabet: int,

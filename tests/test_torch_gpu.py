@@ -495,14 +495,126 @@ def test_subseq_constant_windows_on_card(cuda):
 
 @pytest.mark.parametrize("case", SUBSEQ_CASES)
 def test_subseq_shared_memory_layout_matches_chooser(cuda, case):
+    # The streaming Layout at one and two ring stages and at the
+    # launcher's choice, and that choice, equal to the ops mirror.
     _, _, window, stride, levels, Q = case
     for topk, k_sel, quant in ((False, 0, None), (True, 12, None),
                                (False, 0, "int8"), (False, 0, "bf16")):
         for bq in ops.FUSED_BLOCK_Q:
-            assert fq.smem_bytes_of_kernel(
+            for stages in (None, 1, 2):
+                assert fq.smem_bytes_of_kernel(
+                    topk, window, levels, 10, bq, Q, k_sel, quant,
+                    stride=stride, stages=stages) == ops.subseq_smem_bytes(
+                        bq, window, stride, levels, 10, Q, k_sel, quant,
+                        stages)
+            assert fq.stages_of_kernel(
                 topk, window, levels, 10, bq, Q, k_sel, quant,
-                stride=stride) == ops.subseq_smem_bytes(
-                    bq, window, stride, levels, 10, Q, k_sel, quant)
+                stride=stride) == ops.ring_stages(
+                    bq, window, levels, 10, Q, k_sel, quant,
+                    ops.subseq_seg_cap(window, stride))
+
+
+@pytest.mark.parametrize("case", SUBSEQ_CASES)
+def test_subseq_stage_count_does_not_change_results(cuda, case):
+    # The streaming ring at one stage (the loop waits for each copy) and
+    # at two (the next sub-tile's copies in flight while the z tile is
+    # built and evaluated): kernels 3, 4 and 7 give the same bits, equal
+    # to the whole-series kernels over the materialised windows.
+    from repro_torch.core import subseq as ss
+
+    hidx, sidx, _, args = subseq_case(case, cuda)
+    rows = rows_args(sidx, args)
+    for tile in (dict(block_q=32, block_b=1024), dict(block_q=16,
+                                                      block_b=128)):
+        ra, rd = fq.fused_range(**rows, **tile)
+        k = min(12, tile["block_b"])
+        ri, rdd = fq.fused_topk(**rows, k=k, **tile)
+        for stages in (1, 2):
+            ga, gd = fq.fused_subseq_range(**args, **tile, stages=stages)
+            assert torch.equal(ga, ra)
+            assert torch.equal(gd.view(torch.int32), rd.view(torch.int32))
+            gi, gdd = fq.fused_subseq_topk(**args, k=k, **tile,
+                                           stages=stages)
+            assert torch.equal(gi, ri)
+            assert torch.equal(gdd.view(torch.int32), rdd.view(torch.int32))
+    full = {k: v for k, v in args.items() if k not in ("words", "residuals")}
+    for mode in ("int8", "bf16"):
+        qmeta = ss.quantize_subseq_meta(hidx, mode, cuda)
+        fa, fd = fq.fused_subseq_range(**args, block_q=32, block_b=1024)
+        for stages in (1, 2):
+            qa, qd = fq.fused_quant_subseq_range(
+                **full, qmeta=qmeta, block_q=32, block_b=1024, stages=stages)
+            assert torch.equal(qa, fa)
+            assert torch.equal(qd.view(torch.int32), fd.view(torch.int32))
+
+
+def test_subseq_range_copy_clipped_at_the_buffer_end(cuda):
+    # One stream of 1,001 samples at stride 1: the buffer ends off a
+    # 16-byte boundary, so the last sub-tile's last chunk is clipped with
+    # src-size (tests/test_torch_fused_layout.py models it); the result
+    # equals the whole-series kernel's at both stage counts.
+    _, sidx, _, args = subseq_case((1, 1001, 64, 1, (4, 8), 5), cuda)
+    rows = rows_args(sidx, args)
+    ra, rd = fq.fused_range(**rows, block_q=16, block_b=256)
+    for stages in (1, 2):
+        ga, gd = fq.fused_subseq_range(**args, block_q=16, block_b=256,
+                                       stages=stages)
+        assert torch.equal(ga, ra) and torch.equal(gd, rd)
+
+
+def test_z_tile_divide_is_the_ieee_divide(cuda):
+    # The streaming loader builds z = (x − μ)/σ with div.rn.f32 unrolled
+    # (σ's reciprocal once per row, three FMAs per sample, __fdiv_rn out
+    # of its range): bit for bit __fdiv_rn and torch's division on 2^22
+    # random pairs whose exponents run across and past that range, on
+    # divisors of all-ones mantissa, and on the edge values.
+    rng = np.random.default_rng(5)
+    n = 1 << 22
+
+    def rand(size):
+        return (rng.choice([-1.0, 1.0], size) * rng.uniform(1, 2, size)
+                * np.exp2(rng.integers(-45, 46, size))).astype(np.float32)
+
+    edges = np.array([0.0, -0.0, 1e-8, 2.0 ** -31, np.nextafter(
+        np.float32(2.0 ** -31), np.float32(0)), 2.0 ** 32, np.nextafter(
+        np.float32(2.0 ** 32), np.float32(0)), 1.0, -3.0, np.inf, -np.inf,
+        np.nan, 1e-40, 3.4e38, 1.1754944e-38], np.float32)
+    ones = (np.float32(2 - 2.0 ** -23)
+            * np.exp2(np.arange(-40, 41))).astype(np.float32)
+    ea, eb = np.meshgrid(edges, edges)
+    a = np.concatenate([rand(n), ea.ravel(), rand(ones.size * 64)])
+    b = np.concatenate([rand(n), eb.ravel(), np.repeat(ones, 64)])
+    in_range = ((np.abs(a) >= 2.0 ** -31) & (np.abs(a) < 2.0 ** 32)
+                & (np.abs(b) >= 2.0 ** -31) & (np.abs(b) < 2.0 ** 32))
+    assert 0.2 < in_range.mean() < 0.9
+    ta, tb = (torch.as_tensor(v, device=cuda) for v in (a, b))
+    fast, rn = fq.divide_check(ta, tb)
+    want = ta / tb
+    nan = torch.isnan(rn)
+    assert torch.equal(torch.isnan(fast), nan)
+    assert torch.equal(torch.isnan(want), nan)
+    assert torch.equal(fast.view(torch.int32)[~nan],
+                       rn.view(torch.int32)[~nan])
+    assert torch.equal(want.view(torch.int32)[~nan],
+                       rn.view(torch.int32)[~nan])
+
+
+def test_subseq_wrappers_refuse_misaligned_inputs(cuda):
+    # The loader copies the streams, μ and σ with 16-byte cp.async: a view
+    # off a 16-byte boundary is refused, never staged another way.
+    _, _, _, args = subseq_case((3, 1000, 64, 3, (4, 8), 5), cuda)
+    S, n_stream = args["streams"].shape
+    W = args["mu"].shape[0]
+    flat = torch.empty(S * n_stream + 1, device=cuda)
+    streams = flat[1:].view(S, n_stream)
+    streams.copy_(args["streams"])
+    col = torch.empty(W + 1, device=cuda)[1:]
+    col.copy_(args["mu"])
+    for name, bad in (("streams", streams), ("mu", col), ("sd", col)):
+        with pytest.raises(ValueError, match=f"{name} must be 16-byte"):
+            fq.fused_subseq_range(**dict(args, **{name: bad}))
+        with pytest.raises(ValueError, match=f"{name} must be 16-byte"):
+            fq.fused_subseq_topk(**dict(args, **{name: bad}), k=5)
 
 
 def test_subseq_engine_on_card_matches_torch_engine(cuda):
@@ -963,26 +1075,28 @@ def test_range_tiles_keep_two_blocks_per_sm(cuda, quant):
 
 def test_ring_stages_match_the_mirror(cuda):
     # Two stages wherever they keep the block count one stage gives: the
-    # serve-1M tiles; one at k_sel 67 over 128-sample rows (the lists
-    # leave no room) and on the streaming loader.
+    # serve-1M tiles and subseq-1M's streaming range and top-k (k_sel 67);
+    # one at k_sel 67 over 128-sample rows (the lists leave no room) and
+    # on the streaming loader at k_sel 128 from stride 12 and at stride
+    # 150's 32 KB stages.
     for topk, k_sel, quant, stride, want in (
             (False, 0, None, 0, 2), (True, 12, None, 0, 2),
             (True, 12, "int8", 0, 2), (True, 12, "bf16", 0, 2),
             (True, 67, None, 0, 1), (True, 128, None, 0, 1),
-            (False, 0, None, 4, 1), (True, 67, None, 4, 1)):
+            (False, 0, None, 4, 2), (True, 67, None, 4, 2),
+            (False, 0, "int8", 4, 2), (True, 128, None, 12, 1),
+            (False, 0, None, 150, 1)):
         got = fq.stages_of_kernel(topk, 128, (8, 16), 10, 32, 32, k_sel,
                                   quant=quant, stride=stride)
         seg = ops.subseq_seg_cap(128, stride) if stride else 0
         assert got == want == ops.ring_stages(32, 128, (8, 16), 10, 32,
                                               k_sel, quant, seg)
         for stages in (1, 2):
-            if stride and stages == 2:
-                continue
             assert fq.smem_bytes_of_kernel(
                 topk, 128, (8, 16), 10, 32, 32, k_sel, quant=quant,
                 stride=stride, stages=stages) == (
                 ops.subseq_smem_bytes(32, 128, stride, (8, 16), 10, 32,
-                                      k_sel, quant) if stride else
+                                      k_sel, quant, stages) if stride else
                 ops.fused_smem_bytes(32, 128, (8, 16), 10, 32, k_sel, quant,
                                      stages=stages))
 

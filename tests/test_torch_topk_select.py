@@ -99,16 +99,15 @@ def test_topk_tile_keeps_two_blocks_per_sm(cell, k_sel, stride):
 
 def test_selection_adds_no_shared_memory():
     # The lists (Q·k_sel·8 bytes) and the candidates' section are all the
-    # top-k form adds to the range form's layout (whose streaming loader's
-    # sections move into the candidates' space): at subseq-1M that is
-    # 83,984 bytes, 31,216 short of falling to one block per SM.
+    # top-k form adds to the range form's layout (both with the streaming
+    # loader's two ring stages): at subseq-1M that is 96,528 bytes,
+    # 18,672 short of falling to one block per SM.
     smem = topk_smem(67, 4)
-    assert smem == 83_984
+    assert smem == 96_528
     range_smem = ops.subseq_smem_bytes(32, 128, 4, (8, 16), 10, Q=32)
     lists = 2 * 32 * 67 * 4
     cand = 32 * ops.ROW_TILE * 4
-    loader = 3 * 64 * 4 + 4 * ops.subseq_seg_cap(128, 4)
-    assert smem == range_smem + lists + cand - loader
+    assert smem == range_smem + lists + cand
     assert cost_model.SMEM_PER_SM // (smem + 1024) == 2
-    assert cost_model.SMEM_PER_SM // (smem + 31_216 + 1024) == 2
-    assert cost_model.SMEM_PER_SM // (smem + 31_217 + 1024) == 1
+    assert cost_model.SMEM_PER_SM // (smem + 18_672 + 1024) == 2
+    assert cost_model.SMEM_PER_SM // (smem + 18_673 + 1024) == 1
