@@ -102,8 +102,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    (``torch.matmul`` by the averaging matrix for ``paa``, ``torch.cdist``
    for ``sqdist``) and the bounds (``prune_level``'s counts the words of
    the rows C9 keeps, the only ones it reads; the full-read bound is
-   logged beside it).  The build's linfit and word instantiations must
-   have no stack frame and no spill.
+   logged beside it).  The build's linfit, word and sqdist register
+   instantiations must have no stack frame and no spill.
 13. The paper's online phase, one query and one level at a time: the
    port's host ``FastSAXIndex`` of phase 7, its columns uploaded once; 16
    queries at ε ∈ {1, 2}; with the counts set to 0, FAST_SAX on the card
@@ -115,8 +115,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    kernel 1 (``range_query_fused``) over phase 3's index; kernels 10-12
    must have launched.  Each engine's op-counted latency, candidates,
    exclusions and time per query; ``sqdist`` timed at the phase's mean
-   survivor count, the shape it runs at, beside phase 12's 2^20 rows
-   (the kernels line carries the survivor-count figures); then, outside
+   survivor count, the shape it runs at, back to back (its rows stay in
+   L2) and L2-cold (128 MB overwritten before each launch), beside phase
+   12's 2^20 rows (the kernels line carries the survivor-count figures,
+   back to back); then, outside
    the counted run, where a query's card time goes: the wrapper calls'
    host work, the wait for their kernels, ``nonzero``, the verify, the
    copies, and the kernels alone.
@@ -1630,14 +1632,18 @@ def subseq_phases(torch, engine, fq, ref, report) -> tuple:
 
 def level_ptxas_summary(log_text: str) -> list:
     """:func:`ptxas_summary` for ``level_ops.cu``: the segment body (paa,
-    sqdist; f32 or bf16 rows), the linfit bodies (per segment length L,
-    and the generic one) and the word bodies (mindist, prune; per width N,
-    and the generic ones by the size of their query-word parameter)."""
+    and sqdist's other widths: "sqdist segment"; f32 or bf16 rows),
+    sqdist's register body (per row width n), the linfit bodies (per
+    segment length L, and the generic one) and the word bodies (mindist,
+    prune; per width N, and the generic ones by the size of their
+    query-word parameter)."""
     dtype = {"f": "f32", "13__nv_bfloat16": "bf16"}
     names = (
         (r"segment_kernelILi(\d)E(f|13__nv_bfloat16)E",
-         lambda m: f"{('paa', 'linfit', 'sqdist')[int(m[1])]} "
+         lambda m: f"{('paa', 'linfit', 'sqdist segment')[int(m[1])]} "
                    f"{dtype[m[2]]}"),
+        (r"sqdist_kernelILi(\d+)E(f|13__nv_bfloat16)E",
+         lambda m: f"sqdist n={m[1]} {dtype[m[2]]}"),
         (r"linfit_kernelILi(\d+)E(f|13__nv_bfloat16)E",
          lambda m: f"linfit L={m[1]} {dtype[m[2]]}"),
         (r"linfit_generic_kernelI(f|13__nv_bfloat16)E",
@@ -2148,9 +2154,11 @@ def level_query_breakdown(torch, lo, host, series, words, resid, qs,
 def sqdist_at_survivors(torch, lo, ref, series, q, stats) -> dict:
     """``sqdist`` at the shape phase 13 gives it: the mean number of
     survivors its launches saw (both engines, both radii), as rows of the
-    series.  The kernel launched alone (not counted), the wrapper's call,
-    the plain version, ``torch.cdist`` and the bound, as phase 12 times it
-    at 2^20 rows."""
+    series.  The kernel launched alone (not counted) back to back, where
+    its rows (26 MB at 50,914) stay in the 50 MB L2, and L2-cold, 128 MB
+    overwritten before each launch (that write's own time taken off); the
+    wrapper's call, the plain version, ``torch.cdist`` and the bound, as
+    phase 12 times it at 2^20 rows; the bound's share of each time."""
     m = int(round(np.mean([stats[e][eng]["candidates"] for e in LEVEL_EPS
                            for eng in ("fastsax", "sax")])))
     x = series[:m].contiguous()
@@ -2161,17 +2169,27 @@ def sqdist_at_survivors(torch, lo, ref, series, q, stats) -> dict:
           f"sqdist differs from its plain version at {m} rows")
     nbytes, ops = m * n * 4.0 + n * 4.0 + m * 4.0, m * n * 3.0
     b_ms, b_by = level_bound(nbytes, ops)
-    f = {"rows": m, "ms": device_ms(torch, lambda: lo._segment(
-            2, x, 1, q, out, "sqdist"), 20),
+    def kern():
+        lo._segment(2, x, 1, q, out, "sqdist")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=x.device)
+    flush_ms = device_ms(torch, flush.zero_, 20)
+    f = {"rows": m, "ms": device_ms(torch, kern, 20),
+         "cold_ms": device_ms(torch, lambda: (flush.zero_(), kern()), 20)
+         - flush_ms,
+         "flush_ms": flush_ms,
          "call_ms": cuda_ms(torch, lambda: lo.sqdist(x, q), 20),
          "plain_ms": cuda_ms(torch, lambda: ref.sqdist_ref(x, q), 3),
          "library_ms": cuda_ms(torch, lambda: torch.cdist(x, q[None]), 20),
          "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+    f["share"], f["cold_share"] = b_ms / f["ms"], b_ms / f["cold_ms"]
+    del flush
     log(f"[level-kernels] sqdist at phase 13's mean survivor count ({m} "
-        f"rows, n={n}): {f['ms']:.4f} ms (the wrapper's call "
-        f"{f['call_ms']:.4f} ms, plain {f['plain_ms']:.3f} ms, torch.cdist "
-        f"{f['library_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
-        f"{nbytes / 1e6:.2f} MB)")
+        f"rows, n={n}): {f['ms']:.4f} ms back to back, {f['cold_ms']:.4f} "
+        f"ms L2-cold (the wrapper's call {f['call_ms']:.4f} ms, plain "
+        f"{f['plain_ms']:.3f} ms, torch.cdist {f['library_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e6:.2f} MB; "
+        f"{100 * f['share']:.1f} % of it warm, {100 * f['cold_share']:.1f} "
+        f"% cold)")
     return f
 
 
@@ -2239,15 +2257,19 @@ def main() -> int:
     check(all(v == (0, 0) for v in frames.values()),
           f"a fused instantiation has a stack frame or spills: {frames}")
     check(all(r <= 128 for r in regs), f"top-k registers above 128: {regs}")
-    # The linfit and word bodies of level_ops.cu keep their state in
-    # registers: no stack frame and no spill in any instantiation.
+    # The linfit, word and sqdist register bodies of level_ops.cu keep
+    # their state in registers: no stack frame and no spill in any
+    # instantiation.
     level_frames = {line.split(":")[0]: frame_and_spills(line)
                     for line in report["build"]["level_kernels"]
-                    if not line.startswith(("paa ", "sqdist "))}
+                    if not line.startswith(("paa ", "sqdist segment "))}
     report["build"]["level_stack_and_spill_bytes"] = level_frames
     check(level_frames, "no ptxas report of the level kernels in the log")
+    check(any(k.startswith("sqdist n=128 ") for k in level_frames),
+          "no ptxas report of sqdist's register body in the log")
     log(f"[build] stack frame and spill bytes of the {len(level_frames)} "
-        f"linfit and word instantiations of level_ops.cu: max "
+        f"linfit, word and sqdist register instantiations of "
+        f"level_ops.cu: max "
         f"{max(v[0] for v in level_frames.values())} and "
         f"{max(v[1] for v in level_frames.values())}")
     check(all(v == (0, 0) for v in level_frames.values()),

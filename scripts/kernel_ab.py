@@ -15,11 +15,15 @@ levels (8, 16), α 10) for kernels 1, 2, 5 and 6 (int8 and bf16) at the
 path's tiles, and subseq-1M (16 streams of 262,144 samples, windows of
 128 at stride 4) for kernels 3, 4 and 7.  A side whose wrappers take the
 per-query MINDIST panels gets them (``ops.query_panels``); one that takes
-the query words gets those.  With ``--level``, the per-level kernels 8,
-10 and 12 (``csrc/level_ops.cu``) on phase 12's and 13's inputs: the
-serve-1M index's z-normalised rows, words and residuals at N = 8 and 16,
-one query, ε = 2; ``prune_level`` with every row alive (phase 12) and
-with the survivors of the level before (phase 13's second call).
+the query words gets those.  With ``--level``, the per-level kernels
+8-12 (``csrc/level_ops.cu``) on phase 12's and 13's inputs: the serve-1M
+index's z-normalised rows, words and residuals at N = 8 and 16, one
+query, ε = 2; ``prune_level`` with every row alive (phase 12) and with
+the survivors of the level before (phase 13's second call); ``sqdist``
+(f32 and bf16) over all 2^20 rows and over phase 13's mean survivor
+count of them.  Where the change's ``sqdist`` has the register body, a
+copy of it that writes each row from lane 0 of its lanes is timed
+against it too.
 
 Each kernel's outputs must be equal bit for bit on both sides (the run
 fails otherwise).  Times: CUDA events over 20 launches, in the order
@@ -150,15 +154,15 @@ def instrument(text: str) -> str:
     return text[:i] + FLUSH % (P - 1, P) + text[i:] + TAIL
 
 
-# The level bodies (``--level``): per version of ``level_ops.cu``, per
-# kernel, the phases, the line after which the stamps start, the marks
-# (anchor, mark, before the anchor?) and the end of the body, where the
+# The level bodies (``--level``): per body, per version of that body in
+# ``level_ops.cu``, the phases, the line after which the stamps start, the
+# marks (anchor, mark, before the anchor?) and the line after which the
 # last mark and the flush go.  Mark k closes phase k at that point.
 LEVEL_SPLITS = {
-    # The block-cooperative bodies: tiles staged in shared memory and
-    # halved there one barriered step at a time.
-    "shared": {
-        "linfit": (
+    "linfit": {
+        # Tiles staged in shared memory, halved one barriered step at a
+        # time.
+        "shared": (
             ("stage", "L-halving", "closed form", "N-halving+out"),
             "  const int tile = p.rows * n;\n",
             [("  row_sum_slices<BODY == LINFIT ? 3 : 1>(b0, b1, b2, rows * N,"
@@ -167,8 +171,20 @@ LEVEL_SPLITS = {
               " L, L);\n", 1, False),
              ("  row_sum_slices<1>(seg, nullptr, nullptr, rows, N, N);\n", 2,
               True)],
-            "    p.out[row0 + r] = seg[r * N];\n}\n"),
-        "words": (
+            "    p.out[row0 + r] = seg[r * N];\n"),
+        # A segment per lane, shuffles.  A load's wait shows in the phase
+        # of its first use, not in the one that issues it.
+        "registers": (
+            ("issue loads", "wait+segment sums", "closed form",
+             "N-shuffles+out"),
+            "  const bool live = r < per_warp && row < p.B;\n",
+            [("    // ---- segment sums:", 0, True),
+             ("    // ---- closed form\n", 1, True),
+             ("  // ---- the row's segments:", 2, True)],
+            "  if (live && s == 0) p.out[row] = v;\n"),
+    },
+    "words": {
+        "shared": (
             ("panel", "stage+gather", "halving", "write"),
             "  float* cells = sm + word_panel_floats(N, A);\n",
             [("  stage(p.words + row0 * N, rows * N,", 0, True),
@@ -176,21 +192,9 @@ LEVEL_SPLITS = {
               True),
              ("  row_sum_slices<1>(cells, nullptr, nullptr, rows, N, N);\n", 2,
               False)],
-            "      static_cast<float*>(p.out)[row] = md2;\n    }\n  }\n}\n"),
-    },
-    # The register bodies: a segment per lane (linfit), a row per G lanes
-    # (words), shuffles.  A load's wait shows in the phase of its first
-    # use, not in the one that issues it.
-    "registers": {
-        "linfit": (
-            ("issue loads", "wait+segment sums", "closed form",
-             "N-shuffles+out"),
-            "  const bool live = r < per_warp && row < p.B;\n",
-            [("    // ---- segment sums:", 0, True),
-             ("    // ---- closed form\n", 1, True),
-             ("  // ---- the row's segments:", 2, True)],
-            "  if (live && s == 0) p.out[row] = v;\n}\n"),
-        "words": (
+            "      static_cast<float*>(p.out)[row] = md2;\n    }\n  }\n"),
+        # A row per G lanes, shuffles.
+        "registers": (
             ("table", "C9", "load+gather", "tree", "write"),
             "  constexpr int P = 32 / G;          // rows per step; G steps "
             "take 32 rows\n",
@@ -200,7 +204,31 @@ LEVEL_SPLITS = {
              ("      // ---- tree:", 2, True),
              ("      if (lane / P == st) md = t;\n", 3, False)],
             "  if (valid) write_row<PRUNE>(p, row, need, "
-            "__fmul_rn(p.scale, md));\n}\n"),
+            "__fmul_rn(p.scale, md));\n"),
+    },
+    "sqdist": {
+        # The block-cooperative segment body it shares with paa: the query
+        # and a tile of rows staged in shared memory, all slices halved
+        # together one barriered step at a time.
+        "segment": (
+            ("q load", "stage", "halving", "write"),
+            "  const T* src = static_cast<const T*>(p.x) + row0 * n;\n",
+            [("    stage(src, rows * n, [&](int e, T raw) {\n"
+              "      const float d", 0, True),
+             ("    row_sum_slices(b0, rows, n, n);\n", 1, True),
+             ("    row_sum_slices(b0, rows, n, n);\n", 2, False)],
+            "      p.out[row0 + r] = b0[r * n];\n"),
+        # A row per G lanes in registers: strided loads, the in-lane tree,
+        # shuffles, the rows handed to one lane each.  A load's wait shows
+        # in the tree.
+        "registers": (
+            ("loads", "wait+in-lane tree", "shuffles+hand-off", "write"),
+            "  const int rows = p.B - row0 < ROWS ? (int)(p.B - row0) : "
+            "ROWS;\n",
+            [("  // ---- squares and the in-lane tree", 0, True),
+             ("  // ---- shuffles:", 1, True),
+             ("  // ---- write:", 2, True)],
+            "  if (lane < rows) p.out[row0 + lane] = d2;\n"),
     },
 }
 LEVEL_INIT = ("  long long _sp[6] = {0, 0, 0, 0, 0, 0};\n"
@@ -211,17 +239,31 @@ LEVEL_FLUSH = r"""  SPLIT_MARK(%d);
     atomicAdd(&g_split[7], 1ull);
   }
 """
+# The sqdist register body with the other write: lane 0 of each row's
+# lanes writes the row's sum where the shuffles leave it, in place of the
+# hand-off of 32 rows' sums to the warp's lanes and one write of them.
+HANDOFF = ("    // Row r·P + k's sum is in lane k·G; lane r·P + k takes it.\n"
+           "    const float t = __shfl_sync(FULL, e[r][0], (lane % P) * G);\n"
+           "    if (lane / P == r) d2 = t;\n")
+LANE0_WRITE = ("    const int rr = r * P + k;\n"
+               "    if (j == 0 && rr < rows) p.out[row0 + rr] = e[r][0];\n")
+RUN_WRITE = "  if (lane < rows) p.out[row0 + lane] = d2;\n"
 
 
-def level_version(text: str) -> str:
-    return "shared" if "word_panel_floats" in text else "registers"
+def level_versions(text: str) -> dict:
+    """The version of each level body in a ``level_ops.cu``."""
+    regs = "word_panel_floats" not in text
+    return {"linfit": "registers" if regs else "shared",
+            "words": "registers" if regs else "shared",
+            "sqdist": "registers" if "sqdist_kernel" in text else "segment"}
 
 
 def instrument_level(text: str) -> str:
-    """``level_ops.cu`` with clock64() stamps in the linfit and word
-    bodies of its version (``LEVEL_SPLITS``)."""
+    """``level_ops.cu`` with clock64() stamps in the linfit, word and
+    sqdist bodies of its version (``LEVEL_SPLITS``)."""
     text = text.replace("namespace {\n", "namespace {\n" + HEADER, 1)
-    for phases, init, marks, end in LEVEL_SPLITS[level_version(text)].values():
+    for body, version in level_versions(text).items():
+        phases, init, marks, end = LEVEL_SPLITS[body][version]
         assert text.count(init) == 1, init
         text = text.replace(init, init + LEVEL_INIT, 1)
         for anchor, mark, before in marks:
@@ -230,18 +272,28 @@ def instrument_level(text: str) -> str:
             text = text.replace(anchor, stamp + anchor if before
                                 else anchor + stamp)
         assert text.count(end) == 1, end
-        text = text.replace(end, end[:-2] + LEVEL_FLUSH % (len(phases) - 1)
-                            + "}\n")
+        text = text.replace(end, end + LEVEL_FLUSH % (len(phases) - 1))
     return text + TAIL
 
 
-def build_split(side: str, pkg, source: str = "fused_query") -> ctypes.CDLL:
+def lane0_write(text: str) -> str:
+    """``level_ops.cu`` whose sqdist register body writes each row from
+    lane 0 of its lanes (``LANE0_WRITE``)."""
+    assert text.count(HANDOFF) == 1 and text.count(RUN_WRITE) == 1
+    return text.replace(HANDOFF, LANE0_WRITE).replace(RUN_WRITE, "")
+
+
+def build_split(side: str, pkg, source: str = "fused_query",
+                transform=None, tag: str = "split") -> ctypes.CDLL:
+    """Build a copy of a side's ``source`` changed by ``transform``
+    (default: its ``clock64()`` stamps) under ``build/kernel_ab/``."""
     SPLIT_DIR.mkdir(parents=True, exist_ok=True)
     src = pathlib.Path(pkg.kernels.build.CSRC) / f"{source}.cu"
-    cu = SPLIT_DIR / f"{side}_{source}_split.cu"
-    so = SPLIT_DIR / f"lib{side}_{source}_split.so"
-    cu.write_text((instrument_level if source == "level_ops" else
-                   instrument)(src.read_text()))
+    cu = SPLIT_DIR / f"{side}_{source}_{tag}.cu"
+    so = SPLIT_DIR / f"lib{side}_{source}_{tag}.so"
+    if transform is None:
+        transform = instrument_level if source == "level_ops" else instrument
+    cu.write_text(transform(src.read_text()))
     b = pkg.kernels.build
     proc = subprocess.run([b.nvcc_path(), *b.NVCC_FLAGS, "-o", str(so),
                            str(cu)], capture_output=True, text=True)
@@ -254,6 +306,16 @@ def build_split(side: str, pkg, source: str = "fused_query") -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 # The kernels of one side on the shared inputs.
 # ---------------------------------------------------------------------------
+
+
+# The segment launcher's body codes, and the split of each level kind.
+SEGMENT_BODIES = {"paa": 0, "linfit": 1, "sqdist": 2}
+SPLIT_BODY = {"linfit": "linfit", "mindist": "words", "prune": "words",
+              "sqdist": "sqdist"}
+# sqdist's rows at phase 13's shape: the mean survivor count of its
+# launches (chip_smoke.py's sqdist_at_survivors on serve-1M's first 16
+# queries at ε 1 and 2).
+SURVIVORS = 50_914
 
 
 class Side:
@@ -270,7 +332,7 @@ class Side:
         # MINDIST table with the query word's offsets.
         self.panel = "tq" in inspect.signature(self.lo._word).parameters
         csrc = pathlib.Path(pkg.kernels.build.CSRC)
-        self.version = level_version((csrc / "level_ops.cu").read_text())
+        self.versions = level_versions((csrc / "level_ops.cu").read_text())
         self.fused_phases = SPLITS[fused_version(
             (csrc / "fused_query.cu").read_text())][0]
         self.words = "q_words" in inspect.signature(
@@ -299,19 +361,21 @@ class Side:
         """The wrapper's whole call."""
         lo = self.lo
         fn = {"linfit": lo.linfit_residual_sq, "mindist": lo.mindist_sq,
-              "prune": lo.prune_level}[kind]
+              "prune": lo.prune_level, "sqdist": lo.sqdist,
+              "paa": lo.paa}[kind]
         return lambda: fn(*args)
 
     def level_kernel(self, torch, kind, args):
         """The kernel launched alone, its output and query side made once
         (a launch outside the wrapper is not counted)."""
         lo = self.lo
-        if kind == "linfit":
-            x, N = args
-            out = torch.empty(x.shape[0], dtype=torch.float32,
-                              device=x.device)
-            return lambda: (lo._segment(1, x, N, None, out, "linfit"),
-                            out)[1]
+        if kind in SEGMENT_BODIES:
+            x, a = args
+            body = SEGMENT_BODIES[kind]
+            shape = (x.shape[0], a) if kind == "paa" else (x.shape[0],)
+            out = torch.empty(shape, dtype=torch.float32, device=x.device)
+            N, q = (1, a) if kind == "sqdist" else (a, None)
+            return lambda: (lo._segment(body, x, N, q, out, kind), out)[1]
         if kind == "mindist":
             w, qword, n, A = args
             alive = res = None
@@ -417,6 +481,18 @@ def level_cases(torch, cs, engine, make_queries, make_wafer_like):
         alive = ref_prune(torch, index, li, alive, qword, qres, eps)
     out.append((f"8 linfit_residual_sq bf16 N={index.levels[-1]}", "linfit",
                 (x.to(torch.bfloat16), index.levels[-1])))
+    # Kernel 11 at phase 12's 2^20 rows and at phase 13's survivor count
+    # (the first rows of the series, one query), f32 and bf16; kernel 9,
+    # which shares the segment body, at both levels.
+    q = qr.q[0].contiguous()
+    for rows in (x.shape[0], SURVIVORS):
+        xs = x[:rows].contiguous()
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            out.append((f"11 sqdist {name} B={rows}", "sqdist",
+                        (xs.to(dt), q.to(dt))))
+    for N in index.levels:
+        out.append((f"9 paa f32 N={N}", "paa", (x, N)))
     return out
 
 
@@ -446,8 +522,8 @@ def split_of(torch, cs, lib, fn, phases, timer=None) -> dict:
 
 def run_level(torch, cs, sides, libs, opts, engine, make_queries,
               make_wafer_like, report) -> None:
-    """Kernels 8, 10 and 12 on both sides: outputs bit for bit, the
-    kernel alone and the wrapper's call timed in turns, the split."""
+    """Kernels 8-12 on both sides: outputs bit for bit, the kernel alone
+    (warm and L2-cold) and the wrapper's call timed in turns, the split."""
     order = ("base", "change", "change", "base")
     # Back-to-back launches find a 32 MB input (the N = 8 words) in the
     # 50 MB L2; the "cold" turns overwrite 128 MB before each launch and
@@ -483,11 +559,11 @@ def run_level(torch, cs, sides, libs, opts, engine, make_queries,
                "base_call_ms": call_ms["base"],
                "change_call_ms": call_ms["change"]}
         if opts.split:
-            body = "linfit" if kind == "linfit" else "words"
-            for n, s in sides.items():
+            body = SPLIT_BODY.get(kind)
+            for n, s in sides.items() if body else ():
                 lib = libs[f"{n}_split"]
                 s.use(lib, "level_ops")
-                phases = LEVEL_SPLITS[s.version][body][0]
+                phases = LEVEL_SPLITS[body][s.versions[body]][0]
                 row[f"{n}_split"] = split_of(torch, cs, lib, kerns[n],
                                              phases)
                 s.use(libs[n], "level_ops")
@@ -496,7 +572,7 @@ def run_level(torch, cs, sides, libs, opts, engine, make_queries,
             f"; {n} split " + ", ".join(
                 f"{p} {100 * v:.1f}%" for p, v in row[f"{n}_split"].items()
                 if p not in ("ms_instrumented", "cycles_per_warp"))
-            for n in sides if opts.split)
+            for n in sides if f"{n}_split" in row)
         print(f"[ab] {label}: kernel base {ms['base']:.4f} ms, change "
               f"{ms['change']:.4f} ms (turns "
               + ", ".join(f"{n} {t:.4f}" for n, t in turns)
@@ -509,6 +585,55 @@ def run_level(torch, cs, sides, libs, opts, engine, make_queries,
               + f"); bit-identical {same}{split}", flush=True)
         if not same:
             raise RuntimeError(f"{label}: the outputs differ")
+        if kind == "sqdist" and "change_lane0" in libs:
+            row["lane0_write"] = lane0_turns(torch, cs, sides["change"], libs,
+                                             kind, args, flush, flush_ms,
+                                             label)
+
+
+def lane0_turns(torch, cs, side, libs, kind, args, flush, flush_ms,
+                label) -> dict:
+    """The change's sqdist register body against its copy that writes
+    each row from lane 0 of its lanes (``lane0_write``): outputs bit for
+    bit, the kernel alone warm and L2-cold in turns (run, lane 0, lane 0,
+    run)."""
+    kerns = {}
+    for arm, key in (("run", "change"), ("lane0", "change_lane0")):
+        side.use(libs[key], "level_ops")
+        kerns[arm] = side.level_kernel(torch, kind, args)
+    outs = {}
+    for arm, key in (("run", "change"), ("lane0", "change_lane0")):
+        side.use(libs[key], "level_ops")
+        outs[arm] = bits(torch, [kerns[arm]()])[0].clone()
+    torch.cuda.synchronize()
+    order = (("run", "change"), ("lane0", "change_lane0"),
+             ("lane0", "change_lane0"), ("run", "change"))
+
+    def turns(cold):
+        out = []
+        for arm, key in order:
+            side.use(libs[key], "level_ops")
+            f = kerns[arm]
+            out.append((arm, cs.device_ms(torch, lambda: (flush.zero_(), f())
+                                          if cold else f(), 20)
+                        - (flush_ms if cold else 0.0)))
+        return out
+    warm, cold = turns(False), turns(True)
+    side.use(libs["change"], "level_ops")
+    same = torch.equal(outs["run"], outs["lane0"])
+    row = {"bit_identical": same, "turns_ms": warm, "cold_turns_ms": cold,
+           **{f"{a}_ms": sum(t for m, t in warm if m == a) / 2
+              for a in ("run", "lane0")},
+           **{f"{a}_cold_ms": sum(t for m, t in cold if m == a) / 2
+              for a in ("run", "lane0")}}
+    print(f"[ab] {label}, the change's write: by hand-off "
+          f"{row['run_ms']:.4f} ms (cold "
+          f"{row['run_cold_ms']:.4f}), by lane 0 {row['lane0_ms']:.4f} ms "
+          f"(cold {row['lane0_cold_ms']:.4f}); bit-identical {same}",
+          flush=True)
+    if not same:
+        raise RuntimeError("the lane-0 write differs")
+    return row
 
 
 def caller(side, kernel, kind, args, tile):
@@ -535,7 +660,7 @@ def main() -> int:
                     help="whole-series kernels only, over this many rows "
                          "(default: serve-1M and subseq-1M)")
     ap.add_argument("--level", action="store_true",
-                    help="the per-level kernels 8, 10 and 12 "
+                    help="the per-level kernels 8-12 "
                          "(csrc/level_ops.cu) instead of the fused ones")
     opts = ap.parse_args()
     source = "level_ops" if opts.level else "fused_query"
@@ -576,6 +701,11 @@ def main() -> int:
             jobs.append(threading.Thread(target=job, args=(
                 f"{name}_split", lambda n=name, s=side: build_split(
                     n, s.pkg, source))))
+        if (opts.level and name == "change"
+                and side.versions["sqdist"] == "registers"):
+            jobs.append(threading.Thread(target=job, args=(
+                f"{name}_lane0", lambda n=name, s=side: build_split(
+                    n, s.pkg, source, lane0_write, "lane0"))))
     for j in jobs:
         j.start()
     for j in jobs:

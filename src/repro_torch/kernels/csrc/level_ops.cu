@@ -1,10 +1,11 @@
 // The paper's per-level operations for NVIDIA Hopper (sm_90a): the offline
 // phase's precomputed columns and the online phase one query, one level
-// at a time.  Five kernels in three bodies:
+// at a time.  Five kernels in four bodies:
 //
 //   segment reduction (segment_kernel<BODY, T>), one pass over (B, n) rows
 //     PAA    : segment means (B, n) -> (B, N).
 //              Replaces src/repro/kernels/paa.py::paa_pallas.
+//   row distance (sqdist_kernel<n, T>, else segment_kernel<SQDIST, T>)
 //     SQDIST : Σ(x − q)² against one query (B, n) × (n,) -> (B,), the
 //              final verification scan of SAX and FAST_SAX.
 //              Replaces src/repro/kernels/sqdist.py::sqdist_pallas.
@@ -36,10 +37,23 @@
 //     computed on the host.  So kernel 9's means discretize to the
 //     engine's words and kernel 8's residuals are the engine's, bit for
 //     bit, at breakpoints too.
-//   * PAA and SQDIST: a block stages a tile of rows in shared memory with
-//     16-byte loads, upcasting bf16 in the loader, and all its threads
-//     halve every slice of the tile in row_sum's order together, one
-//     barriered step at a time.  Ragged B is masked.
+//   * PAA: a block stages a tile of rows in shared memory with 16-byte
+//     loads, upcasting bf16 in the loader, and all its threads halve every
+//     slice of the tile in row_sum's order together, one barriered step at
+//     a time.  Ragged B is masked.
+//   * SQDIST keeps each row in registers, not in a block's shared tile: a
+//     row of n = 2^k ≤ 1024 elements lies in G = min(n, 32) lanes, lane j
+//     holding elements j, j + G, j + 2G, … (V = n / G of them, each read
+//     alone: a warp's load is one contiguous run, and any row start is
+//     aligned for it).  row_sum's steps h ≥ G pair two values of one lane
+//     (tree_sum<V>), the last log2 G are shuffles (lane j adds lane
+//     j + h).  A warp loads the query (V registers a lane) and R·(32 / G)
+//     consecutive rows, 16 values a lane, all at once: a small B (the
+//     survivors of a level-at-a-time query) still fills the card with
+//     warps whose loads are all in flight.  Each row's sum goes to one
+//     lane, so the output is written in one run a warp.  No shared
+//     memory, no barrier.  Other n go through the segment body as PAA
+//     does (the query staged beside the tile).
 //   * LINFIT keeps each segment in registers: one thread per segment of L
 //     elements (L a power of two up to 32), loaded with 16-byte vectors,
 //     forms Σy, Σy² and Σy·xc in row_sum's order (tree_sum, unrolled) and
@@ -73,7 +87,9 @@
 // ridge point, so bytes bound all five.  At B = 2^20, n = 128: kernels 8
 // and 11 read 536.9 MB (0.16 ms), kernel 9 at N = 16 also writes 67 MB
 // (0.18 ms), kernel 10 at N = 16 reads 67 MB of words (0.02 ms), kernel 12
-// at most 73 MB (0.02 ms; less where C9 kills rows).  Times in PERF.md.
+// at most 73 MB (0.02 ms; less where C9 kills rows); kernel 11 at the
+// level-at-a-time query's ≈ 51,000 survivors reads 26 MB (8 µs), which
+// fits in the 50 MB L2.  Times in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -181,7 +197,7 @@ __device__ __forceinline__ float slice_sum(float* v, int w) {
 }
 
 // ---------------------------------------------------------------------------
-// PAA and SQDIST: the block-cooperative segment body.
+// PAA (and SQDIST's other widths): the block-cooperative segment body.
 // ---------------------------------------------------------------------------
 
 struct SegParams {
@@ -236,6 +252,82 @@ int seg_rows(int body, int n) {
   int rows = (SEG_BUDGET / 4 - fixed) / n;
   if (rows > SEG_ROWS_MAX) rows = SEG_ROWS_MAX;
   return rows < 1 ? 1 : rows;
+}
+
+// ---------------------------------------------------------------------------
+// SQDIST: a row per G lanes, in registers.
+// ---------------------------------------------------------------------------
+
+// The widest row the register body holds: V = 32 values a lane.
+constexpr int SQDIST_N_MAX = 1024;
+
+bool sqdist_fast(int n) {
+  return n >= 1 && n <= SQDIST_N_MAX && (n & (n - 1)) == 0;
+}
+
+// Steps R of sqdist_kernel<n>: a warp loads R·(32 / G) rows at once, 16
+// values a lane (V per row), at least one row, at most a step per lane.
+__host__ __device__ constexpr int sqdist_steps(int n) {
+  return n < 32 ? n : (n >= 16 * 32 ? 1 : 16 * 32 / n);
+}
+
+// Rows a warp takes: R steps of 32 / G rows.
+__host__ __device__ constexpr int sqdist_warp_rows(int n) {
+  return n < 32 ? 32 : sqdist_steps(n);
+}
+
+template <int N, typename T>
+__global__ void __launch_bounds__(NTHREADS) sqdist_kernel(SegParams p) {
+  constexpr int G = N < 32 ? N : 32;  // lanes per row
+  constexpr int V = N / G;            // elements per lane, at stride G
+  constexpr int P = 32 / G;           // rows per step
+  constexpr int R = sqdist_steps(N);  // steps, all loaded at once
+  constexpr int ROWS = R * P;         // the warp's rows
+  const int lane = threadIdx.x & 31;
+  const int j = lane % G;             // the lane's place in its row
+  const int k = lane / G;             // its row in a step
+  const long row0 = ((long)blockIdx.x * WARPS + (threadIdx.x >> 5)) * ROWS;
+  if (row0 >= p.B) return;
+  const int rows = p.B - row0 < ROWS ? (int)(p.B - row0) : ROWS;
+  // ---- loads: the query's V elements j + v·G, upcast, and those of rows
+  // r·P + k, r < R
+  float qv[V], e[R][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    qv[v] = p.q_bf16 ? __bfloat162float(
+                           static_cast<const __nv_bfloat16*>(p.q)[j + v * G])
+                     : static_cast<const float*>(p.q)[j + v * G];
+  const T* x = static_cast<const T*>(p.x) + (row0 + k) * N + j;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool in = r * P + k < rows;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      e[r][v] = in ? to_f32(x[r * P * N + v * G]) : 0.f;
+  }
+  // ---- squares and the in-lane tree: row_sum's steps h ≥ G
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float d = __fsub_rn(e[r][v], qv[v]);
+      e[r][v] = __fmul_rn(d, d);
+    }
+    tree_sum<V>(e[r]);
+  }
+  // ---- shuffles: row_sum's steps h < G, lane j adds lane j + h
+  float d2 = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int h = G / 2; h >= 1; h >>= 1)
+      e[r][0] = __fadd_rn(e[r][0], __shfl_down_sync(FULL, e[r][0], h));
+    // Row r·P + k's sum is in lane k·G; lane r·P + k takes it.
+    const float t = __shfl_sync(FULL, e[r][0], (lane % P) * G);
+    if (lane / P == r) d2 = t;
+  }
+  // ---- write: the warp's rows, one a lane
+  if (lane < rows) p.out[row0 + lane] = d2;
 }
 
 // ---------------------------------------------------------------------------
@@ -549,6 +641,26 @@ int launch_seg(const SegParams& p, int dtype, int smem, cudaStream_t s) {
 }
 
 template <typename T>
+int launch_sqdist(const SegParams& p, cudaStream_t s) {
+  const int rows = WARPS * sqdist_warp_rows(p.n);
+  const int blocks = (int)(((long)p.B + rows - 1) / rows);
+  switch (p.n) {
+    case 1: return launch(sqdist_kernel<1, T>, p, blocks, NTHREADS, 0, s);
+    case 2: return launch(sqdist_kernel<2, T>, p, blocks, NTHREADS, 0, s);
+    case 4: return launch(sqdist_kernel<4, T>, p, blocks, NTHREADS, 0, s);
+    case 8: return launch(sqdist_kernel<8, T>, p, blocks, NTHREADS, 0, s);
+    case 16: return launch(sqdist_kernel<16, T>, p, blocks, NTHREADS, 0, s);
+    case 32: return launch(sqdist_kernel<32, T>, p, blocks, NTHREADS, 0, s);
+    case 64: return launch(sqdist_kernel<64, T>, p, blocks, NTHREADS, 0, s);
+    case 128: return launch(sqdist_kernel<128, T>, p, blocks, NTHREADS, 0, s);
+    case 256: return launch(sqdist_kernel<256, T>, p, blocks, NTHREADS, 0, s);
+    case 512: return launch(sqdist_kernel<512, T>, p, blocks, NTHREADS, 0, s);
+    default:
+      return launch(sqdist_kernel<1024, T>, p, blocks, NTHREADS, 0, s);
+  }
+}
+
+template <typename T>
 int launch_linfit(LinfitParams& p, bool aligned, cudaStream_t s) {
   if (aligned && linfit_fast(p.L, p.N)) {
     const int rows = WARPS * (32 / p.N);
@@ -634,7 +746,9 @@ const char* level_ops_error(int code) {
 // Rows per thread block and bytes of shared memory of a launch over
 // 16-byte aligned inputs: kind 0-2 the segment bodies (paa, linfit,
 // sqdist) over rows of length n with N segments, kind 3 the word gather
-// over N-symbol words (the table's static bytes included).
+// over N-symbol words (the table's static bytes included).  sqdist's
+// register body holds sqdist_warp_rows(n) rows a warp and no shared
+// memory.
 int level_ops_tile(int kind, int n, int N, int* smem) {
   if (kind == 3) {
     if (word_fast(N)) {
@@ -655,6 +769,10 @@ int level_ops_tile(int kind, int n, int N, int* smem) {
     const int rows = generic_rows(floats);
     *smem = 4 * rows * floats;
     return rows;
+  }
+  if (kind == SQDIST && sqdist_fast(n)) {
+    *smem = 0;
+    return WARPS * sqdist_warp_rows(n);
   }
   const int rows = seg_rows(kind, n);
   *smem = 4 * seg_tile_floats(kind, n, rows);
@@ -693,6 +811,9 @@ int level_segment_launch(int body, int dtype, const void* x, int B, int n,
   p.out = out;
   const int smem = 4 * seg_tile_floats(body, n, p.rows);
   if (body == PAA) return launch_seg<PAA>(p, dtype, smem, s);
+  if (sqdist_fast(n))
+    return dtype == BF16 ? launch_sqdist<__nv_bfloat16>(p, s)
+                         : launch_sqdist<float>(p, s);
   return launch_seg<SQDIST>(p, dtype, smem, s);
 }
 

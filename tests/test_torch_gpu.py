@@ -688,6 +688,92 @@ def test_segment_kernels_are_bit_identical(cuda, case, dtype):
         assert torch.equal(got, ref.sqdist_ref(x, q))
 
 
+# sqdist's register body (csrc ``sqdist_fast``): n = 2^k up to 1024; a
+# row of 2048 goes through the segment body.
+SQDIST_FAST_N = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+SQDIST_B = (1, 31, 33, 50_914, 1 << 20)
+
+
+def sqdist_warp_rows(n):
+    """Rows a warp of the register body takes (csrc ``sqdist_warp_rows``):
+    32 below n = 32, else as many as 16 values a lane hold (at least 1)."""
+    return 32 if n < 32 else max(1, 16 * 32 // n)
+
+
+def spread_rows(device, shape, seed):
+    """float32 values over many binades, made on the card, so that
+    another summation order would show."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randn(shape, generator=g, device=device)
+    return v * torch.exp2(torch.randint(-12, 12, shape, generator=g,
+                                        device=device).float())
+
+
+def padded(t, width):
+    """Rows (or the query) padded with zeros to ``width`` elements: a
+    zero difference adds +0 at row_sum's first steps, so the squared
+    distance is the same bit for bit."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
+@pytest.mark.parametrize("n", SQDIST_FAST_N)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sqdist_register_body_is_bit_identical(cuda, n, dtype):
+    # Against the plain version at ragged B, and against the segment body
+    # on the same rows padded to 2048 elements (up to 50,914 rows).
+    assert lo.tile_of("sqdist", n, 1) == (8 * sqdist_warp_rows(n), 0)
+    assert lo.tile_of("sqdist", 2048, 1)[1] > 0
+    for B in SQDIST_B:
+        x = spread_rows(cuda, (B, n), B + n).to(dtype)
+        q = spread_rows(cuda, (n,), 7 * n).to(dtype)
+        n0 = lo.sqdist.launches
+        got = lo.sqdist(x, q)
+        torch.cuda.synchronize()
+        assert lo.sqdist.launches == n0 + 1
+        assert torch.equal(got, ref.sqdist_ref(x, q)), B
+        if B <= 50_914:
+            generic = lo.sqdist(padded(x, 2048), padded(q, 2048))
+            assert torch.equal(got, generic), B
+        del x, got
+
+
+@pytest.mark.parametrize("n", [8, 128, 256])
+def test_sqdist_mixed_dtypes_and_offsets(cuda, n):
+    # A query in the other dtype than the rows; rows 4 bytes past a
+    # 16-byte boundary (f32) and one element (2 bytes) past a 4-byte one
+    # (bf16): the register body reads single elements and takes them all.
+    B = 5003
+    x32 = spread_rows(cuda, (B, n), n)
+    q32 = spread_rows(cuda, (n,), n + 1)
+    for x, q in ((x32, q32.bfloat16()), (x32.bfloat16(), q32),
+                 (x32.bfloat16(), q32.bfloat16())):
+        assert torch.equal(lo.sqdist(x, q), ref.sqdist_ref(x, q))
+    for dtype, off in ((torch.float32, 4), (torch.bfloat16, 2)):
+        flat = spread_rows(cuda, (B * n + 1,), 3 * n).to(dtype)
+        x = flat[1:].view(B, n)
+        assert x.data_ptr() % 16 == off and x.is_contiguous()
+        q = x[B // 2].clone()
+        got = lo.sqdist(x, q)
+        assert torch.equal(got, ref.sqdist_ref(x, q)), dtype
+        assert float(got[B // 2]) == 0.0
+    # paa keeps the segment body, bit for bit.
+    for N in (1, min(n, 16)):
+        assert torch.equal(lo.paa(x32, N), ref.paa_ref(x32, N))
+
+
+def test_sqdist_width_picks_the_body(cuda):
+    # Powers of two up to 1024 take the register body (no shared memory);
+    # other widths the segment body, the query staged beside the tile.
+    for n in (1, 3, 16, 64, 96, 100, 128, 256, 1024, 2048):
+        rows, smem = lo.tile_of("sqdist", n, 1)
+        fast = n <= 1024 and n & (n - 1) == 0
+        assert (smem == 0) == fast, n
+        if fast:
+            assert rows == 8 * sqdist_warp_rows(n), n
+        else:
+            assert smem == 4 * (rows * n + n), n
+
+
 @pytest.mark.parametrize("case", WORD_CASES)
 def test_word_kernels_are_bit_identical(cuda, case):
     B, N, alphabet = case
@@ -840,10 +926,12 @@ def test_level_tiles_keep_four_blocks_per_sm(cuda):
         assert rows >= 1 and cost_model.blocks_per_sm(smem) >= 4, (kind, N)
     # linfit's register body holds 32 / N rows a warp and no shared
     # memory; the word body 32 rows a warp and the 20 × 20 table: both
-    # full occupancy, eight blocks of 256 threads.
+    # full occupancy, eight blocks of 256 threads (sqdist's as linfit's).
     for N in (8, 16):
         assert lo.tile_of("linfit", 128, N) == (8 * (32 // N), 0)
         assert lo.tile_of("words", 128, N) == (256, 1600)
+    # sqdist's register body: 4 rows a warp at n = 128, no shared memory.
+    assert lo.tile_of("sqdist", 128, 1) == (32, 0)
     assert cost_model.blocks_per_sm(1600) == cost_model.blocks_per_sm(0) == 8
     # The generic bodies: one row per thread, its slices at odd strides.
     rows, smem = lo.tile_of("linfit", 96, 8)     # L = 12

@@ -32,12 +32,28 @@ from repro_torch.core import polyfit as tpoly
 from repro_torch.core.paa import row_sum
 from repro_torch.data.timeseries import make_wafer_like
 from repro_torch.kernels import level_ops as lo
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ops import mindist_table_cached
 
-# The fast bodies' widths (csrc ``linfit_fast`` and ``word_fast``).
+# The fast bodies' widths (csrc ``linfit_fast``, ``word_fast`` and
+# ``sqdist_fast``).
 LINFIT_FAST_L = (2, 4, 8, 16, 32)
 LINFIT_FAST_N_MAX = 32
 WORD_FAST_N = (1, 2, 4, 8, 16, 32, 64, 128)
+SQDIST_N_MAX = 1024
+SQDIST_FAST_N = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def sqdist_body(n: int, dtype=torch.float32, offset: int = 0) -> str:
+    """Which body ``level_segment_launch`` gives kernel 11 (csrc
+    ``sqdist_fast``): the register body for n a power of two up to
+    SQDIST_N_MAX, the segment body otherwise.  Its lanes read single
+    elements, so neither the dtype nor where the rows start (``offset``
+    bytes past a 16-byte boundary, a multiple of the element size)
+    enters."""
+    del dtype, offset
+    fast = 1 <= n <= SQDIST_N_MAX and n & (n - 1) == 0
+    return "registers" if fast else "segment"
 
 
 def spread(shape, seed):
@@ -142,6 +158,52 @@ def linfit_warp_model(x, N: int, closed_form):
     return out
 
 
+def sqdist_steps(n: int) -> tuple:
+    """``sqdist_kernel<n>``'s constants: (G lanes per row, V elements a
+    lane, P rows per step, R steps, all loaded at once: 16 values a lane,
+    at least one row, at most a step per lane)."""
+    G = min(n, 32)
+    V, P = n // G, 32 // G
+    return G, V, P, min(G, max(1, 16 // V))
+
+
+def sqdist_warp_model(x, q, G: int):
+    """``sqdist_kernel<n>`` over (rows, n) rows against the (n,) query,
+    with G = min(n, 32) lanes a row: a warp takes R·P consecutive rows;
+    lane k·G + j loads elements j + v·G of its row r·P + k at every step r
+    (zeros past the last row), squares each difference, sums its V values
+    with ``tree_sum``, then the row's lanes by ``shfl_down`` (lane j adds
+    lane j + h, h = G/2, …, 1) and hands the row's sum to the lane of that
+    row.  Returns the rows' sums."""
+    rows, n = x.shape
+    x, q = x.to(torch.float32), q.to(torch.float32)
+    Gn, V, P, R = sqdist_steps(n)
+    assert G == Gn
+    lane = torch.arange(32)
+    j, k = lane % G, lane // G
+    cols = j[:, None] + G * torch.arange(V)[None, :]      # (32, V)
+    qv = q[cols]
+    out = torch.empty(rows)
+    for row0 in range(0, rows, R * P):
+        live = min(R * P, rows - row0)
+        d2 = torch.zeros(32)
+        for r in range(R):
+            rr = r * P + k
+            inside = rr < live
+            e = torch.zeros(32, V)
+            e[inside] = x[row0 + rr[inside][:, None], cols[inside]]
+            d = e - qv
+            c = tree_sum(d * d)[None]                    # one warp
+            h = G // 2
+            while h >= 1:
+                c = c + shfl_down(c, h)
+                h //= 2
+            take = c[0, (lane % P) * G]
+            d2 = torch.where(lane // P == r, take, d2)
+        out[row0:row0 + live] = d2[:live]
+    return out
+
+
 def plain_closed_form(sum_y, sum_y2, sxy, L):
     """``core/polyfit``'s closed form on this device (the CPU divides)."""
     xc = np.arange(L, dtype=np.float64) - (L - 1) / 2.0
@@ -220,6 +282,67 @@ def test_word_warp_lanes_tile_the_rows(N):
     assert (seen == 1).all()
     src = (lane % P) * G
     assert ((lane // P) * P + src // G == lane).all()
+
+
+@pytest.mark.parametrize("n", SQDIST_FAST_N)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sqdist_warp_schedule_is_the_plain_version(n, dtype):
+    # 70 rows: two whole warps and a ragged third; rows and query over many
+    # binades, so that another summation order would show.
+    x = spread((70, n), n).to(dtype)
+    q = spread((n,), 1000 + n).to(dtype)
+    got = sqdist_warp_model(x, q, min(n, 32))
+    assert torch.equal(got.view(torch.int32),
+                       tref.sqdist_ref(x, q).view(torch.int32))
+    # A float32 query against the rows: both upcast, the same schedule.
+    q32 = spread((n,), 2000 + n)
+    assert torch.equal(sqdist_warp_model(x, q32, min(n, 32)),
+                       tref.sqdist_ref(x, q32))
+
+
+@pytest.mark.parametrize("n", SQDIST_FAST_N)
+def test_sqdist_warp_lanes_tile_the_rows(n):
+    # R steps take each of the warp's R·P rows once with all n elements,
+    # 16 values a lane (a row's V where V > 16); a warp-wide load reads one
+    # contiguous run of each of its P rows; each row's sum reaches the
+    # lane of that row.
+    G, V, P, R = sqdist_steps(n)
+    assert R * V == max(16, V) or R == G
+    lane = np.arange(32)
+    j, k = lane % G, lane // G
+    seen = np.zeros((R * P, n), dtype=int)
+    for r in range(R):
+        for v in range(V):
+            np.add.at(seen, (r * P + k, j + v * G), 1)
+            # one load instruction: P runs of G consecutive elements
+            assert (np.diff((j + v * G)[:G]) == 1).all()
+    assert (seen == 1).all()
+    src = (lane % P) * G
+    take = lane < R * P
+    assert ((lane // P) * P + src // G == lane)[take].all()
+
+
+def test_sqdist_contiguous_layout_needs_more_shuffles():
+    # At n = 128 the strided layout (lane j holds j, j + 32, j + 64,
+    # j + 96) runs row_sum's two top steps in the lane and its last five
+    # as one value's shuffles; lane j holding 4j … 4j + 3 (one 16-byte
+    # load) would shuffle all four values at the five steps h ≥ 4.
+    n, G = 128, 32
+    V = n // G
+    steps = [n >> s for s in range(1, 8)]                # h = 64, …, 1
+    strided = sum(1 for h in steps if h < G)             # one value each
+    contiguous = sum(V for h in steps if h >= V)
+    assert (strided, contiguous) == (5, 20)
+
+
+@pytest.mark.parametrize("n", [1, 3, 16, 64, 96, 100, 128, 256, 1024])
+def test_sqdist_dispatch_by_width(n):
+    fast = n in SQDIST_FAST_N
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for offset in (0, size, 4):
+            assert sqdist_body(n, dtype, offset) == (
+                "registers" if fast else "segment")
+    assert sqdist_body(2 * SQDIST_N_MAX) == "segment"
 
 
 @pytest.mark.parametrize("L", LINFIT_FAST_L)

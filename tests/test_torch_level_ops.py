@@ -85,7 +85,12 @@ def test_mindist_sq_matches_reference(shape, alphabet, N):
         np.asarray(jops.query_table(jnp.asarray(qword), alphabet)))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# sqdist's card kernel takes n = 2^k ≤ 1024 in registers (8, 64, 128,
+# 256, 1024 here) and other n through the segment body (96, 100).
+SQDIST_SHAPES = SHAPES + [(37, 8), (300, 96), (129, 100), (33, 1024)]
+
+
+@pytest.mark.parametrize("shape", SQDIST_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_sqdist_matches_reference(shape, dtype):
     B, n = shape
