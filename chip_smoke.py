@@ -122,6 +122,34 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the counted run, where a query's card time goes: the wrapper calls'
    host work, the wait for their kernels, ``nonzero``, the verify, the
    copies, and the kernels alone.
+14. The index lifecycle, its stores in a fresh directory on the roomiest
+   of the temporary directory and the checkout's ``build/`` (at least 6 GB
+   free, else it fails), removed at the end.  (1) ``save_index`` of phase
+   7's host index, ``verify_store``, ``SearchService.from_store`` on the
+   default ``ServeConfig``: the index on the card equal to
+   ``device_index_from_host`` tensor for tensor; with the counts at 0,
+   phase 5's 64 requests (kernels 1-2 must launch), 0 replay mismatches,
+   every request's direct answer bit-identical to a service over
+   ``device_index_from_host``, phase 5's answers by the band rule.  (2) A
+   store with an int8 tier, served as stored (no requantization; the
+   columns on the card equal ``load_quantized``'s): kernel 5 launches, 0
+   replay mismatches, phase 8's answers.  (3) ``MutableIndex.create``
+   over the same rows, warm-started with live ingest: 4,096 rows
+   inserted and 1,024 ids deleted (base and delta), ``refresh()``; 64
+   requests, 0 replay mismatches, 16 against an f64 brute force over the
+   live rows, no deleted id answered, 8 inserted rows their own nearest
+   neighbours; ``compact()`` and ``refresh()`` leave every answer as it
+   was; 512 rows inserted with requests in flight swap in the
+   background, and every request submitted after the install replays
+   exactly.  (4) ``save_subseq_index`` of phase 9's index, loaded and
+   uploaded: phase 10's three engine calls (kernels 3, 4, 7 must launch)
+   answer bit for bit as in phase 10; ``SubseqSearchService.from_store``
+   serves 16 requests with 0 replay mismatches.  (5) ``run_saturated``
+   and ``run_sequential`` over (1)'s service, the same answers request by
+   request, and ``benchmark_database`` without ``REPRO_UCR_PATH``.  Every
+   time beside the card's name and power limit; the figures under the
+   report's ``lifecycle`` key.  The kernels line adds phase 14's
+   launches to each kernel's.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -585,12 +613,15 @@ def exactness_details(service, workload, result, limit: int = 8) -> list:
     return out
 
 
-def brute_force_check(series, workload, result, n_check: int) -> dict:
+def brute_force_check(series, workload, result, n_check: int,
+                      ids=None) -> dict:
     """f64 brute force on the host over the (B, n) ``series`` the service
     serves, for ``n_check`` served requests (half of each kind).  Range id
     sets and k-NN ids must be equal; a row whose f64 d² lies within the
     f32 band of ε² (range) or of the k-th distance (k-NN) may differ and
-    is counted instead."""
+    is counted instead.  ``ids`` (ascending) are the rows' external ids
+    when the service answers in them; an answer id that names no row of
+    ``series`` is wrong."""
     from repro_torch.core.paa import znormalize_np
     series = np.asarray(series, np.float64)
     picked = {"range": [], "knn": []}
@@ -603,6 +634,14 @@ def brute_force_check(series, workload, result, n_check: int) -> dict:
     for i in picked["range"] + picked["knn"]:
         kind, q, eps, k = workload[i]
         req = result.requests[i]
+        if ids is not None:
+            pos = np.searchsorted(ids, req.ids)
+            if not np.array_equal(ids[np.minimum(pos, ids.size - 1)],
+                                  req.ids):
+                stats["checked"] += 1
+                stats["wrong"] += 1
+                continue
+            req = type(req)(kind=req.kind, query=req.query, ids=pos)
         qz = znormalize_np(np.asarray(q, np.float32).astype(np.float64))
         d2 = np.empty(series.shape[0])
         for s in range(0, series.shape[0], 1 << 16):
@@ -631,7 +670,8 @@ def brute_force_check(series, workload, result, n_check: int) -> dict:
     return stats
 
 
-def breakdown(torch, engine, fq, service, queries) -> dict:
+def breakdown(torch, engine, fq, service, queries,
+              label: str = "breakdown") -> dict:
     """Where one served micro-batch (Q = 32, k bucket 8, half k-NN) spends
     its time: the steps of ``engine.mixed_query_fused`` timed with CUDA
     events, then the device-to-host copy and the host ``_finish``."""
@@ -689,7 +729,8 @@ def breakdown(torch, engine, fq, service, queries) -> dict:
                     epsilon=float(eps_np[i]), k=5) for i in range(Q)]
     t0 = time.perf_counter()
     for i, req in enumerate(reqs):
-        service._finish(req, host[0][i], host[1][i], host[2][i])
+        service._finish(req, host[0][i], host[1][i], host[2][i],
+                        service._ids)
     t_finish = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     service.backend.dispatch(qs, eps_np, is_knn, k)
@@ -704,7 +745,7 @@ def breakdown(torch, engine, fq, service, queries) -> dict:
         "reverify_gather_bytes": int(idxp.numel() * n * 4),
         "topk_partials_per_query": int(idxp.shape[1]),
     }
-    log("[breakdown] " + json.dumps(out, sort_keys=True))
+    log(f"[{label}] " + json.dumps(out, sort_keys=True))
     return out
 
 
@@ -896,7 +937,8 @@ def cross_check(series, workload, got, want) -> dict:
     return stats
 
 
-def quant_breakdown(torch, engine, service, queries) -> dict:
+def quant_breakdown(torch, engine, service, queries,
+                    label: str = "quant-breakdown") -> dict:
     """Where one quantized micro-batch (Q = 32, k bucket 8, half k-NN)
     spends its time: the steps of ``engine.quantized_mixed_query`` on the
     host clock around synchronised device work, then the device-to-host
@@ -974,7 +1016,8 @@ def quant_breakdown(torch, engine, service, queries) -> dict:
                     epsilon=float(eps_np[i]), k=5) for i in range(Q)]
     t0 = time.perf_counter()
     for i, req in enumerate(reqs):
-        service._finish(req, host[0][i], host[1][i], host[2][i])
+        service._finish(req, host[0][i], host[1][i], host[2][i],
+                        service._ids)
     out["host_finish_ms"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     service.backend.dispatch(qs, eps_np, is_knn, k)
@@ -995,7 +1038,7 @@ def quant_breakdown(torch, engine, service, queries) -> dict:
     out.update({"d2h_bytes": int(sum(a.nbytes for a in host)),
                 "capacity": int(idx.shape[1]), "gathered_rows": n_rows,
                 "host_gather_bytes": int(gbytes)})
-    log("[quant-breakdown] " + json.dumps(out, sort_keys=True))
+    log(f"[{label}] " + json.dumps(out, sort_keys=True))
     return out
 
 
@@ -1393,8 +1436,9 @@ def subseq_knn_breakdown(torch, engine, fq, ss, sidx, qr, k: int,
 
 
 def subseq_phases(torch, engine, fq, ref, report) -> tuple:
-    """Phases 9-11; returns the launch counts of phase 10's engine calls
-    and phase 9's kernel figures."""
+    """Phases 9-11; returns the launch counts of phase 10's engine calls,
+    phase 9's kernel figures, and phase 9's host index, queries and phase
+    10's answers for phase 14."""
     from repro_torch.core import subseq as ss
     from repro_torch.core.fastsax import FastSAXConfig
     from repro_torch.core.options import SearchOptions
@@ -1623,7 +1667,10 @@ def subseq_phases(torch, engine, fq, ref, report) -> tuple:
         f"service serves windows as rows through kernels 1-2, the "
         f"reference's design (src/repro/serve/service.py:1148)")
     del svc, sidx, qmetas
-    return launches, kernels
+    keep = {"hidx": hidx, "queries": queries, "ans": ans, "d2": d2,
+            "sel": sel, "sel_d2": sel_d2, "exact": exact, "qans": qans,
+            "qd2": qd2}
+    return launches, kernels, keep
 
 
 # ---------------------------------------------------------------------------
@@ -2193,6 +2240,465 @@ def sqdist_at_survivors(torch, lo, ref, series, q, stats) -> dict:
     return f
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the index lifecycle — committed stores, warm starts, live
+# ingest, the subsequence store and the load generators.
+# ---------------------------------------------------------------------------
+
+LIFECYCLE_MIN_FREE = 6 << 30       # bytes the phase's stores may take
+INGEST_ROWS, INGEST_DELETES, SWAP_ROWS = 4096, 1024, 512
+
+
+def store_dir() -> pathlib.Path:
+    """A fresh directory for phase 14's stores on the filesystem with the
+    most free space of the temporary directory and the checkout's
+    git-ignored ``build/``; fails when fewer than 6 GB are free."""
+    import tempfile
+    candidates = [pathlib.Path(tempfile.gettempdir()), ROOT / "build"]
+    for c in candidates:
+        c.mkdir(parents=True, exist_ok=True)
+    best = max(candidates, key=lambda c: shutil.disk_usage(c).free)
+    free = shutil.disk_usage(best).free
+    check(free >= LIFECYCLE_MIN_FREE,
+          f"phase 14 needs {LIFECYCLE_MIN_FREE >> 30} GB for its stores; "
+          f"the roomiest filesystem ({best}) has {free / 2**30:.1f} GB free")
+    return pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_stores_",
+                                         dir=best))
+
+
+def counted(torch, fq, fn):
+    """``fn()`` with every launch count at 0 first; returns its result and
+    the counts after it."""
+    fq.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in fq.KERNELS}
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def same_answers(a, b, exact: bool) -> bool:
+    """Two lists of (ids, distances): ids equal, distances bit for bit
+    (``exact``) or to the replay's 1e-6."""
+    for (ia, da), (ib, db) in zip(a, b):
+        if not np.array_equal(ia, ib):
+            return False
+        if not (np.array_equal(da, db) if exact else
+                np.allclose(da, db, rtol=1e-6, atol=1e-9)):
+            return False
+    return len(a) == len(b)
+
+
+def direct_answers(service, workload) -> list:
+    return [service.direct_query(kind, q, epsilon=eps, k=k)
+            for kind, q, eps, k in workload]
+
+
+def lifecycle_store(torch, engine, fq, host, queries, workload, result,
+                    root, smi, launches) -> tuple:
+    """Step 1: a plain store of phase 7's host index, verified and
+    warm-started on the default ServeConfig; phase 5's 64 requests."""
+    from repro_torch.index.store import save_index, verify_store
+    from repro_torch.serve import SearchService, ServeConfig
+    from repro_torch.serve.service import _SingleBackend
+
+    path = root / "plain"
+    t0 = time.perf_counter()
+    save_index(host, path)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verify_store(path)
+    t_verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc = SearchService.from_store(path)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    kind, q, eps, k = workload[0]
+    svc.direct_query(kind, q, epsilon=eps, k=k)
+    t_first = time.perf_counter() - t0
+    check(svc.backend.backend == "cuda" and svc.mutable is None,
+          "the warm start must serve through the kernels")
+    t0 = time.perf_counter()
+    svc.warmup()
+    t_warmup = time.perf_counter() - t0
+    direct = engine.device_index_from_host(host)
+    check(all(torch.equal(a, b) for a, b in zip(
+        (svc.backend.index.series, svc.backend.index.norms_sq,
+         *svc.backend.index.words, *svc.backend.index.residuals),
+        (direct.series, direct.norms_sq, *direct.words, *direct.residuals))),
+        "the index served from the store is not the direct upload")
+    res, launched = serve_phase(torch, fq, svc, workload, "lifecycle-store")
+    add_launches(launches, launched)
+    check(res.served == len(workload), f"served {res.served}")
+    check(launched["fused_range"] > 0 and launched["fused_topk"] > 0,
+          f"kernels 1-2 did not launch from the warm start: {launched}")
+    mismatches, _ = replay_check(svc, workload, res, "lifecycle-store")
+    ref_svc = SearchService(_SingleBackend(direct, ServeConfig()))
+    bit_equal = same_answers(direct_answers(svc, workload),
+                             direct_answers(ref_svc, workload), exact=True)
+    check(bit_equal, "store-served answers differ from the direct upload's")
+    del ref_svc, direct
+    vs_cold = cross_check(host.series, workload, res, result)
+    check(vs_cold["wrong"] == 0,
+          f"warm answers against phase 5's cold build: {vs_cold}")
+    split = breakdown(torch, engine, fq, svc, queries,
+                      label="lifecycle-store-breakdown")
+    out = {"breakdown": split, "save_s": t_save, "verify_store_s": t_verify,
+           "from_store_s": t_load, "warm_start_to_first_answer_s": t_first,
+           "warmup_s": t_warmup, "store_bytes": sum(
+               f.stat().st_size for f in path.iterdir()),
+           "launches": launched, "exact_mismatches": mismatches,
+           "bit_identical_to_direct_upload": bit_equal,
+           "vs_phase5": vs_cold, "qps": res.qps}
+    log(f"[lifecycle-store] {smi}: save {t_save:.2f}s "
+        f"({out['store_bytes']} bytes), verify_store {t_verify:.2f}s, "
+        f"warm start {t_load:.2f}s to the index, {t_first:.2f}s to the "
+        f"first answer; 64 requests at {res.qps:.2f} qps, launches "
+        f"{launched}, replay mismatches {mismatches}; answers bit-identical "
+        f"to device_index_from_host: {bit_equal}; against phase 5 {vs_cold}")
+    return svc, out
+
+
+def lifecycle_loadgen(svc, workload, smi) -> dict:
+    """Step 5: the saturated and the sequential load generators over the
+    warm-started service; the benchmark database without a UCR file."""
+    import os
+
+    from repro_torch.data.timeseries import (benchmark_database,
+                                             make_wafer_like)
+    from repro_torch.serve import run_saturated, run_sequential
+
+    check(svc.cfg.max_queue >= len(workload), "max_queue below the workload")
+    with svc:
+        sat = run_saturated(svc, workload)
+    check(sat.served == len(workload), f"saturated: served {sat.served}")
+    seq_s, seq = run_sequential(svc, workload)
+    equal = same_answers(seq, [(r.ids, r.distances) for r in sat.requests],
+                         exact=False)
+    check(equal, "run_sequential's answers differ from the saturated run's")
+    saved = os.environ.pop("REPRO_UCR_PATH", None)
+    try:
+        bench_ok = np.array_equal(benchmark_database(128, seed=0),
+                                  make_wafer_like(length=128, seed=0))
+    finally:
+        if saved is not None:
+            os.environ["REPRO_UCR_PATH"] = saved
+    check(bench_ok, "benchmark_database is not make_wafer_like's rows")
+    out = {"saturated_qps": sat.qps, "saturated_wall_s": sat.wall_s,
+           "sequential_qps": len(workload) / seq_s, "sequential_wall_s": seq_s,
+           "answers_equal": equal, "benchmark_database_is_wafer_like": True}
+    log(f"[lifecycle-loadgen] {smi}: run_saturated {sat.qps:.2f} qps "
+        f"({sat.wall_s:.2f}s), run_sequential "
+        f"{out['sequential_qps']:.2f} qps ({seq_s:.2f}s) over the warm "
+        f"start; answers equal request by request: {equal}")
+    return out
+
+
+def lifecycle_quantized(torch, engine, fq, host, queries, workload,
+                        qresult, root, smi, launches) -> dict:
+    """Step 2: an int8 store served from its stored tier, zero-copy."""
+    from repro_torch.index import quantized as tq
+    from repro_torch.index import store
+    from repro_torch.serve import SearchService, ServeConfig
+
+    path = root / "int8"
+    t0 = time.perf_counter()
+    store.save_index(host, path, quantization="int8")
+    t_save = time.perf_counter() - t0
+    calls = []
+    real = tq.quantize_host_index
+    tq.quantize_host_index = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        t0 = time.perf_counter()
+        svc = SearchService.from_store(path, ServeConfig(quantization="int8"))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    finally:
+        tq.quantize_host_index = real
+    stored = store.load_quantized(path, mode="int8")
+    qdev = svc.backend.tindex.dev
+    zero_copy = not calls and np.array_equal(
+        qdev.series.cpu().numpy(), np.asarray(stored.series)) and all(
+        np.array_equal(t.cpu().numpy(), np.asarray(lv.residuals))
+        for t, lv in zip(qdev.residuals, stored.levels))
+    check(zero_copy, f"the stored int8 tier was not served as stored "
+          f"({len(calls)} requantizations)")
+    svc.warmup()
+    res, launched = serve_phase(torch, fq, svc, workload, "lifecycle-int8")
+    add_launches(launches, launched)
+    check(res.served == len(workload), f"int8 store: served {res.served}")
+    check(launched["fused_quant_range"] > 0,
+          f"kernel 5 did not launch from the stored tier: {launched}")
+    mismatches, _ = replay_check(svc, workload, res, "lifecycle-int8")
+    equal = same_answers([(r.ids, r.distances) for r in res.requests],
+                         [(r.ids, r.distances) for r in qresult.requests],
+                         exact=False)
+    check(equal, "the int8 store's answers differ from phase 8's")
+    split = quant_breakdown(torch, engine, svc, queries,
+                            label="lifecycle-int8-breakdown")
+    out = {"breakdown": split, "save_s": t_save, "from_store_s": t_load,
+           "requantizations": len(calls), "launches": launched,
+           "exact_mismatches": mismatches, "equal_to_phase8": equal,
+           "qps": res.qps}
+    log(f"[lifecycle-int8] {smi}: save with the int8 tier {t_save:.2f}s, "
+        f"warm start {t_load:.2f}s (stored tier served as stored, 0 "
+        f"requantizations); 64 requests at {res.qps:.2f} qps, launches "
+        f"{launched}, replay mismatches {mismatches}, answers equal to "
+        f"phase 8's: {equal}")
+    del svc
+    shutil.rmtree(path)
+    return out
+
+
+def lifecycle_ingest(torch, fq, host, workload, root, smi,
+                     launches) -> dict:
+    """Step 3: a MutableIndex root warm-started with live ingest: inserts
+    and deletes, a refresh, compaction, and a background swap with
+    requests in flight."""
+    import threading
+
+    from repro_torch.core.fastsax import FastSAXConfig
+    from repro_torch.data.timeseries import make_wafer_like
+    from repro_torch.index.mutable import MutableIndex
+    from repro_torch.serve import SearchService, run_closed_loop
+
+    path = root / "mutable"
+    t0 = time.perf_counter()
+    mi = MutableIndex.create(path, host.series,
+                             FastSAXConfig(n_segments=(8, 16), alphabet=10),
+                             normalize=False)
+    t_create = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc = SearchService.from_store(path)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(svc.mutable is not None, "a root must warm-start with live ingest")
+    svc.warmup()
+    out = {"create_s": t_create, "from_store_s": t_load}
+    rng = np.random.default_rng(1)
+    new_rows = make_wafer_like(INGEST_ROWS, 128, seed=1)
+    with svc:
+        t0 = time.perf_counter()
+        new_ids = svc.insert(new_rows)
+        t_insert = time.perf_counter() - t0
+        base = np.sort(rng.choice(N_SERVE, INGEST_DELETES - 64,
+                                  replace=False))
+        dead = np.concatenate([base, new_ids[8::64][:64]])
+        t0 = time.perf_counter()
+        svc.delete(dead)
+        t_delete = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc.refresh()
+        t_refresh = time.perf_counter() - t0
+        out["insert"] = {"rows": INGEST_ROWS, "insert_s": t_insert,
+                         "delete_s": t_delete, "deleted": int(dead.size),
+                         "refresh_s": t_refresh,
+                         "refresh_steps_s": dict(svc.last_refresh_times)}
+        live, live_ids = svc.mutable.live_index()
+        check(svc.backend.size == N_SERVE + INGEST_ROWS - dead.size,
+              f"{svc.backend.size} rows served after the refresh")
+        res, launched = counted(torch, fq, lambda: run_closed_loop(
+            svc, workload, clients=16))
+        add_launches(launches, launched)
+        check(res.served == len(workload), f"ingest: served {res.served}")
+        check(launched["fused_range"] > 0 and launched["fused_topk"] > 0,
+              f"kernels 1-2 did not launch after the ingest: {launched}")
+        mismatches, _ = replay_check(svc, workload, res, "lifecycle-ingest")
+        bf = brute_force_check(live.series, workload, res, 16,
+                               ids=np.asarray(live_ids))
+        check(bf["wrong"] == 0 and bf["checked"] == 16,
+              f"ingest answers against the f64 brute force: {bf}")
+        answered = np.concatenate([r.ids for r in res.requests])
+        own = [int(svc.knn(new_rows[j], 1)[0][0]) for j in range(8)]
+        check(own == [int(i) for i in new_ids[:8]],
+              f"inserted rows are not their own nearest neighbours: {own}")
+        check(not np.isin(np.concatenate([answered, own]), dead).any(),
+              "a deleted id was answered")
+        before = direct_answers(svc, workload)
+        del live, live_ids
+        t0 = time.perf_counter()
+        svc.mutable.compact()
+        t_compact = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc.refresh()
+        t_refresh2 = time.perf_counter() - t0
+        after = direct_answers(svc, workload)
+        unchanged = same_answers(before, after, exact=True)
+        check(unchanged, "compaction changed the answers")
+        out["serve"] = {"launches": launched, "exact_mismatches": mismatches,
+                        "brute_force": bf, "own_nearest": True,
+                        "deleted_ids_answered": 0, "qps": res.qps}
+        out["compact"] = {"compact_s": t_compact, "refresh_s": t_refresh2,
+                          "refresh_steps_s": dict(svc.last_refresh_times),
+                          "answers_unchanged": unchanged}
+        log(f"[lifecycle-ingest] {smi}: MutableIndex.create over "
+            f"{N_SERVE} rows {t_create:.2f}s, warm start {t_load:.2f}s; "
+            f"insert {INGEST_ROWS} rows {t_insert:.3f}s, delete "
+            f"{dead.size} ids {t_delete:.3f}s, refresh {t_refresh:.2f}s "
+            f"(steps {svc_steps(out['insert'])}); 64 requests at "
+            f"{res.qps:.2f} qps, launches {launched}, replay mismatches "
+            f"{mismatches}; f64 brute force over the live rows {bf}; 8 "
+            f"inserted rows their own nearest neighbours, no deleted id "
+            f"answered; compact {t_compact:.2f}s, refresh {t_refresh2:.2f}s "
+            f"(steps {svc_steps(out['compact'])}), answers unchanged")
+        # The background swap, with requests in flight.
+        swaps0 = svc.stats.snapshot()["events"]["refresh_swaps"]
+        gen0 = svc.generation
+        swap_rows = make_wafer_like(SWAP_ROWS, 128, seed=2)
+        inserter = threading.Thread(target=svc.insert, args=(swap_rows,))
+        rounds = []
+        deadline = time.perf_counter() + 300.0
+        fq.reset_launch_counts()
+        inserter.start()
+        while (svc.generation == gen0 or not rounds
+               or rounds[-1][0] <= svc._last_refresh):
+            check(time.perf_counter() < deadline,
+                  "the background swap did not land in 300 s")
+            rounds.append((time.perf_counter(),
+                           run_closed_loop(svc, workload, clients=16)))
+        inserter.join()
+        torch.cuda.synchronize()
+        add_launches(launches, {k.__name__: k.launches for k in fq.KERNELS})
+        swapped_at = svc._last_refresh
+        after_swap = [(w, r) for _, rr in rounds
+                      for w, r in zip(workload, rr.requests)
+                      if r.t_submit > swapped_at]
+        bad = 0
+        for (kind, q, eps, k), req in after_swap:
+            ids, dist = svc.direct_query(kind, q, epsilon=eps, k=k)
+            bad += not (req.status == "ok" and np.array_equal(ids, req.ids)
+                        and np.allclose(dist, req.distances, rtol=1e-6,
+                                        atol=1e-9))
+        events = svc.stats.snapshot()["events"]
+        check(events["refresh_swaps"] > swaps0
+              and events["refresh_failures"] == 0,
+              f"background swap: {events}")
+        check(after_swap and bad == 0,
+              f"{bad} of {len(after_swap)} requests served after the swap "
+              f"do not replay")
+        out["background_swap"] = {
+            "rows": SWAP_ROWS, "rounds": len(rounds),
+            "requests_after_swap": len(after_swap), "mismatches": bad,
+            "refresh_swaps": events["refresh_swaps"],
+            "refresh_failures": events["refresh_failures"],
+            "refresh_steps_s": dict(svc.last_refresh_times)}
+        log(f"[lifecycle-swap] {smi}: {SWAP_ROWS} rows inserted with "
+            f"{len(rounds)} rounds of 64 requests in flight; background "
+            f"swap steps {svc_steps(out['background_swap'])}; "
+            f"{len(after_swap)} requests served after it, replay "
+            f"mismatches {bad}; refresh swaps {events['refresh_swaps']}, "
+            f"failures {events['refresh_failures']}")
+    del svc, mi
+    shutil.rmtree(path)
+    return out
+
+
+def svc_steps(d: dict) -> str:
+    return ", ".join(f"{k[:-2]} {v:.3f}s"
+                     for k, v in d["refresh_steps_s"].items())
+
+
+def lifecycle_subseq(torch, fq, sub, root, smi, launches) -> dict:
+    """Step 4: phase 9's subsequence index through a store; phase 10's
+    engine calls on the loaded index, and the service's warm start."""
+    from repro_torch.core import subseq as ss
+    from repro_torch.core.options import SearchOptions
+    from repro_torch.launch.serve import _SubseqLoadShim
+    from repro_torch.serve import (ServeConfig, SubseqSearchService,
+                                   WorkloadSpec, make_workload)
+
+    cfg = SUBSEQ
+    path = root / "subseq"
+    t0 = time.perf_counter()
+    ss.save_subseq_index(sub["hidx"], path)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hidx = ss.load_subseq_index(path)
+    sidx = ss.subseq_device_index(hidx)
+    qmeta = ss.quantize_subseq_meta(hidx, "int8")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    qr = ss.represent_subseq_queries(sidx, sub["queries"])
+    auto = SearchOptions(backend="auto")
+    (got, launched) = counted(torch, fq, lambda: (
+        ss.subseq_range_query(sidx, qr, cfg["eps"], auto),
+        ss.subseq_knn_query(sidx, qr, cfg["k"], excl=cfg["excl"],
+                            options=auto),
+        ss.subseq_range_query_quantized(sidx, qmeta, qr, cfg["eps"])))
+    add_launches(launches, launched)
+    check(launched["fused_subseq_range"] > 0
+          and launched["fused_subseq_topk"] > 0
+          and launched["fused_quant_subseq_range"] > 0,
+          f"kernels 3, 4, 7 did not launch from the loaded store: {launched}")
+    (ans, d2), (sel, sel_d2, exact), (qans, qd2) = got
+    bit = (torch.equal(ans, sub["ans"])
+           and torch.equal(d2.view(torch.int32), sub["d2"].view(torch.int32))
+           and np.array_equal(sel, sub["sel"])
+           and np.array_equal(sel_d2, sub["sel_d2"])
+           and np.array_equal(exact, sub["exact"])
+           and torch.equal(qans, sub["qans"])
+           and torch.equal(qd2.view(torch.int32),
+                           sub["qd2"].view(torch.int32)))
+    check(bit, "the loaded subsequence index answers differ from phase 10's")
+    t0 = time.perf_counter()
+    svc = SubseqSearchService.from_store(path, ServeConfig(),
+                                         excl=cfg["excl"])
+    torch.cuda.synchronize()
+    t_svc = time.perf_counter() - t0
+    svc.warmup(ks=(svc._fetch_k(cfg["k"], svc.excl),))
+    workload = make_workload(sub["queries"], WorkloadSpec(
+        n_requests=16, knn_frac=0.5, k=cfg["k"], epsilon=cfg["eps"]))
+    shim = _SubseqLoadShim(svc)
+    res, svc_launched = serve_phase(torch, fq, svc, workload,
+                                    "lifecycle-subseq", front=shim)
+    add_launches(launches, svc_launched)
+    check(res.served == len(workload), f"subseq store: served {res.served}")
+    mismatches, _ = replay_check(shim, workload, res, "lifecycle-subseq")
+    out = {"save_s": t_save, "load_and_upload_s": t_load,
+           "service_from_store_s": t_svc, "engine_launches": launched,
+           "bit_identical_to_phase10": bit, "service_launches": svc_launched,
+           "exact_mismatches": mismatches, "store_bytes": sum(
+               f.stat().st_size for f in path.iterdir())}
+    log(f"[lifecycle-subseq] {smi}: save_subseq_index {t_save:.2f}s "
+        f"({out['store_bytes']} bytes), load + upload {t_load:.2f}s; "
+        f"engine calls launched {launched}, answers bit-identical to phase "
+        f"10's: {bit}; SubseqSearchService.from_store {t_svc:.2f}s, 16 "
+        f"requests, replay mismatches {mismatches}")
+    del svc, sidx
+    shutil.rmtree(path)
+    return out
+
+
+def lifecycle_phase(torch, engine, fq, host, queries, workload, result,
+                    qresult, sub, report) -> dict:
+    """Phase 14; returns the launch counts of its counted runs, summed."""
+    smi = report["env"]["nvidia_smi"]
+    root = store_dir()
+    launches: dict = {}
+    try:
+        svc, step1 = lifecycle_store(torch, engine, fq, host, queries,
+                                     workload, result, root, smi, launches)
+        step5 = lifecycle_loadgen(svc, workload, smi)
+        del svc
+        shutil.rmtree(root / "plain")
+        step2 = lifecycle_quantized(torch, engine, fq, host, queries,
+                                    workload, qresult, root, smi, launches)
+        step3 = lifecycle_ingest(torch, fq, host, workload, root, smi,
+                                 launches)
+        step4 = lifecycle_subseq(torch, fq, sub, root, smi, launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["lifecycle"] = {"card": smi, "store_dir": str(root.parent),
+                           "store": step1, "quantized_store": step2,
+                           "live_ingest": step3, "subseq_store": step4,
+                           "load_generators": step5, "launches": launches}
+    log(f"[lifecycle] launches of phase 14's counted runs: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2435,7 +2941,7 @@ def main() -> int:
     del qservice, tier8, service, db
 
     # ---- 9-11. subsequence search
-    slaunches, sk = subseq_phases(torch, engine, fq, ref, report)
+    slaunches, sk, sub = subseq_phases(torch, engine, fq, ref, report)
     log(f"[time] phases 1-11 in {time.perf_counter() - t_start:.1f}s")
 
     # ---- 12. kernels 8-12 against their plain versions and the device
@@ -2445,8 +2951,14 @@ def main() -> int:
     # ---- 13. the paper's online phase, level at a time, on the card
     llaunches, sq = level_phase13(torch, engine, lo, ref, host, index,
                                   queries, report)
-    del host, index
+    del index
     log(f"[time] phases 1-13 in {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 14. the index lifecycle: stores, warm starts, live ingest
+    plaunches = lifecycle_phase(torch, engine, fq, host, queries, workload,
+                                result, qresult, sub, report)
+    del host, sub
+    log(f"[time] phases 1-14 in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name in ("fused_range", "fused_topk"):
@@ -2456,26 +2968,29 @@ def main() -> int:
                   for s in report["kernels"])
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
-                        "launches": launches[name], "max_abs_err": err,
+                        "launches": launches[name] + plaunches[name],
+                        "max_abs_err": err,
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"],
                         "library_ms": main["library_ms"]})
     # The tier serves in int8 (the mode from_series was given); the
-    # launches are those of the quantized serving run, where the top-k
-    # form is on no path (0).
+    # launches are those of the quantized serving runs (phases 8 and 14),
+    # where the top-k form is on no path (0).
     for name in ("fused_quant_range", "fused_quant_topk"):
         main = qk["int8"]["serving"][name]
         key = "range" if name == "fused_quant_range" else "topk"
         err = max(qk[m][s][key]["max_abs_err"] for m in qk for s in qk[m])
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
-                        "launches": qlaunches[name], "max_abs_err": err,
+                        "launches": qlaunches[name] + plaunches[name],
+                        "max_abs_err": err,
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"],
                         "library_ms": main["library_ms"]})
-    # Kernels 3, 4 and 7: launches from phase 10's engine calls.
+    # Kernels 3, 4 and 7: launches from phase 10's and phase 14's engine
+    # calls.
     for name, key in (("fused_subseq_range", "range"),
                       ("fused_subseq_topk", "topk"),
                       ("fused_quant_subseq_range", "quant")):
@@ -2485,7 +3000,8 @@ def main() -> int:
                 and "max_abs_err" in sk[c][k]]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
-                        "launches": slaunches[name], "max_abs_err": max(errs),
+                        "launches": slaunches[name] + plaunches[name],
+                        "max_abs_err": max(errs),
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"],

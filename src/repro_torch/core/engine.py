@@ -124,10 +124,38 @@ class DeviceIndex:
         return self.series.device
 
     @classmethod
-    def from_store(cls, path, **kwargs):
-        raise NotImplementedError(
-            "DeviceIndex.from_store needs the index-lifecycle slice of the "
-            "port (ROADMAP.md queue 1)")
+    def from_store(cls, path, with_ids: bool = False, device=None):
+        """Warm start from a committed store directory on ``device``
+        (default: CUDA, see :func:`resolve_device`).
+
+        ``path`` is a single-index store (``index.store.save_index``) or a
+        ``MutableIndex`` root, which loads through its live view:
+        tombstoned rows take no slot, so even a k-NN with k ≥ the live
+        count never surfaces a deleted row.  The columns are mmap-opened
+        and uploaded by :func:`device_index_from_host`, never rebuilt, so
+        the index on the card is bit-identical to the same host index
+        uploaded directly.
+
+        The engines answer in row positions.  For a root whose positions
+        are not its external ids (rows were deleted), ``with_ids=True``
+        returns ``(DeviceIndex, ids)`` with ``ids[pos]`` the external id
+        of each row; without it such a store raises rather than let
+        positions pass for ids.
+        """
+        import pathlib
+
+        from ..index import mutable as _mutable
+
+        path = pathlib.Path(path)
+        if (path / _mutable.CURRENT).exists():
+            host, ids = _mutable.MutableIndex.open(path).live_index()
+            ids = np.asarray(ids)
+            _check_ids_are_positions(path, ids, with_ids)
+        else:
+            host = _store.load_index(path, mmap=True)
+            ids = np.arange(host.size)
+        dev = device_index_from_host(host, device)
+        return (dev, ids) if with_ids else dev
 
 
 def device_index_from_numpy(series, norms_sq, words, residuals, levels,
@@ -169,22 +197,82 @@ def device_index_from_numpy(series, norms_sq, words, residuals, levels,
                        alphabet=int(alphabet))
 
 
+#: Bytes of one staging chunk of :func:`upload_host_array`.
+_UPLOAD_CHUNK_BYTES = 32 << 20
+
+_NUMPY_OF = {torch.float32: np.float32, torch.int32: np.int32,
+             torch.int16: np.int16, torch.int8: np.int8}
+
+
+def upload_host_array(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host array as a ``dtype`` tensor on ``device``, cast row chunk
+    by row chunk.
+
+    ``a`` may be a read-only ``np.memmap`` of a store column (the f64
+    series of a 2^20-row store is 1.07 GB): the rows are read once, cast
+    into one of two pinned staging buffers and copied to the card with
+    ``non_blocking`` copies on the current stream, so neither a second
+    full host copy nor a full-size f64 device buffer is made.  The cast
+    is numpy's (round to nearest even), the same as ``torch``'s.  On the
+    CPU the result is one cast copy.
+    """
+    a = np.asarray(a)
+    np_dtype = _NUMPY_OF[dtype]
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return torch.from_numpy(np.array(a, dtype=np_dtype, copy=True))
+    out = torch.empty(a.shape, dtype=dtype, device=dev)
+    if a.size == 0:
+        return out
+    rows = a.shape[0]
+    row_bytes = max(1, a[:1].size * np.dtype(np_dtype).itemsize)
+    step = max(1, min(rows, _UPLOAD_CHUNK_BYTES // row_bytes))
+    stage = [torch.empty((step,) + a.shape[1:], dtype=dtype,
+                         pin_memory=True) for _ in range(2)]
+    done = [None, None]
+    stream = torch.cuda.current_stream(dev)
+    for j, lo in enumerate(range(0, rows, step)):
+        hi = min(rows, lo + step)
+        buf = stage[j % 2]
+        if done[j % 2] is not None:
+            done[j % 2].synchronize()     # its last copy has left the buffer
+        np.copyto(buf.numpy()[:hi - lo], a[lo:hi], casting="same_kind")
+        out[lo:hi].copy_(buf[:hi - lo], non_blocking=True)
+        done[j % 2] = torch.cuda.Event()
+        done[j % 2].record(stream)
+    for ev in done:
+        if ev is not None:
+            ev.synchronize()
+    return out
+
+
 def device_index_from_host(index: FastSAXIndex, device=None) -> DeviceIndex:
-    """Upload a host-built index (f64 columns cast to f32); the paper
-    stack only."""
+    """Upload a host-built index (f64 columns cast to f32 by
+    :func:`upload_host_array`, so a store's mmap columns upload without a
+    second host copy); the paper stack only."""
     stack = check_device_stack(index.config.stack, "device_index_from_host")
     dev = resolve_device(device)
-    series = torch.as_tensor(index.series, dtype=torch.float32, device=dev)
+    series = upload_host_array(index.series, torch.float32, dev)
     return DeviceIndex(
         series=series,
         norms_sq=torch.sum(series * series, dim=-1),
-        words=tuple(torch.as_tensor(lv.words, dtype=torch.int32, device=dev)
+        words=tuple(upload_host_array(lv.words, torch.int32, dev)
                     for lv in index.levels),
-        residuals=tuple(torch.as_tensor(lv.residuals, dtype=torch.float32,
-                                        device=dev) for lv in index.levels),
+        residuals=tuple(upload_host_array(lv.residuals, torch.float32, dev)
+                        for lv in index.levels),
         levels=tuple(lv.n_segments for lv in index.levels),
         alphabet=index.config.alphabet,
         stack=stack)
+
+
+def _check_ids_are_positions(path, ids: np.ndarray, with_ids: bool) -> None:
+    """Refuse a ``MutableIndex`` root whose row positions are not its
+    external ids (rows were deleted) unless the caller takes the ids."""
+    if not with_ids and not np.array_equal(ids, np.arange(ids.size)):
+        raise ValueError(
+            f"{path}: external ids differ from row positions (rows were "
+            "deleted) — call from_store(..., with_ids=True) and map "
+            "answers through the returned ids array")
 
 
 def build_device_index(series, levels: Sequence[int], alphabet: int,
@@ -877,16 +965,17 @@ class QuantizedDeviceIndex:
 def _upload_codes(codes, dev) -> torch.Tensor:
     """A host quantized column on the device: uint16 bf16 bit patterns
     become ``torch.bfloat16`` by a view (no rounding), int8 codes upload
-    as they are."""
-    codes = np.ascontiguousarray(codes)
+    as they are (a store's mmap column too, by
+    :func:`upload_host_array`)."""
+    codes = np.asarray(codes)
     if codes.dtype == np.uint16:
-        return torch.from_numpy(codes.view(np.int16)).view(
-            torch.bfloat16).to(dev)
+        return upload_host_array(codes.view(np.int16), torch.int16,
+                                 dev).view(torch.bfloat16)
     if codes.dtype != np.int8:
         raise _quant.QuantizationError(
             f"quantized codes must be int8 or uint16 (bf16 bits), got "
             f"{codes.dtype}")
-    return torch.from_numpy(codes).to(dev)
+    return upload_host_array(codes, torch.int8, dev)
 
 
 def quantized_device_index(qhost, device=None) -> QuantizedDeviceIndex:
@@ -906,8 +995,8 @@ def quantized_device_index(qhost, device=None) -> QuantizedDeviceIndex:
                                    stack + tuple(extras))
 
     def col(a):
-        return torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
-                               device=dev)
+        return upload_host_array(np.asarray(a).reshape(-1), torch.float32,
+                                 dev)
 
     return QuantizedDeviceIndex(
         series=_upload_codes(qhost.series, dev),
@@ -1008,8 +1097,9 @@ def _compact_escalated(keep: torch.Tensor, capacity: int,
 @dataclasses.dataclass
 class TieredIndex:
     """Two-tier serving index: the quantized screen on the device
-    (``dev``), the (B, n) full-precision rows in host memory (``raw``,
-    float32), read only for the rows the screen could not exclude.
+    (``dev``), the (B, n) full-precision rows in host memory (``raw``:
+    float32, or a store's float64 mmap), read only for the rows the
+    screen could not exclude (as float32).
     ``ids`` (optional) maps row positions to external ids."""
 
     dev: QuantizedDeviceIndex
@@ -1037,10 +1127,61 @@ class TieredIndex:
 
     @classmethod
     def from_store(cls, path, quantization: str | None = None,
-                   with_ids: bool = False):
-        raise NotImplementedError(
-            "TieredIndex.from_store needs the index-lifecycle slice of the "
-            "port (ROADMAP.md queue 1)")
+                   with_ids: bool = False, device=None):
+        """Warm start the tiered layout from a committed store directory:
+        the resident tier on ``device`` (default: CUDA), the raw tier the
+        store's mmap f64 series.
+
+        A plain store saved with a matching ``quantization`` serves its
+        stored quantized columns as they are (no requantization); a store
+        without a tier, or with another mode, is quantized in memory from
+        its full-precision columns.  A ``MutableIndex`` root defaults to
+        its epoch's mode (else int8); a compacted root serves its base
+        segment's stored tier the same way, while a root with deltas or
+        tombstones quantizes its live view in memory (a scale block of
+        live rows straddles segments).  ``quantization=None`` takes the
+        stored mode, else int8.  ``with_ids`` as in
+        :meth:`DeviceIndex.from_store`.
+        """
+        import pathlib
+
+        from ..index import mutable as _mutable
+
+        path = pathlib.Path(path)
+        if (path / _mutable.CURRENT).exists():
+            mut = _mutable.MutableIndex.open(path)
+            mode = quantization or (
+                mut.quantization if mut.quantization != "none" else "int8")
+            host, ids = mut.live_index()
+            ids = np.asarray(ids)
+            _check_ids_are_positions(path, ids, with_ids)
+            keep = ids if with_ids else None
+            if mut.compacted and mut.quantization == mode:
+                tiered = cls._from_stored_tier(mut.base_dir, mode, keep,
+                                               device)
+            else:
+                tiered = cls.from_host(host, mode, ids=keep, device=device)
+            return (tiered, ids) if with_ids else tiered
+        manifest = _store.read_manifest(path)
+        stored = _store.quantized_mode(manifest)
+        mode = quantization or (stored if stored != "none" else "int8")
+        if stored == mode:
+            tiered = cls._from_stored_tier(path, mode, None, device)
+        else:
+            tiered = cls.from_host(_store.load_index(path, mmap=True), mode,
+                                   device=device)
+        ids = np.arange(tiered.size)
+        return (tiered, ids) if with_ids else tiered
+
+    @classmethod
+    def _from_stored_tier(cls, path, mode: str, ids,
+                          device) -> "TieredIndex":
+        """A store's own quantized columns on the device and its series as
+        the raw tier, both from the mmap."""
+        qhost = _store.load_quantized(path, mmap=True, mode=mode)
+        raw = _store.read_array(path, "series", mmap=True)
+        return cls(dev=quantized_device_index(qhost, device), raw=raw,
+                   ids=ids)
 
 
 def _quantized_screen_backend(tindex: TieredIndex, qr: QueryReprDev,

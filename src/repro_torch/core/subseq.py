@@ -24,10 +24,12 @@ zone of each other.
     and distances are those of the fused whole-series kernels over the
     materialised windows, bit for bit.
 
+The store round trip (:func:`save_subseq_index` /
+:func:`load_subseq_index`) writes and reads the reference's format.
 Only the paper's representation stack is built; the reference's
-extension columns (``window_symbolize_np``), its traced twins, its store
-round trip and its distributed form need later items of the port and
-raise ``NotImplementedError`` naming them.
+extension columns (``window_symbolize_np``), its traced twins and its
+distributed form need later items of the port and raise
+``NotImplementedError`` naming them.
 """
 from __future__ import annotations
 
@@ -613,12 +615,61 @@ def subseq_knn_query_traced(*args, **kwargs):
                       "the observability slice")
 
 
-def save_subseq_index(*args, **kwargs):
-    raise _not_ported("save_subseq_index", 1, "the index-lifecycle slice")
+# ---------------------------------------------------------------------------
+# Persistence: a plain index store whose rows are the windows.
+# ---------------------------------------------------------------------------
+
+_SUBSEQ_META = "subseq"
+_STREAMS_COL = "subseq_streams"
+_MU_COL = "subseq_mu"
+_SD_COL = "subseq_sd"
 
 
-def load_subseq_index(*args, **kwargs):
-    raise _not_ported("load_subseq_index", 1, "the index-lifecycle slice")
+def save_subseq_index(hidx: SubseqHostIndex, path, extra_meta=None):
+    """Persist as a standard ``fastsax-index`` store whose rows are the
+    materialised z windows (f64), with the raw streams and the window
+    moments riding along as checksummed extra columns, as the reference
+    writes it.  The whole index lifecycle (``index.cli info`` /
+    ``verify``, ``DeviceIndex.from_store``, ``SearchService.from_store``)
+    works on it unchanged; :func:`load_subseq_index` restores the
+    stream-aware view."""
+    from ..index import store as _store
+    from .fastsax import FastSAXIndex
+
+    windows = materialize_windows_np(hidx)
+    fsi = FastSAXIndex(config=hidx.config, series=windows, levels=hidx.levels)
+    meta = {_SUBSEQ_META: {"window": int(hidx.window),
+                           "stride": int(hidx.stride),
+                           "n_streams": int(hidx.n_streams),
+                           "stream_len": int(hidx.stream_len)},
+            **(extra_meta or {})}
+    return _store.save_index(
+        fsi, path, extra_meta=meta,
+        extra_arrays={_STREAMS_COL: hidx.streams, _MU_COL: hidx.mu,
+                      _SD_COL: hidx.sd})
+
+
+def load_subseq_index(path, mmap: bool = True,
+                      verify: bool = False) -> SubseqHostIndex:
+    """Reopen a committed subsequence store (an mmap open).  Raises
+    ``IOError`` on a store :func:`save_subseq_index` did not write: a
+    whole-series store has no streams to answer from.  The stored window
+    rows are not read; :func:`subseq_device_index` builds them on the
+    card from the streams, as after a cold build."""
+    from ..index import store as _store
+
+    fsi = _store.load_index(path, mmap=mmap, verify=verify)
+    manifest = _store.read_manifest(path)
+    sub = manifest.get("extra", {}).get(_SUBSEQ_META)
+    if sub is None:
+        raise IOError(f"{path}: not a subsequence store (no "
+                      f"{_SUBSEQ_META!r} metadata — see save_subseq_index)")
+    col = lambda name: np.asarray(_store.read_array(
+        path, name, manifest, mmap=mmap, verify=verify))
+    return SubseqHostIndex(config=fsi.config, window=int(sub["window"]),
+                           stride=int(sub["stride"]),
+                           streams=col(_STREAMS_COL), mu=col(_MU_COL),
+                           sd=col(_SD_COL), levels=fsi.levels)
 
 
 # ---------------------------------------------------------------------------

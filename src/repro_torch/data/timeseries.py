@@ -1,13 +1,19 @@
-"""Synthetic wafer-like time series, the benchmark database.
+"""Synthetic wafer-like time series, the benchmark database, and the UCR
+reader.
 
 Counterpart of ``repro/data/timeseries.py`` (``make_wafer_like``,
-``make_queries``, ``make_subseq_queries``), the same numpy code, so one seed gives the same data
-in both packages.  The generator stands in for the UCR *wafer* dataset
-the paper reports on: a few process prototypes that series cluster
-around, heteroscedastic noise (which spreads the linear-fit residual
-C9 exploits), and a small fraction of transient-spike anomalies.
+``make_queries``, ``make_subseq_queries``, ``load_ucr``,
+``benchmark_database``), the same numpy code, so one seed gives the same
+data in both packages.  The generator stands in for the UCR *wafer*
+dataset the paper reports on: a few process prototypes that series
+cluster around, heteroscedastic noise (which spreads the linear-fit
+residual C9 exploits), and a small fraction of transient-spike
+anomalies.  A real UCR file is read only when ``REPRO_UCR_PATH`` names
+one; nothing is downloaded.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -96,3 +102,31 @@ def make_subseq_queries(
     q = np.stack([streams[r, a:a + window]
                   for r, a in zip(rows, starts)])
     return q + noise * rng.standard_normal(q.shape)
+
+
+def load_ucr(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Read the standard UCR text format: one series per line,
+    ``label, v1, v2, ...`` (comma or whitespace separated).  Returns
+    ``(labels int64 (B,), series float64 (B, n))``."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            parts = line.replace(",", " ").split()
+            rows.append([float(p) for p in parts])
+    arr = np.asarray(rows, dtype=np.float64)
+    return arr[:, 0].astype(np.int64), arr[:, 1:]
+
+
+def benchmark_database(length: int = DEFAULT_LENGTH,
+                       seed: int = 0) -> np.ndarray:
+    """The database the benchmarks use: the UCR file ``REPRO_UCR_PATH``
+    names, z-normalised, when that is set and exists; else the synthetic
+    wafer-like stand-in of ``WAFER_SIZE`` series of ``length``."""
+    path = os.environ.get("REPRO_UCR_PATH", "")
+    if path and os.path.exists(path):
+        _, series = load_ucr(path)
+        return znormalize_np(series)
+    return make_wafer_like(length=length, seed=seed)

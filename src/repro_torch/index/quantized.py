@@ -89,7 +89,10 @@ def _as_blocks(x: np.ndarray, block: int) -> Tuple[np.ndarray, int]:
 
 def bf16_encode(x: np.ndarray) -> np.ndarray:
     """float -> bf16 (round to nearest even) as uint16 bit patterns."""
-    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float64))
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    if not x.flags.writeable:     # a store's mmap column: torch needs a copy
+        x = x.copy()
+    t = torch.from_numpy(x)
     return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
 
 
@@ -309,3 +312,65 @@ def quantize_host_index(index, mode: str) -> QuantizedHostIndex:
         series=s_codes, series_scale=s_scale, series_zero=s_zero,
         series_err=s_err, norms_sq=norms, levels=tuple(qlevels),
         stack=stack)
+
+
+# ---------------------------------------------------------------------------
+# Store columns: the array names ``index/store.py`` writes and reads
+# ---------------------------------------------------------------------------
+
+def quant_arrays(q: QuantizedHostIndex) -> dict:
+    """Flatten a quantized index into named store columns."""
+    arrays = {"qseries": q.series, "qseries_err": q.series_err,
+              "qnorms": q.norms_sq}
+    if q.series_scale is not None:
+        arrays["qseries_scale"] = q.series_scale
+        arrays["qseries_zero"] = q.series_zero
+    for lv in q.levels:
+        N = lv.n_segments
+        arrays[f"qwords_N{N}"] = lv.words
+        arrays[f"qresid_N{N}"] = lv.residuals
+        arrays[f"qresid_err_N{N}"] = lv.err
+        if lv.scale is not None:
+            arrays[f"qresid_scale_N{N}"] = lv.scale
+            arrays[f"qresid_zero_N{N}"] = lv.zero
+        for name, col in lv.extra.items():
+            prefix = repr_registry.get(name).column.prefix
+            arrays[f"q{prefix}_N{N}"] = col
+    return arrays
+
+
+def quant_meta(q: QuantizedHostIndex, source_sha: dict) -> dict:
+    """The ``manifest["quant"]`` block: the mode, the scale-block
+    geometry, and the sha256 of every full-precision column the tier was
+    derived from (a load refuses a tier whose sources changed)."""
+    return {"mode": q.mode, "resid_block": RESID_BLOCK,
+            "sentinel_code": SENTINEL_CODE, "source_sha": dict(source_sha)}
+
+
+def quant_from_arrays(mode: str, n: int, alphabet: int,
+                      levels: Sequence[int], get,
+                      stack: Tuple[str, ...] = DEFAULT_STACK,
+                      ) -> QuantizedHostIndex:
+    """Rebuild a :class:`QuantizedHostIndex` from store columns;
+    ``get(name)`` returns the named array (an mmap or in memory)."""
+    check_mode(mode)
+    int8 = mode == "int8"
+    extras = tuple(repr_registry.extra_names(stack))
+    qlevels = []
+    for N in levels:
+        qlevels.append(QuantizedLevel(
+            n_segments=int(N), words=get(f"qwords_N{N}"),
+            residuals=get(f"qresid_N{N}"),
+            scale=get(f"qresid_scale_N{N}") if int8 else None,
+            zero=get(f"qresid_zero_N{N}") if int8 else None,
+            err=get(f"qresid_err_N{N}"),
+            extra={name:
+                   get(f"q{repr_registry.get(name).column.prefix}_N{N}")
+                   for name in extras}))
+    return QuantizedHostIndex(
+        mode=mode, n=int(n), alphabet=int(alphabet),
+        series=get("qseries"),
+        series_scale=get("qseries_scale") if int8 else None,
+        series_zero=get("qseries_zero") if int8 else None,
+        series_err=get("qseries_err"), norms_sq=get("qnorms"),
+        levels=tuple(qlevels), stack=tuple(stack))

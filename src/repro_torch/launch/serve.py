@@ -6,14 +6,19 @@ Counterpart of the ``--serve`` paths of ``repro/launch/serve.py``::
     PYTHONPATH=src python -m repro_torch.launch.serve --serve \\
         --db-size 1048576 --bench-requests 64 --verify-exact \\
         [--quantization int8 [--verify-prefetch]]
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve \\
+        --index-dir IDX --bench-requests 64 --verify-exact
     PYTHONPATH=src python -m repro_torch.launch.serve --serve --subseq \\
         --streams 16 --stream-len 262144 --bench-requests 64 --verify-exact
 
 The first builds a wafer-like database of ``--db-size`` series of length
 128 and serves a mixed range / k-NN workload (``--quantization``: from
-the quantized resident tier); the second indexes every ``--window``-long
+the quantized resident tier); the second warm-starts the same service
+from a committed store or ``MutableIndex`` root of either package
+(``python -m repro_torch.index.cli build --dir IDX``), with live ingest
+on for a root; the third indexes every ``--window``-long
 window of ``--streams`` wafer-like streams at ``--stride`` and serves
-range and exclusion-zone k-NN requests on them.  Both print a final
+range and exclusion-zone k-NN requests on them.  Each prints a final
 machine-readable line ``[serve] summary {...}`` with
 ``"exact_mismatches": 0`` when every replayed request matched.  Runs on
 CUDA unless ``--device cpu``.  ``--search`` (the one-shot distributed
@@ -36,15 +41,30 @@ def serve_service(args) -> dict:
                       default_deadline_ms=args.deadline_ms or None,
                       backend=args.backend, quantization=args.quantization,
                       verify_prefetch=args.verify_prefetch)
-    db = make_wafer_like(args.db_size, 128, seed=0)
-    t0 = time.perf_counter()
-    service = SearchService.from_series(db, cfg, device=args.device)
     tier = ("" if args.quantization == "none"
             else f", {args.quantization} resident tier")
-    print(f"[serve] cold build: {args.db_size} rows on "
-          f"{service.backend.device} ({service.backend.backend} "
-          f"backend{tier}) in {time.perf_counter() - t0:.2f}s")
-    queries = make_queries(db, max(args.queries, 16), seed=1)
+    if args.index_dir:
+        t0 = time.perf_counter()
+        service = SearchService.from_store(args.index_dir, cfg,
+                                           device=args.device)
+        print(f"[serve] warm start: {service.backend.size} rows from "
+              f"{args.index_dir} on {service.backend.device} "
+              f"({service.backend.backend} backend{tier}) in "
+              f"{time.perf_counter() - t0:.3f}s (live ingest: "
+              f"{'on' if service.mutable else 'off'})")
+        # The query pool only needs rows near the database's distribution;
+        # the warm path does not regenerate the database.
+        pool_src = make_wafer_like(max(64, 4 * args.queries),
+                                   service.backend.n, seed=0)
+    else:
+        pool_src = make_wafer_like(args.db_size, 128, seed=0)
+        t0 = time.perf_counter()
+        service = SearchService.from_series(pool_src, cfg,
+                                            device=args.device)
+        print(f"[serve] cold build: {args.db_size} rows on "
+              f"{service.backend.device} ({service.backend.backend} "
+              f"backend{tier}) in {time.perf_counter() - t0:.2f}s")
+    queries = make_queries(pool_src, max(args.queries, 16), seed=1)
 
     k = args.knn or 5
     t0 = time.perf_counter()
@@ -158,6 +178,10 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' to run the "
                          "plain versions on the CPU)")
     ap.add_argument("--db-size", type=int, default=4096)
+    ap.add_argument("--index-dir", default="",
+                    help="with --serve: warm-start from this committed "
+                         "store or MutableIndex root instead of building "
+                         "--db-size rows")
     ap.add_argument("--queries", type=int, default=16)
     ap.add_argument("--epsilon", type=float, default=2.0)
     ap.add_argument("--knn", type=int, default=0, metavar="K",

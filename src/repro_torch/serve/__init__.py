@@ -10,7 +10,8 @@ from .batcher import (FAILED, KIND_KNN, KIND_RANGE, OK, REJECTED_DEADLINE,
                       REJECTED_QUEUE_FULL, REJECTED_SHED, MicroBatcher,
                       Request)
 from .loadgen import (LoadResult, WorkloadSpec, check_exactness,
-                      make_workload, run_closed_loop)
+                      make_workload, run_closed_loop, run_saturated,
+                      run_sequential)
 from .service import SearchService, ServeConfig, SubseqSearchService
 from .stats import StatsTracker
 
@@ -18,6 +19,6 @@ __all__ = [
     "FAILED", "KIND_KNN", "KIND_RANGE", "OK", "REJECTED_DEADLINE",
     "REJECTED_QUEUE_FULL", "REJECTED_SHED", "MicroBatcher", "Request",
     "LoadResult", "WorkloadSpec", "check_exactness", "make_workload",
-    "run_closed_loop", "SearchService", "ServeConfig", "StatsTracker",
+    "run_closed_loop", "run_saturated", "run_sequential", "SearchService", "ServeConfig", "StatsTracker",
     "SubseqSearchService",
 ]

@@ -1,12 +1,18 @@
-"""Closed-loop load generator for the query service.
+"""Load generators for the query service.
 
 Counterpart of ``repro/serve/loadgen.py`` (``WorkloadSpec``,
-``make_workload``, ``run_closed_loop``, ``check_exactness``).  ``clients``
-worker threads each keep one request in flight (submit → wait → next),
-so the queue depth equals the number of concurrent callers.  Exactness is
+``make_workload``, ``run_closed_loop``, ``run_saturated``,
+``run_sequential``, ``check_exactness``).  ``run_closed_loop``'s
+``clients`` worker threads each keep one request in flight (submit →
+wait → next), so the queue depth equals the number of concurrent
+callers; ``run_saturated`` submits the whole workload at once, so the
+batcher always coalesces full batches (the service's peak capacity);
+``run_sequential`` sends one request at a time through
+``SearchService.direct_query``, the per-request baseline.  Exactness is
 part of the contract: ``check_exactness`` replays every served request
-through ``SearchService.direct_query`` — batching must never change an
-answer.
+through the direct path — batching must never change an answer.  The
+reference's per-request JSONL log (``jsonl_path``) comes with the
+observability slice of the port (ROADMAP.md queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -79,11 +85,20 @@ class LoadResult:
         return out
 
 
+def _check_no_request_log(jsonl_path) -> None:
+    if jsonl_path is not None:
+        raise NotImplementedError(
+            "jsonl_path (the per-request log) needs the observability slice "
+            "of the port (ROADMAP.md queue 1 item 7)")
+
+
 def run_closed_loop(service, workload: list, clients: int = 8,
                     timeout_s: float = 120.0,
-                    deadline_ms: Optional[float] = None) -> LoadResult:
+                    deadline_ms: Optional[float] = None,
+                    jsonl_path=None) -> LoadResult:
     """Fire the workload through the batched service from ``clients``
-    concurrent closed-loop threads."""
+    concurrent closed-loop threads.  ``jsonl_path`` must be None."""
+    _check_no_request_log(jsonl_path)
     cursor = {"i": 0}
     lock = threading.Lock()
     requests: list = [None] * len(workload)
@@ -115,8 +130,41 @@ def run_closed_loop(service, workload: list, clients: int = 8,
     for t in threads:
         t.join(timeout=timeout_s)
     wall = time.perf_counter() - t0
+    return _load_result(requests, wall)
+
+
+def run_saturated(service, workload: list, timeout_s: float = 120.0,
+                  deadline_ms: Optional[float] = None,
+                  jsonl_path=None) -> LoadResult:
+    """Open-loop saturation run: submit the whole workload up front from
+    one thread, then wait for every reply.  The service needs
+    ``max_queue >= len(workload)``, or the tail is rejected at submit.
+    With the queue full the batcher always coalesces ``max_batch``
+    requests, so the qps is the service's peak serving capacity rather
+    than the client threads' round trips.  ``jsonl_path`` must be None."""
+    _check_no_request_log(jsonl_path)
+    requests: list = [None] * len(workload)
+    t0 = time.perf_counter()
+    for i, (kind, q, eps, k) in enumerate(workload):
+        if kind == KIND_KNN:
+            requests[i] = service.submit_knn(q, k, deadline_ms=deadline_ms)
+        else:
+            requests[i] = service.submit_range(q, eps,
+                                               deadline_ms=deadline_ms)
+    for req in requests:
+        try:
+            req.wait(timeout_s)
+        except Exception:       # noqa: BLE001 — see run_closed_loop
+            pass
+    wall = time.perf_counter() - t0
+    return _load_result(requests, wall)
+
+
+def _load_result(requests: list, wall: float) -> LoadResult:
     statuses = [r.status if r is not None else "unsubmitted"
                 for r in requests]
+    # An accepted request must be served or rejected before its deadline;
+    # anything else is a drop the operator must see.
     dropped = sum(1 for s in statuses if s not in
                   (OK, "rejected_deadline", "rejected_queue_full",
                    REJECTED_SHED, FAILED))
@@ -124,6 +172,18 @@ def run_closed_loop(service, workload: list, clients: int = 8,
     return LoadResult(wall_s=wall, qps=served / wall if wall > 0 else 0.0,
                       statuses=statuses, requests=requests,
                       dropped_in_deadline=dropped)
+
+
+def run_sequential(service, workload: list) -> tuple:
+    """The per-request baseline: the same workload, one direct device
+    pass per request, no queueing or coalescing.  Returns ``(wall_s,
+    [(ids, distances), ...])``."""
+    results = []
+    t0 = time.perf_counter()
+    for kind, q, eps, k in workload:
+        results.append(service.direct_query(kind, q, epsilon=eps, k=k))
+    wall = time.perf_counter() - t0
+    return wall, results
 
 
 def check_exactness(service, workload: list, result: LoadResult) -> int:

@@ -12,14 +12,29 @@ Counterpart of the single-device part of ``repro/serve/service.py``
                            engine with capacity escalation; or, with
                            ``quantization``, the tiered engine over the
                            quantized resident tier)
-           → respond      (per-request ids and distances, latency)
+           → respond      (per-request ids and distances, mapped to
+                           external ids, latency)
+
+Warm start: ``SearchService.from_store`` takes a committed store of
+either package — a ``MutableIndex`` root (which also turns on live
+ingest), a plain store, or a plain store with a quantized tier — and
+uploads it once.
+
+Live ingest: ``insert`` / ``delete`` go through the ``MutableIndex``
+(durable, crash-safe); its commit hook marks the device copy stale, and
+at the next batch boundary the dispatcher swaps in a freshly uploaded
+live view, in the background by default (``async_refresh``), at most
+once per ``refresh_min_interval_s``.  One lock covers the swap, every
+device pass and the ids snapshot that maps its row positions, so no
+batch maps one generation's positions through another's ids.
 
 Settings that need a later slice of the port raise NotImplementedError:
-failover shards, a mesh, tracing and warm starts from a store.
+failover shards, a mesh, sharded stores and tracing.
 """
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 import threading
 import time
 from typing import Optional, Sequence
@@ -28,7 +43,8 @@ import numpy as np
 import torch
 
 from ..core.engine import (DeviceIndex, TieredIndex, build_device_index,
-                           check_device_stack, mixed_query,
+                           check_device_stack, device_index_from_host,
+                           mixed_query,
                            mixed_query_dense, mixed_query_fused,
                            quantized_mixed_query, represent_queries,
                            resolve_backend, resolve_device,
@@ -51,10 +67,12 @@ _LATER = {
     "trace_ring": ("the observability slice", 7),
     "calibration_ring": ("the observability slice", 7),
     "profile_dir": ("the observability slice", 7),
-    "from_store": ("the index-lifecycle slice", 1),
-    "refresh_min_interval_s": ("the index-lifecycle slice", 1),
-    "async_refresh": ("the index-lifecycle slice", 1),
+    "sharded_store": ("the multi-device slice", 8),
 }
+
+#: Store kinds of the reference's sharded layouts (``index/sharded.py``),
+#: recognised and refused.
+_SHARDED_KINDS = ("fastsax-index-sharded", "fastsax-tiered-sharded")
 
 
 def _not_ported(setting: str):
@@ -83,7 +101,7 @@ class ServeConfig:
     n_iters: int = 2               # k-NN tightening passes
     capacity0: Optional[int] = None  # first candidate capacity (None: auto)
     dense_fallback_frac: float = 0.125   # capacity > frac·B → dense dispatch
-    refresh_min_interval_s: float = 0.0  # only the default in this slice
+    refresh_min_interval_s: float = 0.0  # live-ingest refresh throttle
     warmup_ks: Sequence[int] = (8,)       # k buckets to warm up
     failover_shards: int = 0       # only 0 in this slice
     shard_timeout_s: float = 30.0  # only the default in this slice
@@ -91,7 +109,7 @@ class ServeConfig:
     shard_backoff_s: float = 0.02  # only the default in this slice
     breaker_threshold: int = 5     # consecutive dispatch failures → open
     breaker_cooldown: int = 8      # shed batches before half-open probe
-    async_refresh: bool = True     # only the default in this slice
+    async_refresh: bool = True     # background device upload on commit
     trace: bool = False            # only False in this slice
     trace_ring: int = 4096         # only the default in this slice
     calibration_ring: int = 2048   # only the default in this slice
@@ -115,6 +133,22 @@ def _pow2_at_least(n: int, cap: int) -> int:
 
 
 _DENSE = -1   # capacity-hint sentinel: dispatch densely from now on
+
+
+def _prepare_on_side_stream(device, build):
+    """Run ``build()`` (a device upload) and return what it returns once
+    every copy it queued has landed.  On CUDA it runs on a side stream,
+    so a background upload never queues behind, or ahead of, the
+    dispatcher's kernels on the current stream, and the stream is
+    synchronised before the result is handed over: the first dispatch on
+    a new generation never reads a half-copied tensor."""
+    if device.type != "cuda":
+        return build()
+    side = torch.cuda.Stream(device=device)
+    with torch.cuda.stream(side):
+        out = build()
+    side.synchronize()
+    return out
 
 
 def _to_host(backend, out: tuple) -> tuple:
@@ -160,6 +194,20 @@ class _SingleBackend:
     @property
     def size(self) -> int:
         return self.index.size
+
+    def prepare_from_host(self, host):
+        """Heavy half of a generation swap: upload ``host`` to this
+        backend's device and wait for the copies.  Touches no serving
+        state, so it may run off the dispatch thread."""
+        return _prepare_on_side_stream(
+            self.device, lambda: device_index_from_host(host, self.device))
+
+    def install(self, prepared):
+        """Cheap half: replace the index as a whole (the caller holds the
+        service's device lock, so no pass runs on the old one).  The
+        learned capacity stays: B changed, the policy did not."""
+        self.index = prepared
+        self.backend = resolve_backend(self.cfg.backend, prepared.device)
 
     def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
                  k: int):
@@ -234,6 +282,16 @@ class _QuantizedBackend:
     def size(self) -> int:
         return self.tindex.size
 
+    def prepare_from_host(self, host):
+        """Quantize ``host`` into this backend's mode and upload it (the
+        heavy half of a generation swap, safe off the dispatch thread)."""
+        return _prepare_on_side_stream(
+            self.device, lambda: TieredIndex.from_host(
+                host, self.tindex.mode, device=self.device))
+
+    def install(self, prepared):
+        self.tindex = prepared
+
     def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
                  k: int):
         qdev = self.tindex.dev
@@ -254,11 +312,18 @@ class _QuantizedBackend:
 
 
 class SearchService:
-    """Online range / k-NN service with dynamic micro-batching."""
+    """Online range / k-NN service with dynamic micro-batching.
 
-    def __init__(self, backend, cfg: ServeConfig = ServeConfig()):
+    ``ids`` maps the backend's row positions to external ids (a
+    ``MutableIndex``'s live view); ``mutable``, when given, is the index
+    live ingest writes to, and the service follows its commits."""
+
+    def __init__(self, backend, cfg: ServeConfig = ServeConfig(),
+                 ids: Optional[np.ndarray] = None, mutable=None):
         self.cfg = cfg
         self.backend = backend
+        self._ids = None if ids is None else np.asarray(ids, dtype=np.int64)
+        self.mutable = mutable
         self.stats = StatsTracker()
         backend.stats = self.stats
         self._batcher = MicroBatcher(
@@ -266,12 +331,24 @@ class SearchService:
             max_wait_ms=cfg.max_wait_ms, stats=self.stats)
         self.breaker = CircuitBreaker(threshold=cfg.breaker_threshold,
                                       cooldown=cfg.breaker_cooldown)
-        # Serialises device passes of the dispatcher thread and of direct
-        # queries from callers' threads.
+        # Serialises the device passes of the dispatcher thread and of
+        # direct queries from callers' threads with a generation swap, and
+        # covers each pass's ids snapshot: a batch never maps one
+        # generation's row positions through another generation's ids.
         self._device_lock = threading.Lock()
+        self._refresh_thread: Optional[threading.Thread] = None
         # Range-only batches still bucket k at the warmed floor.
         self._k_floor = _pow2_at_least(
             min(cfg.warmup_ks) if cfg.warmup_ks else 1, self.backend.size)
+        self._loaded_gen = mutable.generation if mutable is not None else -1
+        self._last_refresh = time.perf_counter()
+        self._stale = False
+        # Seconds of the last swap's steps: the live-view snapshot, the
+        # upload (with its wait) and the install under the lock.
+        self.last_refresh_times: dict = {}
+        self._unsubscribe = None
+        if mutable is not None:
+            self._unsubscribe = mutable.subscribe(self._on_commit)
 
     # --- construction -------------------------------------------------------
 
@@ -301,8 +378,48 @@ class SearchService:
         return cls(_SingleBackend(index, cfg), cfg)
 
     @classmethod
-    def from_store(cls, path, cfg: ServeConfig = ServeConfig(), mesh=None):
-        raise _not_ported("from_store")
+    def from_store(cls, path, cfg: ServeConfig = ServeConfig(), mesh=None,
+                   device=None) -> "SearchService":
+        """Warm start from a committed store of either package on
+        ``device`` (default: CUDA; raises without one):
+
+        * a ``MutableIndex`` root (``CURRENT`` present): its live view,
+          answers mapped to external ids, live ingest on;
+        * a plain store: mmap-opened and uploaded once;
+        * with ``cfg.quantization``, served tiered: a plain store with a
+          stored tier of that mode serves it as it is, anything else is
+          quantized in memory from the live view.
+
+        ``levels`` / ``alphabet`` / ``stack`` come from the store, not
+        ``cfg``.  The reference's sharded stores, and ``mesh``, need the
+        multi-device slice of the port.
+        """
+        from ..index import mutable as _mutable
+        from ..index import store as _store
+
+        if mesh is not None:
+            raise _not_ported("mesh")
+        path = pathlib.Path(path)
+        dev = resolve_device(device)
+        quant = cfg.quantization != "none"
+        if (path / _mutable.CURRENT).exists():
+            mi = _mutable.MutableIndex.open(path)
+            host, ids = mi.live_index()
+            if quant:
+                backend = _QuantizedBackend(TieredIndex.from_host(
+                    host, cfg.quantization, device=dev), cfg)
+            else:
+                backend = _SingleBackend(device_index_from_host(host, dev),
+                                         cfg)
+            return cls(backend, cfg, ids=np.asarray(ids), mutable=mi)
+        if _store.read_manifest(path).get("kind") in _SHARDED_KINDS:
+            raise _not_ported("sharded_store")
+        if quant:
+            return cls(_QuantizedBackend(TieredIndex.from_store(
+                path, quantization=cfg.quantization, device=dev), cfg), cfg)
+        host = _store.load_index(path, mmap=True)
+        return cls(_SingleBackend(device_index_from_host(host, dev), cfg),
+                   cfg)
 
     # --- lifecycle ----------------------------------------------------------
 
@@ -312,11 +429,19 @@ class SearchService:
 
     def stop(self):
         self._batcher.stop()
+        self._unsubscribe_commits()
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Graceful shutdown: refuse new work, let queued and in-flight
         batches finish, then stop.  False if they did not finish in time."""
-        return self._batcher.drain(timeout_s=timeout_s)
+        drained = self._batcher.drain(timeout_s=timeout_s)
+        self._unsubscribe_commits()
+        return drained
+
+    def _unsubscribe_commits(self):
+        if self._unsubscribe is not None:
+            self._unsubscribe()
+            self._unsubscribe = None
 
     def __enter__(self) -> "SearchService":
         return self.start()
@@ -379,10 +504,127 @@ class SearchService:
             raise RuntimeError(f"knn request {req.status}")
         return req.ids, req.distances
 
+    # --- live ingest --------------------------------------------------------
+
+    def _require_mutable(self):
+        if self.mutable is None:
+            raise RuntimeError(
+                "live ingest needs a MutableIndex-backed service "
+                "(SearchService.from_store on an index root)")
+        return self.mutable
+
+    def insert(self, series: np.ndarray) -> np.ndarray:
+        """Durably insert rows; returns their external ids.  Served
+        answers include them after the next refresh."""
+        return self._require_mutable().insert(np.asarray(series))
+
+    def delete(self, ids) -> int:
+        """Durably tombstone rows by external id; returns the live count."""
+        return self._require_mutable().delete(ids)
+
+    def _on_commit(self, _mi):
+        # The MutableIndex commit hook, on the mutating thread after
+        # CURRENT swapped: only a staleness mark.  The upload happens at a
+        # batch boundary, so in-flight batches finish on one index.
+        self._stale = True
+
+    def _maybe_refresh(self, force: bool = False):
+        mi = self.mutable
+        if mi is None or not (self._stale or force):
+            return
+        if not force and self.cfg.async_refresh:
+            # Non-blocking swap: kick the background upload and keep
+            # serving the loaded generation; _refresh_bg installs the new
+            # one under the device lock once its copies have landed.
+            if self._refresh_thread is not None \
+                    and self._refresh_thread.is_alive():
+                return
+            if (time.perf_counter() - self._last_refresh
+                    < self.cfg.refresh_min_interval_s):
+                return
+            if mi.generation == self._loaded_gen:
+                self._stale = False
+                return
+            self._refresh_thread = threading.Thread(
+                target=self._refresh_bg, name="repro-torch-serve-refresh",
+                daemon=True)
+            self._refresh_thread.start()
+            return
+        with self._device_lock:
+            if mi.generation == self._loaded_gen:
+                self._stale = False
+                return
+            now = time.perf_counter()
+            if not force and (now - self._last_refresh
+                              < self.cfg.refresh_min_interval_s):
+                return
+            try:
+                gen, host, ids = mi.live_snapshot()
+                t1 = time.perf_counter()
+                prepared = self.backend.prepare_from_host(host)
+            except BaseException:
+                self.stats.on_refresh_failure()
+                self._stale = True
+                raise
+            t2 = time.perf_counter()
+            self.backend.install(prepared)
+            self.last_refresh_times = {"snapshot_s": t1 - now,
+                                       "upload_s": t2 - t1,
+                                       "install_s": time.perf_counter() - t2}
+            self._ids = np.asarray(ids, dtype=np.int64)
+            self._loaded_gen = gen
+            self._last_refresh = now
+            # A commit racing with the upload re-flags through the hook.
+            self._stale = mi.generation != gen
+        self.stats.on_refresh_swap()
+
+    def _refresh_bg(self):
+        """Background half of the non-blocking swap: the snapshot and the
+        upload run with no lock held (serving goes on); only the install
+        takes the device lock.  A failed upload keeps the old generation
+        serving and re-flags staleness, so the next batch boundary tries
+        again.  The reference's ``device_upload`` fault-injection site
+        comes with the fault-tolerance slice (ROADMAP.md queue 1 item 8)."""
+        mi = self.mutable
+        t0 = time.perf_counter()
+        try:
+            gen, host, ids = mi.live_snapshot()
+            t1 = time.perf_counter()
+            prepared = self.backend.prepare_from_host(host)
+        except BaseException:   # noqa: BLE001 — serving must survive
+            self.stats.on_refresh_failure()
+            self._stale = True
+            return
+        t2 = time.perf_counter()
+        with self._device_lock:
+            if gen <= self._loaded_gen:
+                return   # a forced refresh() overtook this upload
+            self.backend.install(prepared)
+            self.last_refresh_times = {"snapshot_s": t1 - t0,
+                                       "upload_s": t2 - t1,
+                                       "install_s": time.perf_counter() - t2}
+            self._ids = np.asarray(ids, dtype=np.int64)
+            self._loaded_gen = gen
+            self._last_refresh = time.perf_counter()
+            self._stale = mi.generation != gen
+        self.stats.on_refresh_swap()
+
+    def refresh(self):
+        """Bring the device index to the committed epoch now
+        (synchronous: returns once served answers reflect it)."""
+        self._maybe_refresh(force=True)
+
+    @property
+    def generation(self) -> int:
+        """The committed generation the device index holds (−1 without a
+        ``MutableIndex``)."""
+        return self._loaded_gen
+
     # --- dispatch -----------------------------------------------------------
 
     def _dispatch(self, batch: list):
         """MicroBatcher callback: one padded, bucketed device pass."""
+        self._maybe_refresh()
         if not self.breaker.allow():
             # Breaker open: shed the batch with a rejected status.
             n_shed = 0
@@ -427,6 +669,7 @@ class SearchService:
             with self._device_lock:
                 idx, answer, d2 = self.backend.dispatch(q, eps, is_knn,
                                                         k_bucket)
+                ids = self._ids
         except BaseException:
             # The batcher resolves the batch FAILED; feed the breaker.
             self.breaker.on_failure()
@@ -436,9 +679,9 @@ class SearchService:
         self.breaker.on_success()
         self.stats.set_breaker(self.breaker.state, self.breaker.state_code)
         for i, req in live:
-            self._finish(req, idx[i], answer[i], d2[i])
+            self._finish(req, idx[i], answer[i], d2[i], ids)
 
-    def _finish(self, req: Request, idx_row, answer_row, d2_row):
+    def _finish(self, req: Request, idx_row, answer_row, d2_row, ids_map):
         if req.kind == KIND_KNN:
             finite = np.isfinite(d2_row)
             # Ascending (d², slot); slots are in row order, so ties go to
@@ -452,6 +695,8 @@ class SearchService:
             rows = idx_row[mask]
             dist = np.sqrt(d2_row[mask])
         rows, dist = self._postprocess(req, rows, dist)
+        if ids_map is not None:
+            rows = ids_map[rows]
         req._resolve(OK, ids=np.asarray(rows, dtype=np.int64),
                      distances=dist.astype(np.float64))
 
@@ -472,6 +717,7 @@ class SearchService:
         :meth:`_dispatch`, so the replay takes the same engine path;
         ``meta`` carries the answer-shaping hints a batched submit would
         attach, so the replay runs the same :meth:`_postprocess`."""
+        self._maybe_refresh()
         n = self.backend.n
         q = np.asarray(query, dtype=np.float32).reshape(1, n)
         is_knn = np.asarray([kind == KIND_KNN])
@@ -479,9 +725,10 @@ class SearchService:
         kk = _pow2_at_least(max(int(k), 1, self._k_floor), self.backend.size)
         with self._device_lock:
             idx, answer, d2 = self.backend.dispatch(q, eps, is_knn, kk)
+            ids = self._ids
         req = Request(kind=kind, query=q[0], epsilon=epsilon,
                       k=max(int(k), 1), meta=meta)
-        self._finish(req, idx[0], answer[0], d2[0])
+        self._finish(req, idx[0], answer[0], d2[0], ids)
         return req.ids, req.distances
 
 
@@ -536,8 +783,17 @@ class SubseqSearchService(SearchService):
 
     @classmethod
     def from_store(cls, path, cfg: ServeConfig = ServeConfig(),
-                   excl: Optional[int] = None):
-        raise _not_ported("from_store")
+                   excl: Optional[int] = None,
+                   device=None) -> "SubseqSearchService":
+        """Warm start from a committed ``core.subseq.save_subseq_index``
+        store (either package's): an mmap open of the streams and window
+        features, uploaded to ``device`` (default: CUDA; raises without
+        one)."""
+        from ..core.subseq import load_subseq_index, subseq_device_index
+
+        return cls(subseq_device_index(load_subseq_index(path),
+                                       resolve_device(device)), cfg,
+                   excl=excl)
 
     # --- submission ---------------------------------------------------------
 

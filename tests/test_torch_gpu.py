@@ -1280,3 +1280,164 @@ def test_stage_count_does_not_change_results(cuda):
             assert torch.equal(one[0], two[0])
             assert torch.equal(one[1].view(torch.int32),
                                two[1].view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The index lifecycle on the card: stores, warm starts, generation swaps.
+# ---------------------------------------------------------------------------
+
+def _lifecycle_host(B=6000):
+    from repro_torch.core.fastsax import FastSAXConfig, build_index
+
+    db = make_wafer_like(B + 512, 128, seed=0)
+    return db, build_index(db[:B], FastSAXConfig(n_segments=(8, 16)),
+                           normalize=False)
+
+
+def _launches():
+    return {k.__name__: k.launches for k in fq.KERNELS}
+
+
+def _lifecycle_workload(db, n=48):
+    return make_workload(make_queries(db, 16, seed=1), WorkloadSpec(
+        n_requests=n, knn_frac=0.5, k=5, epsilon=2.0))
+
+
+def test_upload_host_array_chunks_match_the_cast(cuda, tmp_path,
+                                                 monkeypatch):
+    # A read-only f64 memmap, in pinned chunks of a few rows, lands as
+    # the f32 cast of the whole array; int and bf16-bit columns as they
+    # are.
+    a = np.random.default_rng(0).standard_normal((1001, 37))
+    np.save(tmp_path / "a.npy", a)
+    mm = np.load(tmp_path / "a.npy", mmap_mode="r")
+    monkeypatch.setattr(engine, "_UPLOAD_CHUNK_BYTES", 37 * 4 * 7)
+    got = engine.upload_host_array(mm, torch.float32, cuda)
+    assert torch.equal(got.cpu(), torch.from_numpy(a.astype(np.float32)))
+    w = np.random.default_rng(1).integers(0, 10, (999, 16), dtype=np.int32)
+    assert torch.equal(engine.upload_host_array(w, torch.int32, cuda).cpu(),
+                       torch.from_numpy(w))
+    assert engine.upload_host_array(a[:0], torch.float32, cuda).shape == \
+        (0, 37)
+
+
+def test_store_round_trip_is_the_direct_upload(cuda, tmp_path):
+    from repro_torch.index.store import save_index
+    from repro_torch.serve.service import _SingleBackend
+
+    db, host = _lifecycle_host()
+    save_index(host, tmp_path / "idx")
+    warm = engine.DeviceIndex.from_store(tmp_path / "idx")
+    direct = engine.device_index_from_host(host, cuda)
+    assert warm.device.type == "cuda"
+    for a, b in zip((warm.series, warm.norms_sq, *warm.words,
+                     *warm.residuals),
+                    (direct.series, direct.norms_sq, *direct.words,
+                     *direct.residuals)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    svc = SearchService.from_store(tmp_path / "idx")
+    assert svc.backend.backend == "cuda"
+    ref_svc = SearchService(_SingleBackend(direct, ServeConfig()))
+    workload = _lifecycle_workload(db)
+    fq.reset_launch_counts()
+    with svc:
+        result = run_closed_loop(svc, workload, clients=8)
+        assert result.served == len(workload)
+        launches = _launches()
+        assert launches["fused_range"] > 0 and launches["fused_topk"] > 0
+        assert check_exactness(svc, workload, result) == 0
+    for kind, q, eps, k in workload:
+        ids, dist = svc.direct_query(kind, q, epsilon=eps, k=k)
+        ids2, dist2 = ref_svc.direct_query(kind, q, epsilon=eps, k=k)
+        assert np.array_equal(ids, ids2) and np.array_equal(dist, dist2)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_quantized_store_served_zero_copy(cuda, tmp_path, monkeypatch,
+                                          mode):
+    from repro_torch.index import quantized as tq
+    from repro_torch.index import store
+
+    db, host = _lifecycle_host()
+    store.save_index(host, tmp_path / "qidx", quantization=mode)
+
+    def no_requantize(*a, **k):
+        raise AssertionError("the stored tier was quantized again")
+
+    monkeypatch.setattr(tq, "quantize_host_index", no_requantize)
+    svc = SearchService.from_store(tmp_path / "qidx",
+                                   ServeConfig(quantization=mode))
+    monkeypatch.undo()
+    qdev = svc.backend.tindex.dev
+    stored = store.load_quantized(tmp_path / "qidx", mode=mode)
+    want = np.asarray(stored.series)
+    got = qdev.series.view(torch.int16).cpu().numpy().view(np.uint16) \
+        if mode == "bf16" else qdev.series.cpu().numpy()
+    assert np.array_equal(got, want)
+    cold = SearchService.from_series(db[:6000], ServeConfig(
+        quantization=mode), normalize=False)
+    workload = _lifecycle_workload(db)
+    fq.reset_launch_counts()
+    with svc:
+        result = run_closed_loop(svc, workload, clients=8)
+        assert _launches()["fused_quant_range"] > 0
+        assert check_exactness(svc, workload, result) == 0
+    for (kind, q, eps, k), req in zip(workload, result.requests):
+        ids, dist = cold.direct_query(kind, q, epsilon=eps, k=k)
+        assert np.array_equal(ids, req.ids)
+        np.testing.assert_allclose(dist, req.distances, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("quantization", ["none", "int8"])
+def test_generation_swap_under_requests_in_flight(cuda, tmp_path,
+                                                  quantization):
+    """The background swap uploads on a side stream while batches run on
+    the current one; every request submitted after the install replays
+    exactly, and the inserted rows are found by their external ids."""
+    import threading
+    import time
+
+    from repro_torch.core.fastsax import FastSAXConfig
+    from repro_torch.index.mutable import MutableIndex
+
+    db = make_wafer_like(40_000, 128, seed=0)
+    MutableIndex.create(tmp_path / "root", db[:32_000],
+                        FastSAXConfig(n_segments=(8, 16)), normalize=False)
+    svc = SearchService.from_store(tmp_path / "root", ServeConfig(
+        quantization=quantization))
+    workload = _lifecycle_workload(db[:32_000], n=64)
+    new_rows = db[32_000:40_000]
+    rounds = []
+    with svc:
+        svc.delete(np.arange(0, 32_000, 97))
+        inserter = threading.Thread(target=svc.insert, args=(new_rows,))
+        inserter.start()
+        deadline = time.perf_counter() + 120.0
+        while (svc.generation < 2 or not rounds
+               or rounds[-1][0] <= svc._last_refresh):
+            assert time.perf_counter() < deadline, "no swap landed"
+            rounds.append((time.perf_counter(),
+                           run_closed_loop(svc, workload, clients=16)))
+        inserter.join()
+        swapped_at = svc._last_refresh
+        after = [(w, r) for _, res in rounds
+                 for w, r in zip(workload, res.requests)
+                 if r.t_submit > swapped_at]
+        assert after and all(r.status == "ok" for _, r in after)
+        for (kind, q, eps, k), req in after:
+            ids, dist = svc.direct_query(kind, q, epsilon=eps, k=k)
+            assert np.array_equal(ids, req.ids)
+            np.testing.assert_allclose(dist, req.distances, rtol=1e-6,
+                                       atol=1e-9)
+        for j in (0, 4_000, 7_999):
+            got, _ = svc.knn(new_rows[j], 1)
+            assert got[0] == 32_000 + j
+        deleted = set(range(0, 32_000, 97))
+        assert not deleted & set(np.concatenate(
+            [r.ids for _, res in rounds for r in res.requests
+             if r.t_submit > swapped_at]).tolist())
+    events = svc.stats.snapshot()["events"]
+    assert events["refresh_swaps"] >= 1 and events["refresh_failures"] == 0
+    assert svc.generation == svc.mutable.generation == 2
+    assert set(svc.last_refresh_times) == {"snapshot_s", "upload_s",
+                                           "install_s"}

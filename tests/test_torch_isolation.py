@@ -37,6 +37,8 @@ def test_port_files_import_neither_jax_nor_reference():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/index/quantized.py",
             "src/repro_torch/index/store.py",
+            "src/repro_torch/index/mutable.py",
+            "src/repro_torch/index/cli.py",
             "src/repro_torch/core/subseq.py",
             "src/repro_torch/core/search.py",
             "src/repro_torch/kernels/level_ops.py"} <= names
@@ -54,6 +56,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.serve, repro_torch.launch.serve\n"
             "import repro_torch.kernels.fused_query\n"
             "import repro_torch.index.quantized, repro_torch.index.store\n"
+            "import repro_torch.index.mutable, repro_torch.index.cli\n"
             "import repro_torch.core.subseq, repro_torch.core.search\n"
             "import repro_torch.kernels.level_ops\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -545,8 +545,6 @@ def test_launcher_serves_the_tier_on_cpu(capsys):
 
 
 def test_unported_settings_raise():
-    with pytest.raises(NotImplementedError, match="index-lifecycle"):
-        teng.TieredIndex.from_store("/nonexistent")
     with pytest.raises(tq.QuantizationError, match="must be one of"):
         ServeConfig(quantization="int4")
     with pytest.raises(NotImplementedError, match="multi-device"):

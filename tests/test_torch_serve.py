@@ -9,6 +9,7 @@ be the same: ids equal, distances within the d² band of the engine tests
 (1e-3 + 1e-5·d², the matmul-form f32 noise).
 """
 import json
+import time
 
 import numpy as np
 import pytest
@@ -106,18 +107,11 @@ def test_later_slices_raise_not_implemented(db):
     with pytest.raises(NotImplementedError, match="multi-device"):
         SearchService.from_series(db, ServeConfig(), mesh=object(),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="index-lifecycle"):
-        SearchService.from_store("/nonexistent")
-    with pytest.raises(NotImplementedError, match="index-lifecycle"):
-        teng.DeviceIndex.from_store("/nonexistent")
-    with pytest.raises(NotImplementedError, match="index-lifecycle"):
-        teng.TieredIndex.from_store("/nonexistent")
 
 
 # The reference's ServeConfig settings of slices the port lacks, a value
 # other than the reference's default, and the ROADMAP.md item they wait on.
 UNPORTED_SETTINGS = [
-    ("refresh_min_interval_s", 0.5, 1), ("async_refresh", False, 1),
     ("shard_timeout_s", 5.0, 8), ("shard_retries", 0, 8),
     ("shard_backoff_s", 0.1, 8), ("trace_ring", 64, 7),
     ("calibration_ring", 64, 7), ("profile_dir", "prof", 7)]
@@ -132,6 +126,50 @@ def test_reference_settings_wait_for_their_slice(name, value, item):
     assert getattr(ServeConfig(**{name: ref_default}), name) == ref_default
     with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\)"):
         ServeConfig(**{name: value})
+
+
+# The live-ingest settings of the index-lifecycle slice, at a value other
+# than the reference's default: accepted, and they take effect.
+REFRESH_SETTINGS = [("refresh_min_interval_s", 3.0), ("async_refresh", False)]
+
+
+@pytest.mark.parametrize("name,value", REFRESH_SETTINGS)
+def test_refresh_settings_take_effect(db, tmp_path, name, value):
+    from repro_torch.core.fastsax import FastSAXConfig
+    from repro_torch.index.mutable import MutableIndex
+
+    ref_default = jserve.ServeConfig.__dataclass_fields__[name].default
+    assert getattr(ServeConfig(), name) == ref_default != value
+    root = tmp_path / "idx"
+    MutableIndex.create(root, db[:256], FastSAXConfig(n_segments=(8, 16)))
+    cfg = ServeConfig(max_wait_ms=1.0, **{name: value})
+    assert getattr(cfg, name) == value
+    svc = SearchService.from_store(root, cfg, device="cpu")
+    new_row = db[300]
+    with svc:
+        t_start = svc._last_refresh
+        new_id = svc.insert(new_row[None])[0]
+        got, _ = svc.knn(new_row, 1)
+        swaps = svc.stats.snapshot()["events"]["refresh_swaps"]
+        if name == "async_refresh":
+            # Synchronous: the batch after the commit swaps first and
+            # already answers with the new row; no background thread.
+            assert got[0] == new_id and swaps == 1
+            assert svc._refresh_thread is None
+        else:
+            # Inside the interval the swap waits: the old generation
+            # serves and the service stays stale.
+            assert time.perf_counter() - t_start < value
+            assert got[0] != new_id and swaps == 0 and svc._stale
+            while time.perf_counter() - t_start < value:
+                time.sleep(0.02)
+            deadline = time.perf_counter() + 30.0
+            while got[0] != new_id:
+                assert time.perf_counter() < deadline, "no swap landed"
+                got, _ = svc.knn(new_row, 1)
+                time.sleep(0.01)
+            assert svc.stats.snapshot()["events"]["refresh_swaps"] == 1
+    assert svc.generation == 1 and not svc._stale
 
 
 def test_batch_and_replay_take_the_same_float_path(db):

@@ -439,13 +439,9 @@ def test_later_slices_raise_naming_their_items():
     hidx = tss.build_subseq_index(streams, FastSAXConfig(n_segments=LEVELS),
                                   64, 2)
     for fn, item in ((tss.subseq_range_query_traced, 7),
-                     (tss.subseq_knn_query_traced, 7),
-                     (tss.save_subseq_index, 1),
-                     (tss.load_subseq_index, 1)):
+                     (tss.subseq_knn_query_traced, 7)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fn(hidx)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        SubseqSearchService.from_store("/nonexistent")
     with pytest.raises(NotImplementedError, match="item 12"):
         tss.build_subseq_index(
             streams, JConfig(n_segments=LEVELS,
