@@ -150,6 +150,36 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    time beside the card's name and power limit; the figures under the
    report's ``lifecycle`` key.  The kernels line adds phase 14's
    launches to each kernel's.
+15. Traced serving (``ServeConfig(trace=True)``), report key ``obs``,
+   ``[obs-*]`` lines.  (1) Phase 5's index and 64 requests through a
+   traced service: kernels 1-2 launch, 0 replay mismatches, the answers
+   equal phase 5's bit for bit, and ``stats.cascade`` equals the sum of
+   the batches' traces (bucket padding dropped); the calibration log
+   (the dispatch's wall time against ``fused_pass_estimate``).  (2)
+   ``range_query_traced`` (ε = 2) and ``knn_query_traced`` (k = 5) on 32
+   queries at 2^20 rows: per level and per query the counters equal the
+   plain versions' survivor counts exactly; on 4 queries over phase 13's
+   columns they equal ``search.fastsax_range_query``'s op counts, every
+   row that differs within the f32 band of a bound.  (3) The closed loop
+   untraced, traced, traced, untraced: the ratio of the medians of qps
+   (reported, not checked), a Q = 32 batch's ``mixed_query_fused`` and
+   counting pass (``mixed_trace``) in CUDA-event ms.  (4) A traced
+   service with ``profile_dir``: one ``torch.profiler`` Chrome trace per
+   batch (at least 4), each parsed for the card's busy time (the union of
+   kernel and copy intervals), the idle share of the capture window and
+   the top device operations; the trace must name both fused kernels, or
+   the phase says that CUPTI gave no device events and the idle share is
+   not measured.  (5) ``start_metrics_server`` over (1)'s
+   ``metrics_text``, scraped once: every required family, the cascade
+   counters above 0.  (6) 16 of the requests through the traced int8
+   tier: 0 replay mismatches, kernel 5 launched in the dispatch and for
+   the trace's screen count (at least twice a batch); the tier's range
+   and k-NN counters equal the plain widened cascade, its screen count
+   kernel 5's keep (the plain keep with band rows counted).  (7)
+   ``subseq_range_query_traced`` and ``subseq_knn_query_traced`` at
+   subseq-1M: kernels 3 and 4 launch, the answers are phase 10's bit for
+   bit, the counters the plain per-level counts over the windows-as-rows
+   columns.  The kernels line adds these runs' launches.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -2699,6 +2729,530 @@ def lifecycle_phase(torch, engine, fq, host, queries, workload, result,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: traced serving — the cascade counters, the span ring, the
+# calibration log, the metrics text and a torch.profiler trace of the card.
+# ---------------------------------------------------------------------------
+
+OBS_EPS = 2.0                  # the range radius of the counter checks
+OBS_K = 5                      # the k-NN k of the counter checks
+OBS_HOST_QUERIES = 4           # held against the op-counted host engine
+OBS_TIER_REQUESTS = 16         # of phase 5's requests, through the tier
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def plain_level_counts(torch, ref, ops, words, residuals, q_words, q_res,
+                       eps, levels, n: int, alphabet: int,
+                       widen=None) -> tuple:
+    """Per query, the survivors after each level's C9 and after its C10
+    by the plain versions' expressions (``ref.cascade_alive_ref``, one
+    test at a time; with ``widen``, ``ref.quant_meta_alive_ref``'s
+    widened C9): ``(after_c9, after_c10)``, (Q, L) numpy."""
+    eps_c = eps.reshape(-1, 1)
+    eps2 = eps_c * eps_c
+    alive, a9, a10 = None, [], []
+    for li, N in enumerate(levels):
+        lim = eps_c if widen is None else eps_c + widen[li][None, :]
+        ok = torch.abs(residuals[li][None, :] - q_res[li][:, None]) <= lim
+        alive = ok if alive is None else alive & ok
+        a9.append(alive.sum(dim=-1))
+        alive &= ref.mindist_sq_ref(
+            words[li], ops.query_panels(q_words[li], alphabet), N, n) <= eps2
+        a10.append(alive.sum(dim=-1))
+    return (torch.stack(a9, -1).cpu().numpy(),
+            torch.stack(a10, -1).cpu().numpy())
+
+
+def counters_equal(trace, counts) -> bool:
+    from repro_torch.obs.trace import to_host
+    t = to_host(trace)
+    return bool(np.array_equal(t.after_c9, counts[0])
+                and np.array_equal(t.after_c10, counts[1]))
+
+
+def index_counts(torch, ref, ops, index, qr, eps) -> tuple:
+    """:func:`plain_level_counts` over a ``DeviceIndex``'s columns."""
+    return plain_level_counts(torch, ref, ops, index.words, index.residuals,
+                              qr.words, qr.residuals, eps, index.levels,
+                              index.n, index.alphabet)
+
+
+def quant_counts(torch, ref, ops, qdev, qr, eps) -> tuple:
+    """:func:`plain_level_counts` over the tier's quantized columns (the
+    widened cascade of ``quant_alive_by_level``)."""
+    B = qdev.size
+    res = [ref.dequant_residuals(qdev.residuals[li], qdev.resid_scale[li],
+                                 qdev.resid_zero[li])
+           for li in range(len(qdev.levels))]
+    err = [ref.expand_block_col(qdev.resid_err[li], B)
+           for li in range(len(qdev.levels))]
+    return plain_level_counts(torch, ref, ops, qdev.words, res, qr.words,
+                              qr.residuals, eps, qdev.levels, qdev.n,
+                              qdev.alphabet, widen=err)
+
+
+def host_op_counts(torch, engine, ref, ops, host, queries, eps,
+                   device) -> dict:
+    """The traced counters of phase 13's columns (the host index uploaded,
+    the queries represented on the host) against the op-counted host
+    engine ``search.fastsax_range_query``: per row, the level and test
+    that kills it (or none); rows killed elsewhere on the card must lie in
+    the f32 band of a bound (``|gap − ε|`` or ``|MINDIST² − ε²|`` within
+    1e-3 + 1e-5·x), none outside it."""
+    from repro_torch.core import search
+    from repro_torch.core.fastsax import represent_query
+    from repro_torch.core.representation import get
+
+    cfg, B, n, A = host.config, host.size, host.n, host.config.alphabet
+    L = len(host.levels)
+    dindex = engine.device_index_from_host(host, device)
+    reps = [represent_query(q, cfg) for q in queries]
+    dev = dindex.device
+    qr = engine.QueryReprDev(
+        q=torch.as_tensor(np.stack([r.q for r in reps]), dtype=torch.float32,
+                          device=dev),
+        words=tuple(torch.as_tensor(np.stack([r.words[li] for r in reps]),
+                                    dtype=torch.int32, device=dev)
+                    for li in range(L)),
+        residuals=tuple(torch.as_tensor([r.residuals[li] for r in reps],
+                                        dtype=torch.float32, device=dev)
+                        for li in range(L)))
+    _, _, tr = engine.range_query_traced(dindex, qr, eps)
+    from repro_torch.obs.trace import excluded_c9, excluded_c10, to_host
+    tr = to_host(tr)
+    eps_t = torch.full((len(reps),), eps, dtype=torch.float32, device=dev)
+    check(counters_equal(tr, index_counts(torch, ref, ops, dindex, qr,
+                                          eps_t)),
+          "phase 13's columns: the counters differ from the plain versions")
+    sax_word = get("sax_word")
+    out = {"queries": len(reps), "band_rows": 0, "wrong_rows": 0,
+           "card": [], "host": []}
+    for qi, r in enumerate(reps):
+        rf = search.fastsax_range_query(host, r, eps)
+        stage_h = np.full(B, 2 * L)
+        near = np.zeros(B, dtype=bool)
+        h_alive = np.ones(B, dtype=bool)
+        d_alive = torch.ones(B, dtype=torch.bool, device=dev)
+        d_stage = torch.full((B,), 2 * L, device=dev)
+        e32 = eps_t[qi:qi + 1].reshape(1, 1)
+        for li, lv in enumerate(host.levels):
+            gap = np.abs(lv.residuals - r.residuals[li])
+            b2 = sax_word.host_bound_sq(lv.words, r.words[li], n=n,
+                                        N=lv.n_segments, alphabet=A)
+            near |= (np.abs(gap - eps) <= band(eps)) | \
+                (np.abs(b2 - eps * eps) <= band(eps * eps))
+            for test, ok in ((2 * li, gap <= eps),
+                             (2 * li + 1, b2 <= eps * eps)):
+                stage_h[h_alive & ~ok] = test
+                h_alive &= ok
+            d_ok9 = (torch.abs(dindex.residuals[li]
+                               - qr.residuals[li][qi]) <= e32[0])
+            d_ok10 = ref.mindist_sq_ref(
+                dindex.words[li], ops.query_panels(qr.words[li][qi:qi + 1],
+                                                   A),
+                lv.n_segments, n)[0] <= e32[0] * e32[0]
+            for test, ok in ((2 * li, d_ok9), (2 * li + 1, d_ok10)):
+                d_stage[d_alive & ~ok] = test
+                d_alive &= ok
+        stage_d = d_stage.cpu().numpy()
+        check(int(h_alive.sum()) == rf.candidates,
+              "the host cascade's survivors differ from search.py's count")
+        diff = stage_d != stage_h
+        out["band_rows"] += int((diff & near).sum())
+        out["wrong_rows"] += int((diff & ~near).sum())
+        out["card"].append([int(excluded_c9(tr, B).sum(-1)[qi]),
+                            int(excluded_c10(tr).sum(-1)[qi]),
+                            int(tr.candidates[qi])])
+        out["host"].append([rf.excluded_c9, rf.excluded_c10, rf.candidates])
+    check(out["wrong_rows"] == 0,
+          f"the traced counters disagree with the host op counts outside "
+          f"the f32 band: {out}")
+    off = sum(abs(a - b) for c, h in zip(out["card"], out["host"])
+              for a, b in zip(c, h))
+    check(off <= 2 * out["band_rows"],
+          f"counter differences not explained by band rows: {out}")
+    del dindex
+    return out
+
+
+def union_ms(intervals) -> float:
+    """Length of the union of (start, end) µs intervals, in ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def profile_dispatches(paths) -> list:
+    """One entry per Chrome trace of ``profiler_capture``: the capture
+    window (first event to last end), the card's busy time (the union of
+    kernel and copy intervals), the idle share of the window and the top
+    device operations by time."""
+    out = []
+    for path in paths:
+        events = [e for e in json.loads(pathlib.Path(path).read_text())
+                  .get("traceEvents", [])
+                  if e.get("ph") == "X" and "dur" in e and "ts" in e]
+        devs = [e for e in events if e.get("cat") in DEVICE_CATS]
+        t0 = min(e["ts"] for e in events)
+        t1 = max(e["ts"] + e["dur"] for e in events)
+        by_name: dict = {}
+        for e in devs:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+        busy = union_ms([(e["ts"], e["ts"] + e["dur"]) for e in devs])
+        window = (t1 - t0) / 1e3
+        out.append({
+            "file": pathlib.Path(path).name, "window_ms": window,
+            "device_events": len(devs), "busy_ms": busy,
+            "kernels": sorted({short_name(e["name"]) for e in devs}),
+            "idle_share": (1.0 - busy / window) if devs else None,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]})
+    return out
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its return type, anonymous namespace,
+    template arguments and parameters."""
+    name = re.sub(r"^void ", "", name).replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", name, maxsplit=1)[0][:60] or name[:60]
+
+
+def obs_phase(torch, engine, fq, ref, ops, index, host, queries, workload,
+              result, tier8, sub, report) -> dict:
+    """Phase 15; returns the launch counts of its main-path runs."""
+    import tempfile
+    import urllib.request
+
+    from repro_torch.core import subseq as ss
+    from repro_torch.core.options import SearchOptions
+    from repro_torch.obs.metrics import (REQUIRED_FAMILIES,
+                                         start_metrics_server)
+    from repro_torch.obs.trace import select_queries, to_host, trace_totals
+    from repro_torch.serve import SearchService, ServeConfig
+    from repro_torch.serve.service import _QuantizedBackend, _SingleBackend
+
+    t_phase = time.perf_counter()
+    obs = {}
+    launches: dict = {}
+    B = index.size
+
+    def service(cfg, tiered=False):
+        backend = (_QuantizedBackend(tier8, cfg) if tiered
+                   else _SingleBackend(index, cfg))
+        return SearchService(backend, cfg)
+
+    # ---- 1. serve-1M, traced: phase 5's index and requests
+    svc = service(ServeConfig(trace=True))
+    traces = []
+    dispatch = svc.backend.dispatch
+
+    def recording(*args, **kw):
+        out = dispatch(*args, **kw)
+        if kw.get("want_trace"):
+            traces.append(svc.backend.last_trace)
+        return out
+
+    svc.backend.dispatch = recording
+    res, ln = serve_phase(torch, fq, svc, workload, "obs-serve")
+    add_launches(launches, ln)
+    check(res.served == len(workload) and ln["fused_range"] > 0
+          and ln["fused_topk"] > 0,
+          f"traced serving: served {res.served}, launches {ln}")
+    mismatches, _ = replay_check(svc, workload, res, "obs-serve")
+    same = same_answers([(r.ids, r.distances) for r in res.requests],
+                        [(r.ids, r.distances) for r in result.requests],
+                        exact=True)
+    check(same, "traced answers differ from phase 5's")
+    snap = svc.stats.snapshot()
+    lives = [s.attrs["batch"] for s in svc.tracer.snapshot()
+             if s.name == "dispatch"]
+    check(len(lives) == len(traces) == snap["batches"],
+          f"{len(traces)} traces, {len(lives)} dispatch spans, "
+          f"{snap['batches']} batches")
+    want: dict = {}
+    for tr, live in zip(traces, lives):
+        t = select_queries(tr, np.arange(live))
+        add_launches(want, trace_totals(t, B))
+        add_launches(want, svc.backend.trace_bytes(t))
+    check(want == snap["cascade"],
+          f"stats.cascade {snap['cascade']} is not the sum of the batches' "
+          f"traces {want}")
+    check(want["queries"] == len(workload)
+          and want["rows_screened"] == len(workload) * B,
+          f"cascade totals: {want}")
+    cal = svc.calibration.snapshot()
+    obs["serve"] = {"qps": res.qps, "launches": ln,
+                    "exact_mismatches": mismatches,
+                    "answers_equal_phase5": same, "cascade": want,
+                    "spans": svc.tracer.counts(),
+                    "calibration": [c.as_dict() for c in cal],
+                    "calibration_summary": svc.calibration.summary()}
+    log(f"[obs-serve] {res.served}/{len(workload)} served traced at "
+        f"{res.qps:.2f} qps; launches {ln}; replay mismatches {mismatches}; "
+        f"answers equal phase 5's bit for bit: {same}; stats.cascade equals "
+        f"the sum of {len(traces)} batch traces: {want}")
+    cs = obs["serve"]["calibration_summary"]
+    log(f"[obs-calibration] {cs['n']} dispatches: measured "
+        f"{cs['mean_measured_s'] * 1e3:.2f} ms mean against the cost "
+        f"model's {cs['mean_predicted_s'] * 1e3:.4f} ms: rel_err "
+        f"{cs['mean_rel_err']:.4f}, roofline share "
+        f"{cs['mean_roofline_frac']:.5f} (H100 peaks; the measured time is "
+        f"the dispatch's wall time: representation, kernels, the dense "
+        f"(Q, B) copy to the host, the counting pass, the sync)")
+
+    # ---- 5. the metrics text of that service, scraped once
+    server = start_metrics_server(svc.metrics_text, 0)
+    try:
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.server_address[1]}/metrics",
+            timeout=30).read().decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+    missing = [f for f in REQUIRED_FAMILIES if f"# TYPE {f}" not in text]
+    stages = dict(re.findall(r'repro_cascade_rows_total\{stage="(\w+)"\} '
+                             r'(\S+)', text))
+    check(not missing and all(float(v) > 0 for v in stages.values())
+          and len(stages) == 8,
+          f"metrics scrape: missing {missing}, cascade {stages}")
+    obs["metrics"] = {"families": len(REQUIRED_FAMILIES), "cascade": stages,
+                      "bytes": len(text)}
+    log(f"[obs-metrics] scraped {len(text)} bytes: all "
+        f"{len(REQUIRED_FAMILIES)} required families, cascade counters "
+        f"{stages}")
+    del svc, traces
+
+    # ---- 2. the counters at 2^20 rows against the plain versions
+    qs = queries[:32]
+    dev = index.device
+    qr = engine.represent_queries(
+        torch.as_tensor(qs, dtype=torch.float32, device=dev), index.levels,
+        index.alphabet)
+    (ans, d2, rtr), ln = counted(torch, fq, lambda: engine.range_query_traced(
+        index, qr, OBS_EPS))
+    add_launches(launches, ln)
+    (nn_idx, nn_d2, exact, ktr), ln = counted(
+        torch, fq, lambda: engine.knn_query_traced(index, qr, OBS_K))
+    add_launches(launches, ln)
+    eps_r = torch.full((len(qs),), OBS_EPS, dtype=torch.float32, device=dev)
+    eps_k = engine._final_radius(nn_d2, OBS_K).reshape(-1)
+    check(counters_equal(rtr, index_counts(torch, ref, ops, index, qr,
+                                           eps_r))
+          and counters_equal(ktr, index_counts(torch, ref, ops, index, qr,
+                                               eps_k)),
+          "the traced counters differ from the plain per-level counts")
+    check(torch.equal(rtr.answers, ans.sum(-1).to(torch.int32))
+          and bool(exact.all()), "range answers / k-NN certificates")
+    rh, kh = to_host(rtr), to_host(ktr)
+    host_check = host_op_counts(torch, engine, ref, ops, host,
+                                qs[:OBS_HOST_QUERIES], OBS_EPS, dev)
+    obs["counters"] = {
+        "range": {"after_c9_mean": rh.after_c9.mean(0).tolist(),
+                  "after_c10_mean": rh.after_c10.mean(0).tolist(),
+                  "answers_mean": float(rh.answers.mean())},
+        "knn": {"after_c9_mean": kh.after_c9.mean(0).tolist(),
+                "after_c10_mean": kh.after_c10.mean(0).tolist(),
+                "radius_mean": float(eps_k.mean())},
+        "host": host_check}
+    log(f"[obs-counters] B={B}, {len(qs)} queries: range at ε={OBS_EPS} and "
+        f"k-NN (k={OBS_K}) at the final radius (mean "
+        f"{float(eps_k.mean()):.3f}) equal the plain per-level counts "
+        f"exactly; mean survivors per level after C9 / C10: range "
+        f"{obs['counters']['range']['after_c9_mean']} / "
+        f"{obs['counters']['range']['after_c10_mean']}, k-NN "
+        f"{obs['counters']['knn']['after_c9_mean']} / "
+        f"{obs['counters']['knn']['after_c10_mean']}; against the host op "
+        f"counts on {OBS_HOST_QUERIES} queries (excluded C9, C10, "
+        f"candidates) card {host_check['card']} host {host_check['host']}, "
+        f"band rows {host_check['band_rows']}, wrong "
+        f"{host_check['wrong_rows']}")
+
+    # ---- 3. the overhead: untraced, traced, traced, untraced
+    qps = {"untraced": [], "traced": []}
+    for mode in ("untraced", "traced", "traced", "untraced"):
+        s = service(ServeConfig(trace=mode == "traced"))
+        r, ln = serve_phase(torch, fq, s, workload, f"obs-{mode}")
+        add_launches(launches, ln)
+        check(r.served == len(workload), f"{mode}: served {r.served}")
+        qps[mode].append(r.qps)
+    knn = torch.arange(len(qs), device=dev) % 2 == 0
+    eps_m = torch.full((len(qs),), OBS_EPS, dtype=torch.float32, device=dev)
+    fused = lambda: engine.mixed_query_fused(index, qr, eps_m, knn, 8)
+    out = fused()
+    fused_ms = cuda_ms(torch, fused, 5)
+    count_ms = cuda_ms(torch, lambda: engine.mixed_trace(
+        index, qr, eps_m, knn, 8, out[1], out[2]), 5)
+    # Its two parts: the chunked cascade count, the k-th smallest.
+    d2a = torch.where(out[1], out[2], float("inf"))
+    split = {"cascade_counting_ms": cuda_ms(
+                 torch, lambda: engine._cascade_counting(index, qr, eps_m,
+                                                         None), 5),
+             "kth_smallest_ms": cuda_ms(
+                 torch, lambda: engine._kth_smallest(d2a, 8), 5)}
+    del d2a
+    ratio = float(np.median(qps["traced"]) / np.median(qps["untraced"]))
+    obs["overhead"] = {"qps": qps, "ratio_of_medians": ratio,
+                       "mixed_query_fused_ms": fused_ms,
+                       "mixed_trace_ms": count_ms, **split}
+    log(f"[obs-overhead] closed loop, 64 requests, in turns: untraced "
+        f"{qps['untraced'][0]:.2f} / {qps['untraced'][1]:.2f} qps, traced "
+        f"{qps['traced'][0]:.2f} / {qps['traced'][1]:.2f}: traced / "
+        f"untraced median {ratio:.3f} (reported, not checked); a Q=32 "
+        f"batch's mixed_query_fused {fused_ms:.3f} ms and its counting pass "
+        f"(mixed_trace) {count_ms:.3f} ms: the chunked cascade count "
+        f"{split['cascade_counting_ms']:.3f} ms, the k-th smallest over "
+        f"(32, B) {split['kth_smallest_ms']:.3f} ms (CUDA events)")
+
+    # ---- 4. a torch.profiler trace of every dispatch
+    prof_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_profile_"))
+    try:
+        s = service(ServeConfig(trace=True, profile_dir=str(prof_dir)))
+        r, ln = serve_phase(torch, fq, s, workload, "obs-profile")
+        add_launches(launches, ln)
+        paths = sorted(prof_dir.glob("dispatch_*.json"))
+        batches = s.stats.snapshot()["batches"]
+        check(len(paths) == batches >= 4,
+              f"{len(paths)} profiler traces for {batches} batches")
+        spans = [sp.duration_ms for sp in s.tracer.snapshot()
+                 if sp.name == "dispatch"]
+        prof = profile_dispatches(paths)
+        trace_mb = sum(p.stat().st_size for p in paths) / 1e6
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    names = {n for p in prof for n in p["kernels"]}
+    device_seen = all(p["device_events"] > 0 for p in prof)
+    obs["profile"] = {"dispatches": prof, "dispatch_span_ms": spans,
+                      "trace_mb": trace_mb, "device_events": device_seen}
+    if device_seen:
+        check(any("fused_range_kernel" in n for n in names)
+              and any("fused_topk_kernel" in n for n in names),
+              f"the profile does not name the fused kernels: {names}")
+        for p, span in zip(prof, spans):
+            log(f"[obs-profile] dispatch {span:.1f} ms (host span): capture "
+                f"window {p['window_ms']:.1f} ms, card busy "
+                f"{p['busy_ms']:.2f} ms, idle share {p['idle_share']:.4f}; "
+                f"top: " + ", ".join(f"{short_name(n)} {ms:.2f} ms"
+                                     for n, ms in p["top"][:4]))
+    else:
+        log("[obs-profile] CUPTI gave no device events in the torch.profiler "
+            "traces: the idle share is not measured")
+    log(f"[obs-profile] {len(paths)} batches profiled at {r.qps:.2f} qps "
+        f"({trace_mb:.1f} MB of Chrome traces, removed)")
+
+    # ---- 6. the int8 tier, traced
+    tw = workload[:OBS_TIER_REQUESTS]
+    s = service(ServeConfig(quantization="int8", trace=True), tiered=True)
+    r, tier_ln = serve_phase(torch, fq, s, tw, "obs-quant-serve")
+    add_launches(launches, tier_ln)
+    batches = s.stats.snapshot()["batches"]
+    check(r.served == len(tw)
+          and tier_ln["fused_quant_range"] >= 2 * batches,
+          f"the traced tier: served {r.served}, {batches} batches, "
+          f"launches {tier_ln} (kernel 5 in the dispatch and in the trace)")
+    q_mism, _ = replay_check(s, tw, r, "obs-quant-serve")
+    qdev = tier8.dev
+    qq = qs[:OBS_TIER_REQUESTS]
+    tqr = engine.represent_queries(
+        torch.as_tensor(qq, dtype=torch.float32, device=dev), qdev.levels,
+        qdev.alphabet)
+    (*_, qtr), ln = counted(torch, fq, lambda: engine
+                            .quantized_range_query_traced(tier8, tqr,
+                                                          OBS_EPS))
+    add_launches(launches, ln)
+    (_, qnn_d2, _, qktr), ln = counted(
+        torch, fq, lambda: engine.quantized_knn_query_traced(tier8, tqr,
+                                                             OBS_K))
+    add_launches(launches, ln)
+    tier_out = {}
+    for name, tr, eps in (
+            ("range", qtr, torch.full((len(qq),), OBS_EPS,
+                                      dtype=torch.float32, device=dev)),
+            ("knn", qktr, engine._final_radius(qnn_d2, OBS_K).reshape(-1))):
+        check(counters_equal(tr, quant_counts(torch, ref, ops, qdev, tqr,
+                                              eps)),
+              f"the tier's {name} counters differ from the plain ones")
+        panels = tuple(ops.query_panels(w, qdev.alphabet) for w in tqr.words)
+        plain = ref.fused_quant_range_ref(qdev, tqr.q, panels, tqr.residuals,
+                                          eps)
+        blocks = engine._fused_blocks(qdev, len(qq), quant=True)
+        got = fq.fused_quant_range(qdev, tqr.q, tqr.words, tqr.residuals,
+                                   eps, block_q=blocks[0], block_b=blocks[1])
+        agree = range_agreement(got, plain, ref.screen_limit_sq(
+            eps, qdev.series_err).cpu().numpy())
+        kept = to_host(tr).screen_survivors
+        plain_kept = plain[0].sum(-1).cpu().numpy()
+        check(np.array_equal(kept, got[0].sum(-1).cpu().numpy())
+              and agree["mismatch_outside_band"] == 0
+              and int(np.abs(kept - plain_kept).sum())
+              <= agree["mismatch_in_band"],
+              f"the tier's {name} screen count: {agree}")
+        tier_out[name] = {"screen_survivors": int(kept.sum()),
+                          "plain_kept": int(plain_kept.sum()),
+                          "band_rows": agree["mismatch_in_band"],
+                          "after_c10": int(to_host(tr).after_c10[:, -1]
+                                           .sum())}
+    obs["tier"] = {"launches": tier_ln, "exact_mismatches": q_mism,
+                   "qps": r.qps, "batches": batches, **tier_out}
+    log(f"[obs-tier] int8 tier traced: {r.served}/{len(tw)} served at "
+        f"{r.qps:.2f} qps over {batches} batches, replay mismatches "
+        f"{q_mism}; kernel 5 in the dispatch and the trace; range and k-NN "
+        f"counters equal the plain widened cascade, screen counts equal "
+        f"kernel 5's keep (plain keep with band rows counted): {tier_out}")
+    del s
+
+    # ---- 7. subseq-1M, traced: kernels 3 and 4
+    cfg = SUBSEQ
+    sidx = ss.subseq_device_index(sub["hidx"], dev)
+    sqr = ss.represent_subseq_queries(sidx, sub["queries"])
+    auto = SearchOptions(backend="auto")
+    (sans, sd2, str_), ln3 = counted(torch, fq, lambda: ss
+                                     .subseq_range_query_traced(
+                                         sidx, sqr, cfg["eps"], auto))
+    (sel, sel_d2, sexact, sktr), ln4 = counted(
+        torch, fq, lambda: ss.subseq_knn_query_traced(
+            sidx, sqr, cfg["k"], excl=cfg["excl"], options=auto))
+    add_launches(launches, ln3)
+    add_launches(launches, ln4)
+    check(ln3["fused_subseq_range"] > 0 and ln4["fused_subseq_topk"] > 0,
+          f"the traced subsequence calls: launches {ln3}, {ln4}")
+    check(torch.equal(sans, sub["ans"]) and torch.equal(sd2, sub["d2"])
+          and np.array_equal(sel, sub["sel"])
+          and np.array_equal(sel_d2, sub["sel_d2"]),
+          "the traced subsequence answers differ from phase 10's")
+    kf = ss.knn_fetch_count(cfg["k"], cfg["excl"], cfg["stride"],
+                            sidx.n_windows)
+    _, fetch_d2, _ = ss._subseq_knn_fetch(sidx, sqr, kf, auto)
+    seps = torch.full((sqr.q.shape[0],), cfg["eps"], dtype=torch.float32,
+                      device=dev)
+    check(counters_equal(str_, index_counts(torch, ref, ops, sidx.index, sqr,
+                                            seps))
+          and counters_equal(sktr, index_counts(
+              torch, ref, ops, sidx.index, sqr,
+              engine._final_radius(fetch_d2, kf).reshape(-1))),
+          "the subsequence counters differ from the plain per-level counts")
+    sh, skh = to_host(str_), to_host(sktr)
+    obs["subseq"] = {"launches": {**ln3, **{k: v for k, v in ln4.items()
+                                            if v}},
+                     "range_after_c10": int(sh.after_c10[:, -1].sum()),
+                     "range_answers": int(sh.answers.sum()),
+                     "knn_after_c10": int(skh.after_c10[:, -1].sum()),
+                     "knn_answers": int(skh.answers.sum())}
+    log(f"[obs-subseq] W={sidx.n_windows}: traced range (launches "
+        f"fused_subseq_range {ln3['fused_subseq_range']}) and k-NN "
+        f"(fused_subseq_topk {ln4['fused_subseq_topk']}) answer as phase 10 "
+        f"bit for bit; counters equal the plain per-level counts over the "
+        f"windows-as-rows columns: {obs['subseq']}")
+    del sidx
+    obs["seconds"] = time.perf_counter() - t_phase
+    obs["launches"] = launches
+    report["obs"] = obs
+    log(f"[obs] phase 15 in {obs['seconds']:.1f}s; launches of its "
+        f"main-path runs {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2937,8 +3491,8 @@ def main() -> int:
     report["quant_breakdown"] = quant_breakdown(torch, engine, qservice,
                                                 queries)
     log(f"[time] phases 1-8 in {time.perf_counter() - t_start:.1f}s")
-    index = service.backend.index          # phase 3's, for phases 12-13
-    del qservice, tier8, service, db
+    index = service.backend.index          # phase 3's, for phases 12-13, 15
+    del qservice, service, db
 
     # ---- 9-11. subsequence search
     slaunches, sk, sub = subseq_phases(torch, engine, fq, ref, report)
@@ -2951,14 +3505,21 @@ def main() -> int:
     # ---- 13. the paper's online phase, level at a time, on the card
     llaunches, sq = level_phase13(torch, engine, lo, ref, host, index,
                                   queries, report)
-    del index
     log(f"[time] phases 1-13 in {time.perf_counter() - t_start:.1f}s")
 
     # ---- 14. the index lifecycle: stores, warm starts, live ingest
     plaunches = lifecycle_phase(torch, engine, fq, host, queries, workload,
                                 result, qresult, sub, report)
-    del host, sub
     log(f"[time] phases 1-14 in {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 15. traced serving: counters, spans, calibration, metrics,
+    # the profiler
+    olaunches = obs_phase(torch, engine, fq, ref, ops, index, host, queries,
+                          workload, result, tier8, sub, report)
+    del host, sub, index, tier8
+    log(f"[time] phases 1-15 in {time.perf_counter() - t_start:.1f}s")
+    for name, count in olaunches.items():
+        plaunches[name] = plaunches.get(name, 0) + count
 
     kernels = []
     for name in ("fused_range", "fused_topk"):

@@ -46,6 +46,7 @@ from ..index import store as _store
 from ..kernels import fused_query as _fused
 from ..kernels import ops as kernel_ops
 from ..kernels import ref as _ref
+from ..obs.trace import QueryTrace, screen_row_bytes, tier_bytes
 from . import cost_model as _cost_model
 from . import representation as repr_registry
 from .fastsax import FastSAXIndex
@@ -1396,3 +1397,361 @@ def quantized_mixed_query(tindex: TieredIndex, qr: QueryReprDev, epsilon,
     d2 = _verify_tier(tindex.raw, idx, qr.q, valid, opts)
     answer = torch.where(knn_col, valid, valid & (d2 <= eps_req * eps_req))
     return idx, answer, torch.where(answer, d2, INF), overflow
+
+
+# ---------------------------------------------------------------------------
+# Observability: traced twins of the query entry points.
+#
+# Tracing never touches the untraced functions.  Each twin runs the
+# UNCHANGED call for its answers (on a CUDA index: the same kernels), then
+# a separate counting pass whose per-level expressions are those of
+# :func:`cascade_mask` (:func:`quantized_cascade_mask` on the tier), term
+# for term, in C9-then-C10 order over one running alive set.  So tracing
+# off is the old call path, and tracing on cannot change an answer.  The
+# counting pass is torch glue over the screen columns (words and
+# residuals, never the series), in row chunks: the full (Q, B, N) MINDIST
+# gather would be 2 GiB at Q = 32, B = 2^20, N = 16.
+# ---------------------------------------------------------------------------
+
+#: Bytes of one row chunk's (Q, chunk, N) MINDIST cells in a counting pass:
+#: few chunks (eight at Q = 32, N = 16, B = 2^20), each of bounded memory.
+_COUNT_CHUNK_BYTES = 256 << 20
+
+
+def _count_alive(mask: torch.Tensor) -> torch.Tensor:
+    """(…, B) bool -> (…,) int32 survivor count."""
+    return torch.sum(mask, dim=-1, dtype=torch.int32)
+
+
+def _count_chunks(B: int, Q: int, levels) -> range:
+    """Row starts of the counting pass's chunks."""
+    per_row = max(1, Q * max(levels, default=1) * 4)
+    return range(0, B, max(1, min(B, _COUNT_CHUNK_BYTES // per_row)))
+
+
+def _level_counts(alive0: torch.Tensor, c9_ok, c10_ok, L: int):
+    """Run the per-level tests ``c9_ok(li)`` / ``c10_ok(li)`` (bool
+    masks of the chunk) over the running alive set ``alive0``; returns
+    the chunk's ``(after_c9, after_c10)``, (Q, L) int64 each."""
+    alive = alive0
+    a9, a10 = [], []
+    for li in range(L):
+        alive = alive & c9_ok(li)
+        a9.append(alive.sum(dim=-1))
+        alive = alive & c10_ok(li)
+        a10.append(alive.sum(dim=-1))
+    return torch.stack(a9, dim=-1), torch.stack(a10, dim=-1)
+
+
+def _c10_sq(words: torch.Tensor, q_words: torch.Tensor, tab_sq: torch.Tensor,
+            n: int, N: int) -> torch.Tensor:
+    """(Q, chunk) MINDIST² of :func:`cascade_mask`'s C10 for int64
+    ``words`` (chunk, N) and ``q_words`` (Q, N), gathered from the
+    squared table ``tab_sq = tab · tab``: squaring before the gather gives
+    the same f32 cells as squaring after it, in one pass less."""
+    cell_sq = tab_sq[words[None, :, :], q_words[:, None, :]]
+    return (n / N) * torch.sum(cell_sq, dim=-1)
+
+
+def _cascade_counting(index: DeviceIndex, qr: QueryReprDev, eps,
+                      valid_mask: torch.Tensor | None):
+    """:func:`cascade_mask`, chunk by chunk, counting per level:
+    ``(after_c9, after_c10)``, (Q, L) int32.  ``eps`` is a scalar, (Q,)
+    or (Q, 1); ``valid_mask`` is folded into the first alive set, so
+    masked rows never count as C9 kills."""
+    n, dev, B = index.n, index.device, index.size
+    Q, L = qr.q.shape[0], len(index.levels)
+    eps = _eps_qcol(eps, Q, dev)
+    eps2 = eps * eps
+    tab = _mindist_sq_tab(index.alphabet, dev)
+    tab = tab * tab
+    words = [w.long() for w in index.words]
+    q_words = [w.long() for w in qr.words]
+    a9 = torch.zeros((Q, L), dtype=torch.int64, device=dev)
+    a10 = torch.zeros_like(a9)
+    chunks = _count_chunks(B, Q, index.levels)
+    for lo in chunks:
+        hi = min(B, lo + chunks.step)
+        alive0 = torch.ones((Q, hi - lo), dtype=torch.bool, device=dev)
+        if valid_mask is not None:
+            alive0 = alive0 & valid_mask[None, lo:hi]
+        c9, c10 = _level_counts(
+            alive0,
+            lambda li: torch.abs(index.residuals[li][None, lo:hi]
+                                 - qr.residuals[li][:, None]) <= eps,
+            lambda li: _c10_sq(words[li][lo:hi], q_words[li], tab, n,
+                               index.levels[li]) <= eps2,
+            L)
+        a9 += c9
+        a10 += c10
+    return a9.to(torch.int32), a10.to(torch.int32)
+
+
+def _trace_of(a9: torch.Tensor, a10: torch.Tensor, answers=None,
+              screened=None) -> QueryTrace:
+    """A trace whose verify touches the cascade's candidates (or the
+    ``screened`` rows of a series screen); ``answers`` default 0."""
+    cand = a10[:, -1] if screened is None else screened
+    return QueryTrace(after_c9=a9, after_c10=a10, screen_survivors=cand,
+                      verified=cand,
+                      answers=torch.zeros_like(cand) if answers is None
+                      else answers)
+
+
+def _final_radius(nn_d2: torch.Tensor, k: int) -> torch.Tensor:
+    """(Q, 1) radius of the k-th verified distance; +inf (fewer than k
+    finite) becomes ``_SEED_EPS_MAX``."""
+    eps = torch.sqrt(torch.clamp(nn_d2[:, k - 1:k], min=0.0))
+    return torch.where(torch.isfinite(eps), eps,
+                       torch.full_like(eps, _SEED_EPS_MAX))
+
+
+def _mixed_radius(epsilon, is_knn, k: int, answer, d2):
+    """Per-row final radius of a served mixed batch: range rows at the
+    request ε, k-NN rows at their k-th answer distance, recovered from
+    the returned buffers (compact or dense: non-answer slots are +inf).
+    Returns ``(eps (Q, 1), knn_col, k_eff, n_ans)``."""
+    Q, dev = answer.shape[0], answer.device
+    knn_col = torch.as_tensor(is_knn, dtype=torch.bool,
+                              device=dev).reshape(Q, 1)
+    d2a = torch.where(answer, d2, INF)
+    k_eff = max(1, min(int(k), d2a.shape[-1]))
+    eps = torch.where(knn_col, _final_radius(_kth_smallest(d2a, k_eff), 1),
+                      _eps_qcol(epsilon, Q, dev))
+    return eps, knn_col, k_eff, _count_alive(torch.isfinite(d2a))
+
+
+def _mixed_answers(knn_col, k_eff: int, n_ans) -> torch.Tensor:
+    """Answer-set sizes: k-NN rows report at most k."""
+    return torch.where(knn_col[:, 0], torch.clamp(n_ans, max=k_eff), n_ans)
+
+
+def cascade_trace(index: DeviceIndex, qr: QueryReprDev, epsilon,
+                  valid_mask: torch.Tensor | None = None) -> QueryTrace:
+    """:class:`QueryTrace` of the cascade at radius ``epsilon``: the
+    verify touches the candidates (the full-precision path has no series
+    screen); ``answers`` is zero until a caller sets it."""
+    a9, a10 = _cascade_counting(index, qr, epsilon, valid_mask)
+    return _trace_of(a9, a10)
+
+
+def range_query_traced(index: DeviceIndex, qr: QueryReprDev, epsilon,
+                       backend: str = "auto",
+                       valid_mask: torch.Tensor | None = None, **fused_kw):
+    """Range query and its trace: ``(answers, d2, trace)``.  The answers
+    are the untraced backend call's (on ``cuda``: kernel 1,
+    :func:`range_query_fused`); the counters come from the counting pass
+    at the same radius."""
+    if resolve_backend(backend, index.device) == "cuda":
+        ans, d2 = range_query_fused(index, qr, epsilon,
+                                    valid_mask=valid_mask, **fused_kw)
+    else:
+        ans, d2 = _mask_dense(*range_query(index, qr, epsilon), valid_mask)
+    trace = cascade_trace(index, qr, epsilon, valid_mask)
+    return ans, d2, dataclasses.replace(trace, answers=_count_alive(ans))
+
+
+def knn_radius_trace(index: DeviceIndex, qr: QueryReprDev, nn_d2, k: int,
+                     valid_mask: torch.Tensor | None = None) -> QueryTrace:
+    """Cascade counters at the final verified k-NN radius d_k.
+
+    The k-NN engines tighten their radius pass by pass, so their internal
+    counts do not compare across engines; the counters at d_k do: they
+    equal the host ``fastsax_range_query`` accounting at ε = d_k (the
+    k-th neighbour's own bounds lie inside its distance, so it survives
+    on both engines)."""
+    a9, a10 = _cascade_counting(index, qr, _final_radius(nn_d2, k),
+                                valid_mask)
+    return _trace_of(a9, a10, answers=_count_alive(
+        torch.isfinite(nn_d2[:, :k])))
+
+
+def knn_query_traced(index: DeviceIndex, qr: QueryReprDev, k: int,
+                     backend: str = "auto", capacity: int | None = None,
+                     n_iters: int = 2, valid_mask: torch.Tensor | None = None,
+                     **fused_kw):
+    """Exact k-NN and its trace at the final verified radius: ``(nn_idx,
+    nn_d2, exact, trace)``, the first three the untraced backend call's
+    (on ``cuda``: kernel 2, :func:`knn_query_fused`)."""
+    if resolve_knn_backend(backend, k, index.device) == "cuda":
+        nn_idx, nn_d2, exact = knn_query_fused(
+            index, qr, k, n_iters=n_iters, valid_mask=valid_mask, **fused_kw)
+    else:
+        nn_idx, nn_d2, exact = knn_query_auto(
+            index, qr, k, capacity=capacity, n_iters=n_iters,
+            valid_mask=valid_mask)
+    trace = knn_radius_trace(index, qr, nn_d2, min(int(k), index.size),
+                             valid_mask)
+    return nn_idx, nn_d2, exact, trace
+
+
+def mixed_trace(index: DeviceIndex, qr: QueryReprDev, epsilon, is_knn,
+                k: int, answer, d2,
+                valid_mask: torch.Tensor | None = None) -> QueryTrace:
+    """Trace of a served mixed batch at each row's FINAL radius (range
+    rows at ε, k-NN rows at the k-th answer distance of the returned
+    buffers, compact or dense); ``answers``: in-range rows, or min(k,
+    finite candidates) for k-NN rows."""
+    eps, knn_col, k_eff, n_ans = _mixed_radius(epsilon, is_knn, k, answer,
+                                               d2)
+    a9, a10 = _cascade_counting(index, qr, eps, valid_mask)
+    return _trace_of(a9, a10, answers=_mixed_answers(knn_col, k_eff, n_ans))
+
+
+def mixed_query_and_trace(index: DeviceIndex, qr: QueryReprDev, epsilon,
+                          is_knn, k: int, capacity: int, n_iters: int = 2,
+                          valid_mask: torch.Tensor | None = None):
+    """:func:`mixed_query` and :func:`mixed_trace` of its buffers:
+    ``(idx, answer, d2, overflow, trace)``."""
+    out = mixed_query(index, qr, epsilon, is_knn, k, capacity, n_iters,
+                      valid_mask)
+    return (*out, mixed_trace(index, qr, epsilon, is_knn, k, out[1], out[2],
+                              valid_mask))
+
+
+def mixed_query_dense_and_trace(index: DeviceIndex, qr: QueryReprDev,
+                                epsilon, is_knn, k: int,
+                                valid_mask: torch.Tensor | None = None):
+    """:func:`mixed_query_dense` and its trace: ``(idx, answer, d2,
+    overflow, trace)``.
+
+    The counters describe the work the dense path does: range rows count
+    the cascade at ε, but k-NN rows are answered by brute force over
+    every valid row, so they report ``after_c9 = after_c10 = verified =``
+    the valid row count and ``answers = min(k, valid)``.  (The
+    compacting twin counts k-NN rows at their k-th radius, because it
+    runs another strategy.)"""
+    out = mixed_query_dense(index, qr, epsilon, is_knn, k, valid_mask)
+    Q, B, dev = qr.q.shape[0], index.size, index.device
+    knn_col = torch.as_tensor(is_knn, dtype=torch.bool,
+                              device=dev).reshape(Q, 1)
+    a9, a10 = _cascade_counting(index, qr, epsilon, valid_mask)
+    n_valid = torch.full((Q, 1), B, dtype=torch.int32, device=dev) \
+        if valid_mask is None else _count_alive(valid_mask).reshape(1, 1)
+    a9 = torch.where(knn_col, n_valid, a9)
+    a10 = torch.where(knn_col, n_valid, a10)
+    answers = _mixed_answers(knn_col, max(1, min(int(k), B)),
+                             _count_alive(out[1]))
+    return (*out, _trace_of(a9, a10, answers=answers))
+
+
+def _quant_cascade_counting(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
+                            eps):
+    """:func:`quantized_cascade_mask`, chunk by chunk, counting per level:
+    the widened C9 ``|r̂(u) − r(q)| ≤ ε + e_blk`` on the dequantized
+    residuals, C10 unwidened on the int8 words (the expressions of
+    ``kernels/ref.py::quant_meta_alive_ref``)."""
+    n, dev, B = qindex.n, qindex.device, qindex.size
+    Q, L = qr.q.shape[0], len(qindex.levels)
+    eps = _eps_qcol(eps, Q, dev)
+    eps2 = eps * eps
+    tab = _mindist_sq_tab(qindex.alphabet, dev)
+    tab = tab * tab
+    words = [w.long() for w in qindex.words]
+    q_words = [w.long() for w in qr.words]
+    res = [_dequant_residuals_dev(qindex, li) for li in range(L)]
+    err = [_expand_block_col(qindex.resid_err[li], B) for li in range(L)]
+    a9 = torch.zeros((Q, L), dtype=torch.int64, device=dev)
+    a10 = torch.zeros_like(a9)
+    chunks = _count_chunks(B, Q, qindex.levels)
+    for lo in chunks:
+        hi = min(B, lo + chunks.step)
+        c9, c10 = _level_counts(
+            torch.ones((Q, hi - lo), dtype=torch.bool, device=dev),
+            lambda li: torch.abs(res[li][None, lo:hi]
+                                 - qr.residuals[li][:, None])
+            <= eps + err[li][None, lo:hi],
+            lambda li: _c10_sq(words[li][lo:hi], q_words[li], tab, n,
+                               qindex.levels[li]) <= eps2,
+            L)
+        a9 += c9
+        a10 += c10
+    return a9.to(torch.int32), a10.to(torch.int32)
+
+
+def quantized_cascade_trace(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
+                            epsilon) -> QueryTrace:
+    """Trace of the quantized screen at radius ``epsilon``.
+
+    Per level the widened-C9 and C10 survivors (the widened host oracle
+    ``search.quantized_fastsax_range_query`` counts the same); then the
+    series screen's survivors, the tier's own pruning figure with no
+    host counterpart: the keep count of ``fused_quant_range`` (kernel 5
+    on a CUDA index, its plain version on the CPU).  ``verified`` is the
+    screen's survivors: the rows the raw tier is read for."""
+    Q, dev = qr.q.shape[0], qindex.device
+    a9, a10 = _quant_cascade_counting(qindex, qr, epsilon)
+    block_q, block_b = _fused_blocks(qindex, Q, quant=True)
+    keep, _ = _fused.fused_quant_range(
+        qindex, qr.q, qr.words, qr.residuals, _eps_vec(epsilon, Q, dev),
+        block_q=block_q, block_b=block_b)
+    return _trace_of(a9, a10, screened=_count_alive(keep))
+
+
+def quantized_mixed_trace(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
+                          epsilon, is_knn, k: int, answer,
+                          d2) -> QueryTrace:
+    """:func:`mixed_trace` for the tiered backend: the same final-radius
+    recovery from the returned buffers, counted through the quantized
+    screen."""
+    eps, knn_col, k_eff, n_ans = _mixed_radius(epsilon, is_knn, k, answer,
+                                               d2)
+    return dataclasses.replace(quantized_cascade_trace(qindex, qr, eps),
+                               answers=_mixed_answers(knn_col, k_eff, n_ans))
+
+
+def quantized_range_query_traced(tindex: TieredIndex, qr: QueryReprDev,
+                                 epsilon, capacity: int | None = None,
+                                 backend: str = "auto",
+                                 max_doublings: int = 8):
+    """:func:`quantized_range_query` and its trace: ``(idx, answer, d2,
+    exact, trace)``."""
+    idx, answer, d2, exact = quantized_range_query(
+        tindex, qr, epsilon,
+        options=SearchOptions(capacity=capacity, backend=backend,
+                              max_doublings=max_doublings))
+    trace = quantized_cascade_trace(tindex.dev, qr, epsilon)
+    return idx, answer, d2, exact, dataclasses.replace(
+        trace, answers=_count_alive(answer))
+
+
+def quantized_knn_query_traced(tindex: TieredIndex, qr: QueryReprDev, k: int,
+                               capacity: int | None = None,
+                               backend: str = "auto",
+                               max_doublings: int = 8):
+    """:func:`quantized_knn_query` and its trace at the final verified
+    radius: ``(nn_idx, nn_d2, exact, trace)``."""
+    nn_idx, nn_d2, exact = quantized_knn_query(
+        tindex, qr, k,
+        options=SearchOptions(capacity=capacity, backend=backend,
+                              max_doublings=max_doublings))
+    k_eff = min(int(k), tindex.size)
+    trace = quantized_cascade_trace(tindex.dev, qr,
+                                    _final_radius(nn_d2, k_eff))
+    return nn_idx, nn_d2, exact, dataclasses.replace(
+        trace, answers=_count_alive(torch.isfinite(nn_d2[:, :k_eff])))
+
+
+def device_trace_bytes(index: DeviceIndex, trace: QueryTrace) -> dict:
+    """Per-tier bytes of a traced pass over a full-precision index: the
+    screen tier reads every row's f32 residual and int32 word columns
+    once per query; the verify tier is charged the candidate rows (what
+    the trace reports is the information cost, not the dense path's
+    byte meter)."""
+    rb = screen_row_bytes(index.levels, index.alphabet)
+    return tier_bytes(trace, index.size, rb, index.n,
+                      verify_itemsize=index.series.element_size())
+
+
+def tiered_trace_bytes(tindex: TieredIndex, trace: QueryTrace) -> dict:
+    """Per-tier bytes of a traced quantized pass: the resident screen
+    reads the QUANTIZED columns (int8 / bf16) and the quantized series
+    row; the verify tier is charged at the raw tier's itemsize for the
+    rows the screen kept."""
+    qdev = tindex.dev
+    rb = screen_row_bytes(qdev.levels, qdev.alphabet,
+                          resid_itemsize=qdev.residuals[0].element_size(),
+                          word_itemsize=qdev.words[0].element_size())
+    rb += qdev.n * qdev.series.element_size()
+    return tier_bytes(trace, tindex.size, rb, qdev.n,
+                      verify_itemsize=tindex.raw.dtype.itemsize)

@@ -28,7 +28,9 @@ class SearchOptions:
     (``search.fastsax_knn_query``).
     ``verify_prefetch``: overlap the tiered engines' raw-tier row fetch
     with the device's upload and verify (``engine._verify_prefetched``);
-    the distances are the same, bit for bit.
+    the distances are the same, bit for bit.  ``trace``: the serving
+    layer's query-path tracing (``serve.ServeConfig.from_options``).
+    ``normalize_queries``: z-normalise incoming queries.
     """
 
     backend: str = "auto"
@@ -39,6 +41,8 @@ class SearchOptions:
     verify_prefetch: bool = False
     seed_factor: int = 2
     adaptive_c10: bool = True
+    trace: bool = False
+    normalize_queries: bool = True
 
 
 _LEGACY_FIELDS = {
@@ -50,6 +54,8 @@ _LEGACY_FIELDS = {
     "verify_prefetch": "verify_prefetch",
     "seed_factor": "seed_factor",
     "adaptive_c10": "adaptive_c10",
+    "trace": "trace",
+    "normalize_queries": "normalize_queries",
 }
 
 

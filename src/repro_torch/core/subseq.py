@@ -26,10 +26,13 @@ zone of each other.
 
 The store round trip (:func:`save_subseq_index` /
 :func:`load_subseq_index`) writes and reads the reference's format.
-Only the paper's representation stack is built; the reference's
-extension columns (``window_symbolize_np``), its traced twins and its
-distributed form need later items of the port and raise
-``NotImplementedError`` naming them.
+The traced twins (:func:`subseq_range_query_traced`,
+:func:`subseq_knn_query_traced`) return the cascade counters of
+``obs/trace.py`` beside the untraced answers.  Only the paper's
+representation stack is built: the reference's extension columns
+(``window_symbolize_np``) need ROADMAP.md queue 1 item 12, and the
+build refuses another stack naming it; the distributed form (item 8) has
+no entry point here.
 """
 from __future__ import annotations
 
@@ -52,12 +55,6 @@ from .sax import discretize_np
 # Same floor as paa.znormalize / znormalize_np: a (near-)constant window
 # z-normalises through the guarded σ instead of dividing by ~0.
 ZNORM_EPS = 1e-8
-
-
-def _not_ported(what: str, item: int, slice_name: str):
-    return NotImplementedError(
-        f"{what} needs {slice_name} of the port (ROADMAP.md queue 1 item "
-        f"{item})")
 
 
 def n_windows_per_stream(stream_len: int, window: int, stride: int) -> int:
@@ -605,14 +602,50 @@ def _suppress_candidates(sidx: SubseqDeviceIndex, idx: np.ndarray,
     return sel_idx.astype(np.int64), sel_d2
 
 
-def subseq_range_query_traced(*args, **kwargs):
-    raise _not_ported("subseq_range_query_traced", 7,
-                      "the observability slice")
+def subseq_range_query_traced(sidx: SubseqDeviceIndex, qr: QueryReprDev,
+                              epsilon, options: SearchOptions | None = None,
+                              **legacy):
+    """:func:`subseq_range_query` and its cascade trace: ``(answers, d2,
+    trace)``.  The answers are the untraced call's (on ``cuda``: kernel
+    3); windows are rows, so the trace is ``engine.cascade_trace`` over
+    the windows-as-rows index, whose counters equal the host engine's
+    over the materialised windows at the same ε."""
+    opts, fused_kw = resolve_options(options, legacy,
+                                     "subseq_range_query_traced")
+    ans, d2 = subseq_range_query(sidx, qr, epsilon, options=opts, **fused_kw)
+    trace = _engine.cascade_trace(sidx.index, qr, epsilon)
+    return ans, d2, dataclasses.replace(trace,
+                                        answers=_engine._count_alive(ans))
 
 
-def subseq_knn_query_traced(*args, **kwargs):
-    raise _not_ported("subseq_knn_query_traced", 7,
-                      "the observability slice")
+def subseq_knn_query_traced(sidx: SubseqDeviceIndex, qr: QueryReprDev,
+                            k: int, excl: int | None = None,
+                            options: SearchOptions | None = None,
+                            block_q: int | None = None,
+                            block_w: int | None = None, **legacy):
+    """:func:`subseq_knn_query` and its cascade trace at the FETCH radius:
+    ``(sel_idx, sel_d2, exact, trace)``.
+
+    The trace describes the device work done: the engine fetches the
+    :func:`knn_fetch_count` nearest windows (on ``cuda``: kernel 4), so
+    the counters are taken at that fetch's final verified radius; the
+    exclusion-zone greedy is host bookkeeping over the fetched rows.
+    ``answers`` is the answer count per query after the greedy."""
+    opts, rest = resolve_options(options, legacy, "subseq_knn_query_traced")
+    if rest:
+        raise TypeError(
+            f"subseq_knn_query_traced: unexpected kwargs {sorted(rest)}")
+    excl = (sidx.window // 2) if excl is None else int(excl)
+    kf = knn_fetch_count(k, excl, sidx.stride, sidx.n_windows)
+    idx, d2, exact = _subseq_knn_fetch(sidx, qr, kf, opts, block_q, block_w)
+    trace = _engine.knn_radius_trace(sidx.index, qr, d2,
+                                     min(int(kf), int(d2.shape[-1])))
+    sel_idx, sel_d2 = _suppress_candidates(sidx, idx.cpu().numpy(),
+                                           d2.cpu().numpy(), int(k), excl)
+    answers = torch.as_tensor(np.isfinite(sel_d2).sum(axis=-1),
+                              dtype=torch.int32, device=sidx.device)
+    return (sel_idx, sel_d2, exact.cpu().numpy(),
+            dataclasses.replace(trace, answers=answers))
 
 
 # ---------------------------------------------------------------------------

@@ -23,12 +23,67 @@ machine-readable line ``[serve] summary {...}`` with
 ``"exact_mismatches": 0`` when every replayed request matched.  Runs on
 CUDA unless ``--device cpu``.  ``--search`` (the one-shot distributed
 search) needs the multi-device slice of the port and raises.
+
+Observability, off by default: ``--trace`` counts the cascade of every
+batch into the stats and keeps the span ring and the cost-model
+calibration; after the run ``--trace-jsonl``, ``--chrome-trace`` and
+``--calibration-out`` write them, ``--request-log`` the load
+generator's per-request JSONL, and ``--profile-dir`` collects one
+``torch.profiler`` Chrome trace per batch.  ``--metrics PORT`` serves
+the Prometheus text at ``http://127.0.0.1:PORT/metrics`` (0: a port the
+OS picks) while the workload runs, and ``--metrics-hold-s`` keeps it up
+after it::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve --device cpu \\
+        --db-size 512 --bench-requests 32 --trace --metrics 0 \\
+        --trace-jsonl spans.jsonl --chrome-trace spans.json \\
+        --calibration-out calibration.jsonl --request-log requests.jsonl
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+
+
+def _obs_start(args, service):
+    """Start the metrics endpoint when ``--metrics`` is set (port 0 lets
+    the OS pick); returns the server, or None, for :func:`_obs_finish`."""
+    if args.metrics < 0:
+        return None
+    from ..obs.metrics import start_metrics_server
+
+    server = start_metrics_server(service.metrics_text, args.metrics)
+    print(f"[serve] metrics at "
+          f"http://127.0.0.1:{server.server_address[1]}/metrics")
+    return server
+
+
+def _obs_finish(args, service, server):
+    """Write the trace artifacts, keep the metrics endpoint up for
+    ``--metrics-hold-s``, then shut it down."""
+    tracer = service.tracer
+    if tracer is not None and args.trace_jsonl:
+        n = tracer.to_jsonl(args.trace_jsonl)
+        print(f"[serve] wrote {n} spans -> {args.trace_jsonl}")
+    if tracer is not None and args.chrome_trace:
+        n = tracer.to_chrome_trace(args.chrome_trace)
+        print(f"[serve] wrote {n} chrome trace events -> {args.chrome_trace}")
+    calibration = service.calibration
+    if calibration is not None and args.calibration_out:
+        n = calibration.to_jsonl(args.calibration_out)
+        print(f"[serve] wrote {n} calibration records -> "
+              f"{args.calibration_out} (one DispatchRecord per line)")
+    if args.profile_dir:
+        print(f"[serve] torch.profiler traces, one per batch, in "
+              f"{args.profile_dir}")
+    if server is not None:
+        if args.metrics_hold_s > 0:
+            print(f"[serve] holding the metrics endpoint for "
+                  f"{args.metrics_hold_s:g}s")
+            time.sleep(args.metrics_hold_s)
+        server.shutdown()
+        server.server_close()
 
 
 def serve_service(args) -> dict:
@@ -40,7 +95,8 @@ def serve_service(args) -> dict:
                       max_wait_ms=args.max_wait_ms, alphabet=args.alphabet,
                       default_deadline_ms=args.deadline_ms or None,
                       backend=args.backend, quantization=args.quantization,
-                      verify_prefetch=args.verify_prefetch)
+                      verify_prefetch=args.verify_prefetch,
+                      trace=args.trace, profile_dir=args.profile_dir)
     tier = ("" if args.quantization == "none"
             else f", {args.quantization} resident tier")
     if args.index_dir:
@@ -77,11 +133,14 @@ def serve_service(args) -> dict:
                         deadline_ms=args.deadline_ms or None)
     workload = make_workload(queries, spec)
     with service:
+        server = _obs_start(args, service)
         result = run_closed_loop(service, workload, clients=args.clients,
-                                 deadline_ms=spec.deadline_ms)
+                                 deadline_ms=spec.deadline_ms,
+                                 jsonl_path=args.request_log or None)
         mismatches = -1
         if args.verify_exact:
             mismatches = check_exactness(service, workload, result)
+        _obs_finish(args, service, server)
     snap = service.stats.snapshot()
     summary = result.summary(snap)
     summary["exact_mismatches"] = mismatches
@@ -126,7 +185,8 @@ def serve_subseq_service(args) -> dict:
     cfg = ServeConfig(max_batch=args.max_batch, max_queue=args.max_queue,
                       max_wait_ms=args.max_wait_ms, alphabet=args.alphabet,
                       default_deadline_ms=args.deadline_ms or None,
-                      backend=args.backend)
+                      backend=args.backend, trace=args.trace,
+                      profile_dir=args.profile_dir)
     streams = make_wafer_like(args.streams, args.stream_len, seed=0,
                               normalize=False)
     excl = None if args.excl < 0 else args.excl
@@ -149,11 +209,14 @@ def serve_subseq_service(args) -> dict:
     workload = make_workload(queries, spec)
     shim = _SubseqLoadShim(service)
     with service:
+        server = _obs_start(args, service)
         result = run_closed_loop(shim, workload, clients=args.clients,
-                                 deadline_ms=spec.deadline_ms)
+                                 deadline_ms=spec.deadline_ms,
+                                 jsonl_path=args.request_log or None)
         mismatches = -1
         if args.verify_exact:
             mismatches = check_exactness(shim, workload, result)
+        _obs_finish(args, service, server)
     snap = service.stats.snapshot()
     summary = result.summary(snap)
     summary["exact_mismatches"] = mismatches
@@ -224,6 +287,33 @@ def main(argv=None):
     ap.add_argument("--verify-exact", action="store_true",
                     help="replay every served request through the direct "
                          "path and count mismatches")
+    ap.add_argument("--trace", action="store_true",
+                    help="query-path tracing: cascade counters into the "
+                         "stats, the span ring, per-dispatch cost-model "
+                         "calibration")
+    ap.add_argument("--metrics", type=int, default=-1, metavar="PORT",
+                    help="serve Prometheus metrics at "
+                         "http://127.0.0.1:PORT/metrics (0 = a port the OS "
+                         "picks, -1 = off)")
+    ap.add_argument("--metrics-hold-s", type=float, default=0.0,
+                    help="with --metrics: keep the endpoint up this many "
+                         "seconds after the workload, for external scrapers")
+    ap.add_argument("--trace-jsonl", default="",
+                    help="with --trace: write the span ring to this JSONL "
+                         "file after the run")
+    ap.add_argument("--chrome-trace", default="",
+                    help="with --trace: write the span ring as Chrome "
+                         "trace-event JSON (chrome://tracing, Perfetto)")
+    ap.add_argument("--calibration-out", default="",
+                    help="with --trace: write the cost-model calibration "
+                         "log to this JSONL file after the run")
+    ap.add_argument("--request-log", default="",
+                    help="write the load generator's per-request JSONL to "
+                         "this file")
+    ap.add_argument("--profile-dir", default="",
+                    help="wrap each batch's dispatch in a torch.profiler "
+                         "capture and write its Chrome trace here (the "
+                         "card's kernels and copies on a CUDA device)")
     args = ap.parse_args(argv)
     if args.search:
         raise NotImplementedError(

@@ -10,13 +10,14 @@ batcher always coalesces full batches (the service's peak capacity);
 ``run_sequential`` sends one request at a time through
 ``SearchService.direct_query``, the per-request baseline.  Exactness is
 part of the contract: ``check_exactness`` replays every served request
-through the direct path — batching must never change an answer.  The
-reference's per-request JSONL log (``jsonl_path``) comes with the
-observability slice of the port (ROADMAP.md queue 1 item 7).
+through the direct path — batching must never change an answer.  Both
+batched runs can write a per-request JSONL log (``jsonl_path``) after
+the run, on the service's clock.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
 import time
 from typing import Optional
@@ -85,23 +86,23 @@ class LoadResult:
         return out
 
 
-def _check_no_request_log(jsonl_path) -> None:
-    if jsonl_path is not None:
-        raise NotImplementedError(
-            "jsonl_path (the per-request log) needs the observability slice "
-            "of the port (ROADMAP.md queue 1 item 7)")
-
-
 def run_closed_loop(service, workload: list, clients: int = 8,
                     timeout_s: float = 120.0,
                     deadline_ms: Optional[float] = None,
                     jsonl_path=None) -> LoadResult:
     """Fire the workload through the batched service from ``clients``
-    concurrent closed-loop threads.  ``jsonl_path`` must be None."""
-    _check_no_request_log(jsonl_path)
+    concurrent closed-loop threads.
+
+    ``jsonl_path`` (optional) writes one JSON record per request after
+    the run: workload index, kind, ε / k, submit and completion times on
+    the service's ``time.perf_counter`` clock (they join the span ring's
+    ``to_jsonl`` export with no clock translation), latency in ms,
+    terminal status and answer-set size.  Nothing is written while
+    requests are in flight."""
     cursor = {"i": 0}
     lock = threading.Lock()
     requests: list = [None] * len(workload)
+    t_done: list = [0.0] * len(workload)
 
     def worker():
         while True:
@@ -121,6 +122,7 @@ def run_closed_loop(service, workload: list, clients: int = 8,
             except Exception:   # noqa: BLE001 — FAILED re-raise / timeout:
                 pass            # the terminal status is the record, and
             #                     the rest of the workload still runs.
+            t_done[i] = time.perf_counter()
 
     threads = [threading.Thread(target=worker, daemon=True)
                for _ in range(max(1, int(clients)))]
@@ -130,7 +132,7 @@ def run_closed_loop(service, workload: list, clients: int = 8,
     for t in threads:
         t.join(timeout=timeout_s)
     wall = time.perf_counter() - t0
-    return _load_result(requests, wall)
+    return _load_result(workload, requests, t_done, wall, jsonl_path)
 
 
 def run_saturated(service, workload: list, timeout_s: float = 120.0,
@@ -141,9 +143,10 @@ def run_saturated(service, workload: list, timeout_s: float = 120.0,
     ``max_queue >= len(workload)``, or the tail is rejected at submit.
     With the queue full the batcher always coalesces ``max_batch``
     requests, so the qps is the service's peak serving capacity rather
-    than the client threads' round trips.  ``jsonl_path`` must be None."""
-    _check_no_request_log(jsonl_path)
+    than the client threads' round trips.  ``jsonl_path`` as in
+    :func:`run_closed_loop`."""
     requests: list = [None] * len(workload)
+    t_done: list = [0.0] * len(workload)
     t0 = time.perf_counter()
     for i, (kind, q, eps, k) in enumerate(workload):
         if kind == KIND_KNN:
@@ -151,16 +154,18 @@ def run_saturated(service, workload: list, timeout_s: float = 120.0,
         else:
             requests[i] = service.submit_range(q, eps,
                                                deadline_ms=deadline_ms)
-    for req in requests:
+    for i, req in enumerate(requests):
         try:
             req.wait(timeout_s)
         except Exception:       # noqa: BLE001 — see run_closed_loop
             pass
+        t_done[i] = time.perf_counter()
     wall = time.perf_counter() - t0
-    return _load_result(requests, wall)
+    return _load_result(workload, requests, t_done, wall, jsonl_path)
 
 
-def _load_result(requests: list, wall: float) -> LoadResult:
+def _load_result(workload: list, requests: list, t_done: list, wall: float,
+                 jsonl_path) -> LoadResult:
     statuses = [r.status if r is not None else "unsubmitted"
                 for r in requests]
     # An accepted request must be served or rejected before its deadline;
@@ -169,9 +174,38 @@ def _load_result(requests: list, wall: float) -> LoadResult:
                   (OK, "rejected_deadline", "rejected_queue_full",
                    REJECTED_SHED, FAILED))
     served = sum(1 for s in statuses if s == OK)
+    if jsonl_path is not None:
+        _write_request_log(jsonl_path, workload, requests, t_done)
     return LoadResult(wall_s=wall, qps=served / wall if wall > 0 else 0.0,
                       statuses=statuses, requests=requests,
                       dropped_in_deadline=dropped)
+
+
+def _write_request_log(path, workload: list, requests: list,
+                       t_done: list) -> int:
+    """One JSON object per submitted request (see
+    :func:`run_closed_loop`); returns the count written."""
+    n = 0
+    with open(path, "w") as f:
+        for i, (kind, _q, eps, k) in enumerate(workload):
+            req = requests[i]
+            if req is None:
+                continue
+            done = t_done[i]
+            rec = {
+                "index": i,
+                "kind": kind,
+                "epsilon": float(eps),
+                "k": int(k),
+                "t_submit": req.t_submit,
+                "t_complete": done,
+                "latency_ms": (done - req.t_submit) * 1e3 if done else None,
+                "status": req.status,
+                "n_answers": int(req.ids.size) if req.ids is not None else 0,
+            }
+            f.write(json.dumps(rec, sort_keys=True) + "\n")
+            n += 1
+    return n
 
 
 def run_sequential(service, workload: list) -> tuple:

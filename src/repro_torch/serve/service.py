@@ -28,8 +28,17 @@ once per ``refresh_min_interval_s``.  One lock covers the swap, every
 device pass and the ids snapshot that maps its row positions, so no
 batch maps one generation's positions through another's ids.
 
+Tracing (``ServeConfig(trace=True)``): the cascade counters of every
+batch (``obs.trace.QueryTrace``, counted on the device and copied as
+(Q, L) and (Q,) counters only) into ``stats``, a bounded span ring
+(``tracer``: enqueue, batch form, dispatch, verify, reply), the
+cost-model calibration of every dispatch (``calibration``) and the
+Prometheus text (:meth:`SearchService.metrics_text`); ``profile_dir``
+wraps every batch's dispatch in a ``torch.profiler`` capture.  All off by
+default: the untraced service keeps none of that state.
+
 Settings that need a later slice of the port raise NotImplementedError:
-failover shards, a mesh, sharded stores and tracing.
+failover shards, a mesh and sharded stores.
 """
 from __future__ import annotations
 
@@ -42,17 +51,23 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.cost_model import fused_pass_estimate
 from ..core.engine import (DeviceIndex, TieredIndex, build_device_index,
                            check_device_stack, device_index_from_host,
-                           mixed_query,
-                           mixed_query_dense, mixed_query_fused,
-                           quantized_mixed_query, represent_queries,
-                           resolve_backend, resolve_device,
-                           resolve_knn_backend)
+                           device_trace_bytes, mixed_query,
+                           mixed_query_dense, mixed_query_dense_and_trace,
+                           mixed_query_fused, mixed_trace,
+                           quantized_mixed_query, quantized_mixed_trace,
+                           represent_queries, resolve_backend,
+                           resolve_device, resolve_knn_backend,
+                           tiered_trace_bytes)
 from ..core.fastsax import FastSAXConfig, build_index
 from ..core.options import SearchOptions
 from ..core.representation import DEFAULT_STACK
 from ..index.quantized import check_mode
+from ..obs.calibration import CalibrationLog
+from ..obs.spans import SpanRecorder, prepare_profiler, profiler_capture
+from ..obs.trace import select_queries, to_host, trace_totals
 from .batcher import (FAILED, KIND_KNN, KIND_RANGE, OK,
                       REJECTED_SHED, CircuitBreaker, MicroBatcher, Request)
 from .stats import StatsTracker
@@ -63,10 +78,6 @@ _LATER = {
     "shard_timeout_s": ("the multi-device slice", 8),
     "shard_retries": ("the multi-device slice", 8),
     "shard_backoff_s": ("the multi-device slice", 8),
-    "trace": ("the observability slice", 7),
-    "trace_ring": ("the observability slice", 7),
-    "calibration_ring": ("the observability slice", 7),
-    "profile_dir": ("the observability slice", 7),
     "sharded_store": ("the multi-device slice", 8),
 }
 
@@ -110,10 +121,27 @@ class ServeConfig:
     breaker_threshold: int = 5     # consecutive dispatch failures → open
     breaker_cooldown: int = 8      # shed batches before half-open probe
     async_refresh: bool = True     # background device upload on commit
-    trace: bool = False            # only False in this slice
-    trace_ring: int = 4096         # only the default in this slice
-    calibration_ring: int = 2048   # only the default in this slice
-    profile_dir: str = ""          # only the default in this slice
+    # Observability, all off by default: the untraced service is the
+    # untraced call path.
+    trace: bool = False            # cascade counters, spans, calibration
+    trace_ring: int = 4096         # span ring capacity (bounded memory)
+    calibration_ring: int = 2048   # dispatch-record ring capacity
+    profile_dir: str = ""          # torch.profiler capture dir ("" = off)
+
+    @classmethod
+    def from_options(cls, options: SearchOptions, **overrides):
+        """A ServeConfig from the query-options surface: the
+        :class:`SearchOptions` fields with a serving counterpart map
+        across, the rest keep their defaults (or ``overrides``)."""
+        mapped = dict(backend=options.backend,
+                      quantization=options.quantization,
+                      verify_prefetch=options.verify_prefetch,
+                      trace=options.trace,
+                      n_iters=options.n_iters,
+                      capacity0=options.capacity,
+                      normalize_queries=options.normalize_queries)
+        mapped.update(overrides)
+        return cls(**mapped)
 
     def __post_init__(self):
         check_mode(self.quantization)
@@ -151,6 +179,11 @@ def _prepare_on_side_stream(device, build):
     return out
 
 
+def _trace_to_host(backend, trace) -> None:
+    """Keep a dispatch's trace as host counters (None when untraced)."""
+    backend.last_trace = None if trace is None else to_host(trace)
+
+
 def _to_host(backend, out: tuple) -> tuple:
     """Copy a dispatch's ``(idx, answer, d2, overflow)`` to the host,
     note the bytes and the certificates, return ``(idx, answer, d2)``."""
@@ -180,8 +213,10 @@ class _SingleBackend:
         self.backend = resolve_backend(cfg.backend, index.device)
         self._cap: Optional[int] = None   # learned capacity or _DENSE
         self.stats: Optional[StatsTracker] = None   # set by SearchService
-        # Bytes the last dispatch copied from the device to the host.
+        # Bytes the last dispatch copied from the device to the host, and
+        # its trace (host counters) when it was asked for one.
         self.last_d2h_bytes = 0
+        self.last_trace = None
 
     @property
     def n(self) -> int:
@@ -209,8 +244,18 @@ class _SingleBackend:
         self.index = prepared
         self.backend = resolve_backend(self.cfg.backend, prepared.device)
 
+    def trace_bytes(self, trace) -> dict:
+        return device_trace_bytes(self.index, trace)
+
+    def cost_estimate(self, Q: int, k: int) -> dict:
+        return fused_pass_estimate(Q, self.size, self.n, self.index.levels,
+                                   self.index.alphabet, k=int(k))
+
     def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
-                 k: int):
+                 k: int, want_trace: bool = False):
+        """One device pass: ``(idx, answer, d2)`` on the host.  With
+        ``want_trace`` the batch's trace is counted on the device before
+        the copy and kept in ``last_trace`` as host counters."""
         B, dev = self.size, self.index.device
         qr = represent_queries(torch.as_tensor(q, dtype=torch.float32,
                                                device=dev),
@@ -224,6 +269,7 @@ class _SingleBackend:
         fused = resolve_knn_backend(self.backend, k, dev) == "cuda"
         if self.stats is not None and self.backend == "cuda" and not fused:
             self.stats.on_demotion()
+        trace = None
         if fused:
             idx, answer, d2, overflow = mixed_query_fused(
                 self.index, qr, eps_t, knn_t, k, n_iters=self.cfg.n_iters)
@@ -245,8 +291,16 @@ class _SingleBackend:
                 cap = cap * 4 if cap * 4 <= cap_limit else _DENSE
             else:
                 self._cap = _DENSE
-                idx, answer, d2, overflow = mixed_query_dense(
-                    self.index, qr, eps_t, knn_t, k)
+                if want_trace:
+                    idx, answer, d2, overflow, trace = \
+                        mixed_query_dense_and_trace(self.index, qr, eps_t,
+                                                    knn_t, k)
+                else:
+                    idx, answer, d2, overflow = mixed_query_dense(
+                        self.index, qr, eps_t, knn_t, k)
+        if want_trace and trace is None:
+            trace = mixed_trace(self.index, qr, eps_t, knn_t, k, answer, d2)
+        _trace_to_host(self, trace)
         return _to_host(self, (idx, answer, d2, overflow))
 
 
@@ -265,10 +319,11 @@ class _QuantizedBackend:
         self.cfg = cfg
         self.backend = resolve_backend(cfg.backend, tindex.dev.device)
         self.stats: Optional[StatsTracker] = None   # set by SearchService
-        # Bytes the last dispatch copied from the device to the host, and
-        # the compaction capacity it reached.
+        # Bytes the last dispatch copied from the device to the host, the
+        # compaction capacity it reached, and its trace when asked for.
         self.last_d2h_bytes = 0
         self.last_capacity = 0
+        self.last_trace = None
 
     @property
     def n(self) -> int:
@@ -292,8 +347,19 @@ class _QuantizedBackend:
     def install(self, prepared):
         self.tindex = prepared
 
+    def trace_bytes(self, trace) -> dict:
+        return tiered_trace_bytes(self.tindex, trace)
+
+    def cost_estimate(self, Q: int, k: int) -> dict:
+        qdev = self.tindex.dev
+        return fused_pass_estimate(Q, self.size, self.n, qdev.levels,
+                                   qdev.alphabet, k=int(k))
+
     def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
-                 k: int):
+                 k: int, want_trace: bool = False):
+        """One tiered pass; ``want_trace`` as in
+        :meth:`_SingleBackend.dispatch` (its series-screen count is
+        ``fused_quant_range``'s keep count at the trace radius)."""
         qdev = self.tindex.dev
         dev = qdev.device
         qr = represent_queries(torch.as_tensor(q, dtype=torch.float32,
@@ -301,13 +367,15 @@ class _QuantizedBackend:
                                qdev.levels, qdev.alphabet,
                                normalize=self.cfg.normalize_queries)
         cap = self.cfg.capacity0 or max(4 * k, 64)
+        eps_t = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+        knn_t = torch.as_tensor(is_knn, dtype=torch.bool, device=dev)
         idx, answer, d2, overflow = quantized_mixed_query(
-            self.tindex, qr, torch.as_tensor(eps, dtype=torch.float32,
-                                             device=dev),
-            torch.as_tensor(is_knn, dtype=torch.bool, device=dev), k,
+            self.tindex, qr, eps_t, knn_t, k,
             options=SearchOptions(backend=self.cfg.backend, capacity=cap,
                                   verify_prefetch=self.cfg.verify_prefetch))
         self.last_capacity = int(idx.shape[-1])
+        _trace_to_host(self, quantized_mixed_trace(
+            qdev, qr, eps_t, knn_t, k, answer, d2) if want_trace else None)
         return _to_host(self, (idx, answer, d2, overflow))
 
 
@@ -326,9 +394,19 @@ class SearchService:
         self.mutable = mutable
         self.stats = StatsTracker()
         backend.stats = self.stats
+        # The tracing surfaces, allocated only with cfg.trace: the
+        # untraced service keeps no observability state beyond counters.
+        self.tracer = SpanRecorder(cfg.trace_ring) if cfg.trace else None
+        self.calibration = (CalibrationLog(cfg.calibration_ring)
+                            if cfg.trace else None)
         self._batcher = MicroBatcher(
             self._dispatch, max_batch=cfg.max_batch, max_queue=cfg.max_queue,
-            max_wait_ms=cfg.max_wait_ms, stats=self.stats)
+            max_wait_ms=cfg.max_wait_ms, stats=self.stats,
+            tracer=self.tracer)
+        if cfg.profile_dir:
+            # The captures run on the dispatcher thread; the profiler's
+            # first session must not (obs.spans.prepare_profiler).
+            prepare_profiler(backend.device)
         self.breaker = CircuitBreaker(threshold=cfg.breaker_threshold,
                                       cooldown=cfg.breaker_cooldown)
         # Serialises the device passes of the dispatcher thread and of
@@ -469,7 +547,8 @@ class SearchService:
                 is_knn = np.zeros(qb, dtype=bool)
                 is_knn[: max(1, qb // 2)] = True
                 with self._device_lock:
-                    self.backend.dispatch(q, eps, is_knn, kb)
+                    self.backend.dispatch(q, eps, is_knn, kb,
+                                          want_trace=self.cfg.trace)
         return self
 
     # --- submission ---------------------------------------------------------
@@ -665,10 +744,16 @@ class SearchService:
         k_bucket = _pow2_at_least(max(max_k, self._k_floor),
                                   self.backend.size)
         self.stats.on_batch(len(live), qb, self._batcher.depth)
+        tracing = self.tracer is not None
         try:
             with self._device_lock:
-                idx, answer, d2 = self.backend.dispatch(q, eps, is_knn,
-                                                        k_bucket)
+                t0 = time.perf_counter()
+                with profiler_capture(self.cfg.profile_dir,
+                                      self.backend.device):
+                    idx, answer, d2 = self.backend.dispatch(
+                        q, eps, is_knn, k_bucket, want_trace=tracing)
+                t1 = time.perf_counter()
+                trace = self.backend.last_trace
                 ids = self._ids
         except BaseException:
             # The batcher resolves the batch FAILED; feed the breaker.
@@ -678,8 +763,27 @@ class SearchService:
             raise
         self.breaker.on_success()
         self.stats.set_breaker(self.breaker.state, self.breaker.state_code)
-        for i, req in live:
-            self._finish(req, idx[i], answer[i], d2[i], ids)
+        if not tracing:
+            for i, req in live:
+                self._finish(req, idx[i], answer[i], d2[i], ids)
+            return
+        # The dispatch's outputs are on the host already (the backend
+        # copies them), so t1 − t0 covers the whole device pass with no
+        # sync added to measure it.
+        self.tracer.record("dispatch", t0, t1, batch=len(live), bucket=qb,
+                           k=k_bucket)
+        self.calibration.record(
+            batch=len(live), k=k_bucket, backend=type(self.backend).__name__,
+            measured_s=t1 - t0, estimate=self.backend.cost_estimate(
+                qb, k_bucket))
+        with self.tracer.span("verify", batch=len(live)):
+            live_trace = select_queries(trace, [i for i, _ in live])
+            totals = trace_totals(live_trace, self.backend.size)
+            totals.update(self.backend.trace_bytes(live_trace))
+            self.stats.on_cascade(totals)
+        with self.tracer.span("reply", batch=len(live)):
+            for i, req in live:
+                self._finish(req, idx[i], answer[i], d2[i], ids)
 
     def _finish(self, req: Request, idx_row, answer_row, d2_row, ids_map):
         if req.kind == KIND_KNN:
@@ -707,6 +811,19 @@ class SearchService:
         same on the batched and the direct path, so a replay still
         matches its batch."""
         return rows, dist
+
+    # --- observability surface ----------------------------------------------
+
+    def metrics_text(self) -> str:
+        """The Prometheus text exposition of this service (what
+        ``launch/serve.py --metrics`` serves), rebuilt per call from the
+        stats snapshot and, when tracing, the calibration and span
+        aggregates: no work on the request path."""
+        from ..obs.metrics import build_registry
+
+        cal = self.calibration.summary() if self.calibration else None
+        spans = self.tracer.counts() if self.tracer else None
+        return build_registry(self.stats.snapshot(), cal, spans).render()
 
     # --- unbatched reference path -------------------------------------------
 

@@ -1441,3 +1441,56 @@ def test_generation_swap_under_requests_in_flight(cuda, tmp_path,
     assert svc.generation == svc.mutable.generation == 2
     assert set(svc.last_refresh_times) == {"snapshot_s", "upload_s",
                                            "install_s"}
+
+
+def test_traced_counters_on_card_equal_the_cpu(cuda):
+    # The counting pass is torch glue: on the card it counts what the same
+    # call counts on the CPU.  Radii are handed over from the CPU, so both
+    # count at the same f32 values.
+    from repro_torch.obs.trace import to_host
+
+    case = (8, 3000, (8, 16), 10)
+    index_g, qr_g, _ = kernel_args(case, cuda)
+    index_c, qr_c, _ = kernel_args(case, "cpu")
+    eps = torch.linspace(0.5, 3.0, 8)
+    knn = torch.arange(8) % 3 == 0
+    ans_c, _, tr_c = engine.range_query_traced(index_c, qr_c, eps)
+    ans_g, _, tr_g = engine.range_query_traced(index_g, qr_g, eps.to(cuda))
+    _, nn_d2, _ = engine.knn_query_auto(index_c, qr_c, 5)
+    out_c = engine.mixed_query_dense(index_c, qr_c, eps, knn, 8)
+    pairs = [(tr_g, tr_c),
+             (engine.knn_radius_trace(index_g, qr_g, nn_d2.to(cuda), 5),
+              engine.knn_radius_trace(index_c, qr_c, nn_d2, 5)),
+             (engine.mixed_trace(index_g, qr_g, eps.to(cuda), knn.to(cuda),
+                                 8, out_c[1].to(cuda), out_c[2].to(cuda)),
+              engine.mixed_trace(index_c, qr_c, eps, knn, 8, out_c[1],
+                                 out_c[2]))]
+    for got, want in pairs:
+        got, want = to_host(got), to_host(want)
+        for f in ("after_c9", "after_c10", "screen_survivors", "verified"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    # The range answers came from kernel 1; their count is the trace's.
+    np.testing.assert_array_equal(to_host(tr_g).answers,
+                                  ans_g.sum(-1).cpu().numpy())
+
+
+def test_profiler_capture_names_the_fused_kernels(cuda, tmp_path):
+    import json
+
+    from repro_torch.obs.spans import prepare_profiler, profiler_capture
+
+    case = (8, 3000, (8, 16), 10)
+    index, qr, _ = kernel_args(case, cuda)
+    eps = torch.full((8,), 2.0, device=cuda)
+    knn = torch.arange(8, device=cuda) % 2 == 0
+    engine.mixed_query_fused(index, qr, eps, knn, 5)      # built, warm
+    torch.cuda.synchronize()
+    prepare_profiler(cuda)
+    with profiler_capture(tmp_path, cuda):
+        engine.mixed_query_fused(index, qr, eps, knn, 5)
+        torch.cuda.synchronize()
+    (path,) = sorted(tmp_path.glob("dispatch_*.json"))
+    names = {e.get("name", "") for e in json.loads(path.read_text())
+             ["traceEvents"] if e.get("cat") == "kernel"}
+    assert any("fused_range_kernel" in n for n in names), names
+    assert any("fused_topk_kernel" in n for n in names), names

@@ -8,6 +8,8 @@ the engine tests' band), and the saturated run's answers equal the
 sequential run's.  ``load_ucr`` on a file the test writes, and
 ``benchmark_database`` with and without ``REPRO_UCR_PATH``.
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -80,7 +82,7 @@ def test_load_generators_match_reference(setup, reference, generator):
         assert np.all(np.abs(g_d ** 2 - w2) <= band(w2))
 
 
-def test_saturated_queue_bound_and_request_log(setup):
+def test_saturated_queue_bound_and_request_log(setup, tmp_path):
     path, workload = setup
     svc = SearchService.from_store(path, ServeConfig(max_queue=8),
                                    device="cpu")
@@ -90,8 +92,16 @@ def test_saturated_queue_bound_and_request_log(setup):
         assert result.summary()["rejected_queue_full"] > 0
         assert result.served + result.summary()["rejected_queue_full"] \
             == len(workload)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            run_saturated(svc, workload, jsonl_path="log.jsonl")
+        # The per-request log: one record per submitted request, the
+        # rejected tail included with its status.
+        log = tmp_path / "log.jsonl"
+        logged = run_saturated(svc, workload, jsonl_path=log)
+        recs = [json.loads(line) for line in log.read_text().splitlines()]
+        assert [r["index"] for r in recs] == list(range(len(workload)))
+        assert [r["status"] for r in recs] == logged.statuses
+        assert all(r["n_answers"] == (req.ids.size if req.ids is not None
+                                      else 0)
+                   for r, req in zip(recs, logged.requests))
 
 
 def test_load_ucr_and_benchmark_database(tmp_path, monkeypatch):

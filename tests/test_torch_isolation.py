@@ -41,7 +41,12 @@ def test_port_files_import_neither_jax_nor_reference():
             "src/repro_torch/index/cli.py",
             "src/repro_torch/core/subseq.py",
             "src/repro_torch/core/search.py",
-            "src/repro_torch/kernels/level_ops.py"} <= names
+            "src/repro_torch/kernels/level_ops.py",
+            "src/repro_torch/obs/__init__.py",
+            "src/repro_torch/obs/trace.py",
+            "src/repro_torch/obs/spans.py",
+            "src/repro_torch/obs/calibration.py",
+            "src/repro_torch/obs/metrics.py"} <= names
     offenders = {str(p.relative_to(ROOT)): sorted(
                      imported_modules(p) & set(FORBIDDEN))
                  for p in PORT_FILES}
@@ -59,6 +64,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.index.mutable, repro_torch.index.cli\n"
             "import repro_torch.core.subseq, repro_torch.core.search\n"
             "import repro_torch.kernels.level_ops\n"
+            "import repro_torch.obs, repro_torch.obs.metrics\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
             "assert not bad, bad\n")

@@ -9,6 +9,7 @@ be the same: ids equal, distances within the d² band of the engine tests
 (1e-3 + 1e-5·d², the matmul-form f32 noise).
 """
 import json
+import pathlib
 import time
 
 import numpy as np
@@ -100,21 +101,23 @@ def test_deadline_expired_rejected_not_served(db):
 
 
 def test_later_slices_raise_not_implemented(db):
-    for kw, match in ((dict(failover_shards=2), "multi-device"),
-                      (dict(trace=True), "observability")):
-        with pytest.raises(NotImplementedError, match=match):
-            ServeConfig(**kw)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        ServeConfig(failover_shards=2)
     with pytest.raises(NotImplementedError, match="multi-device"):
         SearchService.from_series(db, ServeConfig(), mesh=object(),
                                   device="cpu")
+    # Tracing is ported: the service takes the setting.
+    svc = SearchService.from_series(db, ServeConfig(trace=True),
+                                    device="cpu")
+    assert svc.cfg.trace and svc.tracer is not None \
+        and svc.calibration is not None
 
 
 # The reference's ServeConfig settings of slices the port lacks, a value
 # other than the reference's default, and the ROADMAP.md item they wait on.
 UNPORTED_SETTINGS = [
     ("shard_timeout_s", 5.0, 8), ("shard_retries", 0, 8),
-    ("shard_backoff_s", 0.1, 8), ("trace_ring", 64, 7),
-    ("calibration_ring", 64, 7), ("profile_dir", "prof", 7)]
+    ("shard_backoff_s", 0.1, 8)]
 
 
 @pytest.mark.parametrize("name,value,item", UNPORTED_SETTINGS)
@@ -126,6 +129,37 @@ def test_reference_settings_wait_for_their_slice(name, value, item):
     assert getattr(ServeConfig(**{name: ref_default}), name) == ref_default
     with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\)"):
         ServeConfig(**{name: value})
+
+
+# The observability slice's settings, at a value other than the
+# reference's default: accepted, and they take effect.
+ACCEPTED_SETTINGS = [("trace_ring", 64), ("calibration_ring", 64),
+                     ("profile_dir", "prof")]
+
+
+@pytest.mark.parametrize("name,value", ACCEPTED_SETTINGS)
+def test_observability_settings_take_effect(db, tmp_path, name, value):
+    ref_default = jserve.ServeConfig.__dataclass_fields__[name].default
+    assert getattr(ServeConfig(), name) == ref_default
+    if name == "profile_dir":
+        value = str(tmp_path / value)
+    cfg = ServeConfig(max_batch=8, max_wait_ms=1.0, trace=True,
+                      **{name: value})
+    svc = SearchService.from_series(db, cfg, device="cpu")
+    qs = make_queries(db, 16, seed=9)
+    with svc:
+        for q in qs:               # one batch each: 5 spans a batch
+            svc.knn(q, 3)
+    if name == "trace_ring":
+        assert svc.tracer.capacity == value
+        assert len(svc.tracer) == value < svc.tracer.recorded
+    elif name == "calibration_ring":
+        assert svc.calibration.capacity == value
+        assert len(svc.calibration) == svc.calibration.recorded >= 1
+    else:
+        traces = sorted(pathlib.Path(value).glob("dispatch_*.json"))
+        assert len(traces) == svc.stats.snapshot()["batches"] >= 1
+        assert json.loads(traces[0].read_text())["traceEvents"]
 
 
 # The live-ingest settings of the index-lifecycle slice, at a value other

@@ -436,12 +436,6 @@ def test_launcher_serves_subsequences_on_cpu(capsys):
 
 def test_later_slices_raise_naming_their_items():
     streams = make_wafer_like(2, 300, seed=0, normalize=False)
-    hidx = tss.build_subseq_index(streams, FastSAXConfig(n_segments=LEVELS),
-                                  64, 2)
-    for fn, item in ((tss.subseq_range_query_traced, 7),
-                     (tss.subseq_knn_query_traced, 7)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            fn(hidx)
     with pytest.raises(NotImplementedError, match="item 12"):
         tss.build_subseq_index(
             streams, JConfig(n_segments=LEVELS,
