@@ -39,7 +39,7 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    from 16 closed-loop clients (k-NN fraction 0.5, k = 5, ε = 2); both
    kernels must have launched.  Every request is replayed alone
    (``check_exactness``: 0 mismatches), and 16 of them are checked
-   against an f64 brute force on the host.
+   against an f64 brute force on the card.
 6. Where the time of one served micro-batch goes.
 7. The quantized resident tier: ``SearchService.from_series`` with
    ``quantization="int8"`` over the same series, and a bf16 tier of the
@@ -180,6 +180,43 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    subseq-1M: kernels 3 and 4 launch, the answers are phase 10's bit for
    bit, the counters the plain per-level counts over the windows-as-rows
    columns.  The kernels line adds these runs' launches.
+16. Extended representation stacks at repr-1M, report key ``repr``,
+   ``[repr-*]`` lines: ``make_trending(2^20, 128)`` (its defaults), levels
+   (8, 16), α 10, the stack ``("linfit_residual", "sax_word",
+   "trend_slope")``, ε = 1.  (1) The bytes reckoned before the run.  (2)
+   ``SearchService.from_series`` on the stack builds on the card: words
+   and trend words equal the f64 host build's (``device_index_from_host``
+   of ``build_index``) except within 1e-4 of a breakpoint (counted).  (3)
+   The closed loop (64 requests, 16 clients, k-NN fraction 0.5, k = 5)
+   through the extended service and the paper-stack service in turns,
+   kernels 1-2 launching in both (the kernels answer with the paper
+   pair's cascade and an exact verify, whatever the stack): qps,
+   p50 / p99, 0 replay mismatches, 16 requests against the f64 brute
+   force, the answers set-identical to the paper stack's by the band
+   rule; ``max_memory_allocated``.  (4) ``range_query_traced`` /
+   ``knn_query_traced`` on 32 queries (kernels 1-2 answer): the counters
+   equal the plain per-level counts (C9, C10, then the trend bound), the
+   extended survivors ≤ the paper stack's at every level and fewer
+   verified, ``trend_slope``'s own kills per level; the torch engine's
+   cascade with the trend test on the card (range and k-NN) against
+   kernels 1-2 by the band rule; 4 queries against
+   ``search.fastsax_range_query``'s op counts over the same stack (band
+   rows counted); traced services show the extra kills in
+   ``stats.cascade`` and the metrics text.  (5) The int8 tier with the
+   trend column (kernel 5, then the trend test on its kept rows) against
+   full precision and against the paper tier's kernel 5.  (6) Phase 13's
+   loop with the trend
+   bound: ``prune_level``, then ``mindist_sq`` at n = N on the survivors'
+   trend words, then ``sqdist``, against the host engine; ``mindist_sq``
+   at n = N bit-identical to its plain version and to the bound.  (7)
+   subseq-1M's streams with the stack: the window hook's trend words
+   against the materialised windows', the answers through kernels 3-4
+   against the paper stack's and the torch engine's range answers with
+   the trend test.
+   (8) ``NearDuplicateFilter`` on the card over 65,536 trending rows with
+   an eighth planted near-duplicates, in batches of 1,024: the keep masks
+   equal a brute-force dedup on the card (f64), admits per second.  The
+   kernels line adds the phase's path launches (not its comparisons).
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -187,6 +224,7 @@ the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import pathlib
@@ -643,17 +681,28 @@ def exactness_details(service, workload, result, limit: int = 8) -> list:
     return out
 
 
+def rows_f64(torch, series, dev):
+    """A (B, n) host array as an f64 tensor on ``dev``, uploaded in row
+    chunks (a read-only store mmap is copied chunk by chunk)."""
+    step = 1 << 18
+    return torch.cat([torch.as_tensor(np.array(series[s:s + step],
+                                               np.float64), device=dev)
+                      for s in range(0, series.shape[0], step)])
+
+
 def brute_force_check(series, workload, result, n_check: int,
-                      ids=None) -> dict:
-    """f64 brute force on the host over the (B, n) ``series`` the service
+                      ids=None, device="cuda") -> dict:
+    """f64 brute force on the card over the (B, n) ``series`` the service
     serves, for ``n_check`` served requests (half of each kind).  Range id
-    sets and k-NN ids must be equal; a row whose f64 d² lies within the
-    f32 band of ε² (range) or of the k-th distance (k-NN) may differ and
-    is counted instead.  ``ids`` (ascending) are the rows' external ids
-    when the service answers in them; an answer id that names no row of
-    ``series`` is wrong."""
+    sets and k-NN ids (a stable sort: ties to the lower row) must be
+    equal; a row whose f64 d² lies within the f32 band of ε² (range) or of
+    the k-th distance (k-NN) may differ and is counted instead.  ``ids``
+    (ascending) are the rows' external ids when the service answers in
+    them; an answer id that names no row of ``series`` is wrong."""
+    import torch
     from repro_torch.core.paa import znormalize_np
-    series = np.asarray(series, np.float64)
+    dev = torch.device(device)
+    s64 = rows_f64(torch, series, dev)
     picked = {"range": [], "knn": []}
     for i, (kind, *_rest) in enumerate(workload):
         if len(picked[kind]) < n_check // 2 and \
@@ -672,17 +721,17 @@ def brute_force_check(series, workload, result, n_check: int,
                 stats["wrong"] += 1
                 continue
             req = type(req)(kind=req.kind, query=req.query, ids=pos)
-        qz = znormalize_np(np.asarray(q, np.float32).astype(np.float64))
-        d2 = np.empty(series.shape[0])
-        for s in range(0, series.shape[0], 1 << 16):
-            diff = series[s:s + (1 << 16)] - qz
-            d2[s:s + (1 << 16)] = np.einsum("ij,ij->i", diff, diff)
+        qz = torch.as_tensor(znormalize_np(
+            np.asarray(q, np.float32).astype(np.float64)), device=dev)
+        d2t = torch.cat([((s64[s:s + (1 << 18)] - qz) ** 2).sum(-1)
+                         for s in range(0, s64.shape[0], 1 << 18)])
+        d2 = d2t.cpu().numpy()
         if kind == "range":
             sym = np.setxor1d(np.flatnonzero(d2 <= eps * eps), req.ids)
             gap = np.abs(d2[sym] - eps * eps)
             ok = np.all(gap <= band(eps * eps))
         else:
-            want = np.lexsort((np.arange(d2.size), d2))[:k]
+            want = torch.sort(d2t, stable=True).indices[:k].cpu().numpy()
             sym = np.flatnonzero(want != req.ids)
             gap = np.abs(d2[want[sym]] - d2[req.ids[sym]])
             ok = req.ids.size == k and np.all(gap <= band(d2[want[sym]]))
@@ -1992,6 +2041,37 @@ def level_phase12(torch, engine, lo, ref, index, queries, report) -> tuple:
     return launches, figures
 
 
+def f64_columns(torch, host, dev, extra: str | None = None) -> dict:
+    """A host index's cascade columns on the card for its f64 bounds: per
+    level the f64 residuals and the symbols (``extra``: that column
+    too), and the f64 MINDIST table."""
+    from repro_torch.core.sax import mindist_table
+    t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    return {"n": host.n,
+            "tab": t(mindist_table(host.config.alphabet), torch.float64),
+            "res": [t(lv.residuals, torch.float64) for lv in host.levels],
+            "words": [t(lv.words, torch.int64) for lv in host.levels],
+            "extra": [t(lv.extra[extra], torch.int64) if extra else None
+                      for lv in host.levels]}
+
+
+def host_bounds(torch, cols, r, li: int, extra: str | None = None):
+    """Level ``li``'s f64 bounds of every row for the host-represented
+    query ``r`` on the card, the expressions of the registry's host forms
+    (``host_gap``, ``host_bound_sq``): ``(gap, sax², extra² or None)``."""
+    tab, words = cols["tab"], cols["words"][li]
+    Nseg = words.shape[1]
+    dev = words.device
+    gap = (cols["res"][li] - float(r.residuals[li])).abs()
+    cell = tab[words, torch.as_tensor(r.words[li], device=dev).long()[None]]
+    b2 = (cols["n"] / Nseg) * (cell * cell).sum(-1)
+    if extra is None:
+        return gap, b2, None
+    cell = tab[cols["extra"][li],
+               torch.as_tensor(r.extra[li][extra], device=dev).long()[None]]
+    return gap, b2, (cell * cell).sum(-1)
+
+
 def level_phase13(torch, engine, lo, ref, host, index, queries,
                   report) -> tuple:
     """Phase 13: the paper's online phase, one query and one level at a
@@ -2000,7 +2080,6 @@ def level_phase13(torch, engine, lo, ref, host, index, queries,
     ``sqdist``'s figures at its mean survivor count."""
     from repro_torch.core import search
     from repro_torch.core.fastsax import represent_query
-    from repro_torch.core.representation import get
 
     cfg, B, n = host.config, host.size, host.n
     A, dev = cfg.alphabet, index.device
@@ -2013,7 +2092,7 @@ def level_phase13(torch, engine, lo, ref, host, index, queries,
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
     fine = list(cfg.levels).index(max(cfg.n_segments))
-    sax_word = get("sax_word")
+    cols = f64_columns(torch, host, dev)
     qs = queries[:LEVEL_QUERIES]
     dqr = engine.represent_queries(
         torch.as_tensor(qs, dtype=torch.float32, device=dev), index.levels,
@@ -2059,18 +2138,18 @@ def level_phase13(torch, engine, lo, ref, host, index, queries,
             rs = search.sax_range_query(host, qr, eps)
             hs_ms = (time.perf_counter() - t) * 1e3
             # The host cascade's candidate sets and the f64 gap and bound
-            # of every row, for the band rule.
-            near = np.zeros(B, dtype=bool)
-            h_alive = np.ones(B, dtype=bool)
-            for li, lv in enumerate(host.levels):
-                gap = np.abs(lv.residuals - qr.residuals[li])
-                b2 = sax_word.host_bound_sq(lv.words, qr.words[li], n=n,
-                                            N=lv.n_segments, alphabet=A)
-                near_b2 = np.abs(b2 - eps * eps) <= band(eps * eps)
-                near |= (np.abs(gap - eps) <= band(eps)) | near_b2
+            # of every row (on the card), for the band rule.
+            near = torch.zeros(B, dtype=torch.bool, device=dev)
+            h_alive = torch.ones(B, dtype=torch.bool, device=dev)
+            for li in range(len(host.levels)):
+                gap, b2, _ = host_bounds(torch, cols, qr, li)
+                near_b2 = (b2 - eps * eps).abs() <= band(eps * eps)
+                near |= ((gap - eps).abs() <= band(eps)) | near_b2
                 h_alive &= (gap <= eps) & (b2 <= eps * eps)
                 if li == fine:
-                    h_sax, near_sax = b2 <= eps * eps, near_b2
+                    h_sax = (b2 <= eps * eps).cpu().numpy()
+                    near_sax = near_b2.cpu().numpy()
+            near, h_alive = near.cpu().numpy(), h_alive.cpu().numpy()
             check(int(h_alive.sum()) == rf.candidates
                   and int(h_sax.sum()) == rs.candidates,
                   "the host cascade's candidate sets do not match "
@@ -2456,7 +2535,9 @@ def lifecycle_quantized(torch, engine, fq, host, queries, workload,
         for t, lv in zip(qdev.residuals, stored.levels))
     check(zero_copy, f"the stored int8 tier was not served as stored "
           f"({len(calls)} requantizations)")
+    t0 = time.perf_counter()
     svc.warmup()
+    log(f"[lifecycle-int8] warmup {time.perf_counter() - t0:.1f}s")
     res, launched = serve_phase(torch, fq, svc, workload, "lifecycle-int8")
     add_launches(launches, launched)
     check(res.served == len(workload), f"int8 store: served {res.served}")
@@ -2741,13 +2822,38 @@ OBS_TIER_REQUESTS = 16         # of phase 5's requests, through the tier
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+def trend_bound_plain(torch, ops, twords, q_twords, alphabet: int):
+    """(Q, B) trend_slope bound Σᵢ tab[uᵢ, qᵢ]² by its plain expression:
+    a gather from the query panels (``ops.query_panels``), summed in
+    ``paa.row_sum``'s order."""
+    from repro_torch.core.paa import row_sum
+    panels = ops.query_panels(q_twords, alphabet)          # (Q, α, N)
+    Q, A, Nseg = panels.shape
+    flat = twords.long() * Nseg + torch.arange(Nseg,
+                                               device=twords.device)[None]
+    cell = torch.gather(panels.reshape(Q, A * Nseg), 1,
+                        flat.reshape(1, -1).expand(Q, -1))
+    cell = cell.reshape(Q, twords.shape[0], Nseg)
+    return row_sum(cell * cell)
+
+
+def trend_columns(index, qr) -> tuple:
+    """The trend_slope columns of an index and its queries, per level, or
+    ``(None, None)`` for the paper stack."""
+    if not index.extra:
+        return None, None
+    return ([lv["trend_slope"] for lv in index.extra],
+            [lv["trend_slope"] for lv in qr.extra])
+
+
 def plain_level_counts(torch, ref, ops, words, residuals, q_words, q_res,
-                       eps, levels, n: int, alphabet: int,
-                       widen=None) -> tuple:
+                       eps, levels, n: int, alphabet: int, widen=None,
+                       twords=None, q_twords=None) -> tuple:
     """Per query, the survivors after each level's C9 and after its C10
-    by the plain versions' expressions (``ref.cascade_alive_ref``, one
-    test at a time; with ``widen``, ``ref.quant_meta_alive_ref``'s
-    widened C9): ``(after_c9, after_c10)``, (Q, L) numpy."""
+    (and, with ``twords``, its trend_slope test) by the plain versions'
+    expressions (``ref.cascade_alive_ref``, one test at a time; with
+    ``widen``, ``ref.quant_meta_alive_ref``'s widened C9):
+    ``(after_c9, after_c10)``, (Q, L) numpy."""
     eps_c = eps.reshape(-1, 1)
     eps2 = eps_c * eps_c
     alive, a9, a10 = None, [], []
@@ -2758,6 +2864,9 @@ def plain_level_counts(torch, ref, ops, words, residuals, q_words, q_res,
         a9.append(alive.sum(dim=-1))
         alive &= ref.mindist_sq_ref(
             words[li], ops.query_panels(q_words[li], alphabet), N, n) <= eps2
+        if twords is not None:
+            alive &= trend_bound_plain(torch, ops, twords[li], q_twords[li],
+                                       alphabet) <= eps2
         a10.append(alive.sum(dim=-1))
     return (torch.stack(a9, -1).cpu().numpy(),
             torch.stack(a10, -1).cpu().numpy())
@@ -2772,9 +2881,11 @@ def counters_equal(trace, counts) -> bool:
 
 def index_counts(torch, ref, ops, index, qr, eps) -> tuple:
     """:func:`plain_level_counts` over a ``DeviceIndex``'s columns."""
+    tw, qtw = trend_columns(index, qr)
     return plain_level_counts(torch, ref, ops, index.words, index.residuals,
                               qr.words, qr.residuals, eps, index.levels,
-                              index.n, index.alphabet)
+                              index.n, index.alphabet, twords=tw,
+                              q_twords=qtw)
 
 
 def quant_counts(torch, ref, ops, qdev, qr, eps) -> tuple:
@@ -2786,78 +2897,87 @@ def quant_counts(torch, ref, ops, qdev, qr, eps) -> tuple:
            for li in range(len(qdev.levels))]
     err = [ref.expand_block_col(qdev.resid_err[li], B)
            for li in range(len(qdev.levels))]
+    tw, qtw = trend_columns(qdev, qr)
     return plain_level_counts(torch, ref, ops, qdev.words, res, qr.words,
                               qr.residuals, eps, qdev.levels, qdev.n,
-                              qdev.alphabet, widen=err)
+                              qdev.alphabet, widen=err, twords=tw,
+                              q_twords=qtw)
 
 
 def host_op_counts(torch, engine, ref, ops, host, queries, eps,
                    device) -> dict:
-    """The traced counters of phase 13's columns (the host index uploaded,
-    the queries represented on the host) against the op-counted host
-    engine ``search.fastsax_range_query``: per row, the level and test
-    that kills it (or none); rows killed elsewhere on the card must lie in
-    the f32 band of a bound (``|gap − ε|`` or ``|MINDIST² − ε²|`` within
-    1e-3 + 1e-5·x), none outside it."""
+    """The traced counters of a host index uploaded (the queries
+    represented on the host) against the op-counted host engine
+    ``search.fastsax_range_query`` over its stack: per row, the level and
+    test that kills it (C9, C10, and trend_slope when the stack has it)
+    or none, on the card and on the host (f64 bounds, computed on the
+    card); rows killed elsewhere on the card must lie in the f32 band of
+    a bound (``|gap − ε|`` or ``|bound² − ε²|`` within 1e-3 + 1e-5·x),
+    none outside it."""
     from repro_torch.core import search
     from repro_torch.core.fastsax import represent_query
-    from repro_torch.core.representation import get
+    from repro_torch.obs.trace import excluded_c9, excluded_c10, to_host
 
     cfg, B, n, A = host.config, host.size, host.n, host.config.alphabet
     L = len(host.levels)
+    trend = "trend_slope" if "trend_slope" in cfg.stack else None
+    T = 3 if trend else 2                       # tests per level
     dindex = engine.device_index_from_host(host, device)
     reps = [represent_query(q, cfg) for q in queries]
     dev = dindex.device
+    t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
     qr = engine.QueryReprDev(
-        q=torch.as_tensor(np.stack([r.q for r in reps]), dtype=torch.float32,
-                          device=dev),
-        words=tuple(torch.as_tensor(np.stack([r.words[li] for r in reps]),
-                                    dtype=torch.int32, device=dev)
+        q=t(np.stack([r.q for r in reps]), torch.float32),
+        words=tuple(t(np.stack([r.words[li] for r in reps]), torch.int32)
                     for li in range(L)),
-        residuals=tuple(torch.as_tensor([r.residuals[li] for r in reps],
-                                        dtype=torch.float32, device=dev)
-                        for li in range(L)))
+        residuals=tuple(t([r.residuals[li] for r in reps], torch.float32)
+                        for li in range(L)),
+        extra=tuple({trend: t(np.stack([r.extra[li][trend] for r in reps]),
+                              torch.int32)} for li in range(L))
+        if trend else ())
     _, _, tr = engine.range_query_traced(dindex, qr, eps)
-    from repro_torch.obs.trace import excluded_c9, excluded_c10, to_host
     tr = to_host(tr)
     eps_t = torch.full((len(reps),), eps, dtype=torch.float32, device=dev)
     check(counters_equal(tr, index_counts(torch, ref, ops, dindex, qr,
                                           eps_t)),
-          "phase 13's columns: the counters differ from the plain versions")
-    sax_word = get("sax_word")
+          "the host index's counters differ from the plain versions")
+    cols = f64_columns(torch, host, dev, trend)
     out = {"queries": len(reps), "band_rows": 0, "wrong_rows": 0,
            "card": [], "host": []}
     for qi, r in enumerate(reps):
         rf = search.fastsax_range_query(host, r, eps)
-        stage_h = np.full(B, 2 * L)
-        near = np.zeros(B, dtype=bool)
-        h_alive = np.ones(B, dtype=bool)
+        near = torch.zeros(B, dtype=torch.bool, device=dev)
+        h_alive = torch.ones(B, dtype=torch.bool, device=dev)
         d_alive = torch.ones(B, dtype=torch.bool, device=dev)
-        d_stage = torch.full((B,), 2 * L, device=dev)
-        e32 = eps_t[qi:qi + 1].reshape(1, 1)
+        h_stage = torch.full((B,), T * L, device=dev)
+        d_stage = torch.full((B,), T * L, device=dev)
+        e32 = eps_t[qi]
+        one = slice(qi, qi + 1)
         for li, lv in enumerate(host.levels):
-            gap = np.abs(lv.residuals - r.residuals[li])
-            b2 = sax_word.host_bound_sq(lv.words, r.words[li], n=n,
-                                        N=lv.n_segments, alphabet=A)
-            near |= (np.abs(gap - eps) <= band(eps)) | \
-                (np.abs(b2 - eps * eps) <= band(eps * eps))
-            for test, ok in ((2 * li, gap <= eps),
-                             (2 * li + 1, b2 <= eps * eps)):
-                stage_h[h_alive & ~ok] = test
-                h_alive &= ok
-            d_ok9 = (torch.abs(dindex.residuals[li]
-                               - qr.residuals[li][qi]) <= e32[0])
-            d_ok10 = ref.mindist_sq_ref(
-                dindex.words[li], ops.query_panels(qr.words[li][qi:qi + 1],
-                                                   A),
-                lv.n_segments, n)[0] <= e32[0] * e32[0]
-            for test, ok in ((2 * li, d_ok9), (2 * li + 1, d_ok10)):
-                d_stage[d_alive & ~ok] = test
-                d_alive &= ok
-        stage_d = d_stage.cpu().numpy()
+            Nseg = lv.n_segments
+            gap, b2, t2 = host_bounds(torch, cols, r, li, trend)
+            h_ok = [gap <= eps, b2 <= eps * eps]
+            near |= ((gap - eps).abs() <= band(eps)) | \
+                ((b2 - eps * eps).abs() <= band(eps * eps))
+            d_ok = [(dindex.residuals[li] - qr.residuals[li][qi]).abs()
+                    <= e32,
+                    ref.mindist_sq_ref(dindex.words[li], ops.query_panels(
+                        qr.words[li][one], A), Nseg, n)[0] <= e32 * e32]
+            if trend:
+                h_ok.append(t2 <= eps * eps)
+                near |= (t2 - eps * eps).abs() <= band(eps * eps)
+                d_ok.append(trend_bound_plain(
+                    torch, ops, dindex.extra[li][trend],
+                    qr.extra[li][trend][one], A)[0] <= e32 * e32)
+            for j, (hk, dk) in enumerate(zip(h_ok, d_ok)):
+                h_stage[h_alive & ~hk] = T * li + j
+                h_alive &= hk
+                d_stage[d_alive & ~dk] = T * li + j
+                d_alive &= dk
         check(int(h_alive.sum()) == rf.candidates,
               "the host cascade's survivors differ from search.py's count")
-        diff = stage_d != stage_h
+        diff = (d_stage != h_stage).cpu().numpy()
+        near = near.cpu().numpy()
         out["band_rows"] += int((diff & near).sum())
         out["wrong_rows"] += int((diff & ~near).sum())
         out["card"].append([int(excluded_c9(tr, B).sum(-1)[qi]),
@@ -3253,6 +3373,896 @@ def obs_phase(torch, engine, fq, ref, ops, index, host, queries, workload,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: extended representation stacks (repr-1M) — the trend_slope
+# column beside the paper pair, on trending data, and the near-duplicate
+# curation filter.
+# ---------------------------------------------------------------------------
+
+EXT_STACK = ("linfit_residual", "sax_word", "trend_slope")
+# repr-1M: make_trending's defaults (16 prototypes, 8 pieces, slope scale
+# 2.5, noise 0.08, seed 7) at 2^20 rows of 128, serve-1M's closed loop.
+# ε = 1: the median query has answers (a query is a row plus noise) and
+# trend_slope kills at both levels; the phase checks both.
+REPR = dict(rows=1 << 20, length=128, levels=(8, 16), alphabet=10,
+            eps=1.0, requests=64, clients=16, knn_frac=0.5, k=5,
+            queries=32, host_queries=4, traced_requests=16,
+            level_queries=16, level_eps=(1.0, 2.0),
+            curate_rows=65_536, curate_batch=1_024, curate_share=0.125,
+            curate_noise=0.02, curate_eps=0.5)
+# A device symbol may differ from the f64 host build's only where the f64
+# value lies this close to a breakpoint: a hundred times the f32 rounding
+# of a z-normalised segment sum.
+SYMBOL_BAND = 1e-4
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def counts_now(fq, lo) -> dict:
+    return {k.__name__: k.launches for k in fq.KERNELS + lo.KERNELS}
+
+
+def reset_counts(fq, lo) -> None:
+    fq.reset_launch_counts()
+    lo.reset_launch_counts()
+
+
+def symbol_band(got, want: np.ndarray, f64_values: np.ndarray) -> dict:
+    """Device symbols ``got`` against the f64 build's ``want``: the count
+    that differ, and how many of those lie outside SYMBOL_BAND of a
+    breakpoint (must be 0)."""
+    from repro_torch.core.sax import breakpoints
+    got = got.cpu().numpy()
+    rows, cols = np.nonzero(got != np.asarray(want))
+    vals = np.asarray(f64_values)[rows, cols]
+    bp = breakpoints(REPR["alphabet"])
+    near = np.min(np.abs(vals[:, None] - bp[None, :]), axis=-1) \
+        <= SYMBOL_BAND if vals.size else np.zeros(0, bool)
+    return {"symbols": int(got.size), "differ": int(rows.size),
+            "outside_band": int((~near).sum())}
+
+
+def repr_turns(torch, fq, lo, services, workload, tmp) -> list:
+    """The closed loop through each service in turns (paper, extended,
+    extended, paper): qps, p50 / p99 latency and the kernels launched in
+    each run."""
+    from repro_torch.serve import run_closed_loop
+    out = []
+    for i, (label, svc) in enumerate(services):
+        path = pathlib.Path(tmp) / f"turn{i}.jsonl"
+        reset_counts(fq, lo)
+        with svc:
+            result = run_closed_loop(svc, workload,
+                                     clients=REPR["clients"],
+                                     jsonl_path=path)
+            torch.cuda.synchronize()
+        launched = {k: v for k, v in counts_now(fq, lo).items() if v}
+        lat = [json.loads(line)["latency_ms"]
+               for line in path.read_text().splitlines()]
+        check(result.served == len(workload),
+              f"repr {label}: served {result.served} of {len(workload)}")
+        out.append({"stack": label, "qps": result.qps,
+                    "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)),
+                    "launches": launched, "result": result})
+        log(f"[repr-serve] {label} stack: {result.qps:.2f} qps, p50 "
+            f"{out[-1]['p50_ms']:.1f} ms p99 {out[-1]['p99_ms']:.1f} ms; "
+            f"launches {launched}")
+    return out
+
+
+def repr_tier(torch, engine, fq, lo, ref, ops, host, qs) -> tuple:
+    """The int8 tier with the trend_slope column (kernel 5, then the
+    trend test on its kept rows) against full precision and against the
+    paper-stack tier's kernel 5 (the same quantized columns without the
+    trend column): answers, cascade and screen counts, launches."""
+    from repro_torch.core.options import SearchOptions
+    eps, k = REPR["eps"], REPR["k"]
+    t0 = time.perf_counter()
+    tier_e = engine.TieredIndex.from_host(host, "int8")
+    tier_p = engine.TieredIndex(
+        dev=dataclasses.replace(tier_e.dev, extra=(),
+                                stack=EXT_STACK[:2]), raw=tier_e.raw)
+    full = engine.device_index_from_host(host)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    dev = full.device
+    for li, lv in enumerate(host.levels):
+        col = tier_e.dev.extra[li]["trend_slope"]
+        check(col.dtype == torch.int8 and np.array_equal(
+            col.cpu().numpy(), lv.extra["trend_slope"].astype(np.int8)),
+            "repr: the tier's trend_slope column is not the host's int8")
+    q = torch.as_tensor(qs, dtype=torch.float32, device=dev)
+    qr_e = engine.represent_queries(q, REPR["levels"], REPR["alphabet"],
+                                    stack=EXT_STACK)
+    qr_p = engine.represent_queries(q, REPR["levels"], REPR["alphabet"])
+    opts = SearchOptions(backend="auto")
+    # The same three calls on each tier, each call timed: a range, a
+    # k-NN and the trace.
+    runs, ms, launched = {}, {}, {}
+    for label, tier, qr in (("extended", tier_e, qr_e),
+                            ("paper", tier_p, qr_p)):
+        reset_counts(fq, lo)
+        calls = (("range", lambda: engine.quantized_range_query(
+                      tier, qr, eps, options=opts)),
+                 ("knn", lambda: engine.quantized_knn_query(
+                      tier, qr, k, options=opts)),
+                 ("trace", lambda: engine.quantized_cascade_trace(
+                      tier.dev, qr, eps)))
+        runs[label], ms[label] = {}, {}
+        for name, call in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[label][name] = call()
+            torch.cuda.synchronize()
+            ms[label][name] = (time.perf_counter() - t0) * 1e3
+        launched[label] = {k_: v for k_, v in counts_now(fq, lo).items()
+                           if v}
+        check(launched[label].get("fused_quant_range", 0) >= 3,
+              f"repr: the {label} tier did not launch kernel 5: "
+              f"{launched[label]}")
+    idx, ans, _, exact = runs["extended"]["range"]
+    k_idx, _, k_exact = runs["extended"]["knn"]
+    tr_e = runs["extended"]["trace"]
+    p_idx, p_ans, _, _ = runs["paper"]["range"]
+    tr_p = runs["paper"]["trace"]
+    launched_e, launched_p = launched["extended"], launched["paper"]
+    # The screen alone at the range radius: kernel 5, and on the extended
+    # tier the trend test on its kept rows (comparisons, not path runs).
+    for label, tier, qr in (("extended", tier_e, qr_e),
+                            ("paper", tier_p, qr_p)):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine._kernel5_screen(tier.dev, qr, eps)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[label]["screen_median"] = sorted(times)[2]
+    # Answers: the tier against full precision over the same rows.
+    f_ans, _ = engine.range_query(full, qr_e, eps)
+    f_idx, f_kd2, _ = engine.knn_query_auto(full, qr_e, k)
+    got = [sorted(idx[i][ans[i]].tolist()) for i in range(len(qs))]
+    paper = [sorted(p_idx[i][p_ans[i]].tolist()) for i in range(len(qs))]
+    want = [torch.nonzero(f_ans[i]).flatten().tolist()
+            for i in range(len(qs))]
+    stats = {"range_equal": 0, "band_rows": 0, "wrong": 0}
+    series = full.series
+    for i in range(len(qs)):
+        for other in (want[i], paper[i]):
+            sym = np.setxor1d(got[i], other)
+            if sym.size:
+                d2 = ((series[sym] - qr_e.q[i]) ** 2).sum(-1).cpu().numpy()
+                near = np.abs(d2 - eps * eps) <= band(eps * eps)
+                stats["band_rows"] += int(near.sum())
+                stats["wrong"] += int((~near).sum())
+        stats["range_equal"] += int(got[i] == want[i])
+    kn = (k_idx.cpu().numpy() != f_idx.cpu().numpy())
+    if kn.any():
+        dk = f_kd2.cpu().numpy()
+        d_got = ((series[k_idx.long()] - qr_e.q[:, None]) ** 2).sum(-1)
+        gap = np.abs(d_got.cpu().numpy() - dk)
+        stats["wrong"] += int((kn & (gap > band(dk))).sum())
+        stats["band_rows"] += int((kn & (gap <= band(dk))).sum())
+    check(stats["wrong"] == 0 and bool(exact.all()) and bool(k_exact.all()),
+          f"repr: the extended tier's answers differ from full precision "
+          f"or the paper tier: {stats}")
+    # Screen counts: kernel 5 with the trend test on its kept rows against
+    # kernel 5 on the paper tier (row for row no more), and each against
+    # its plain version (band-counted).
+    p_keep, _ = engine.quantized_screen(tier_p.dev, qr_p, eps)
+    e_keep, _ = engine.quantized_screen(tier_e.dev, qr_e, eps)
+    check(not bool((e_keep & ~p_keep).any()),
+          "repr: the extended screen kept a row the paper screen did not")
+    k5 = tr_p.screen_survivors.cpu().numpy().astype(np.int64)
+    plain_p = p_keep.sum(-1).cpu().numpy()
+    scr_e = tr_e.screen_survivors.cpu().numpy().astype(np.int64)
+    plain_e = e_keep.sum(-1).cpu().numpy()
+    check(np.all(scr_e <= k5),
+          f"repr: the extended tier screens more than kernel 5: "
+          f"{scr_e.tolist()} vs {k5.tolist()}")
+    eps_t = torch.full((len(qs),), eps, dtype=torch.float32, device=dev)
+    check(counters_equal(tr_e, quant_counts(torch, ref, ops, tier_e.dev,
+                                            qr_e, eps_t))
+          and counters_equal(tr_p, quant_counts(torch, ref, ops, tier_p.dev,
+                                                qr_p, eps_t)),
+          "repr: the tiers' counters differ from the plain widened cascade")
+    a10_e = tr_e.after_c10.cpu().numpy()
+    a10_p = tr_p.after_c10.cpu().numpy()
+    check(np.all(a10_e <= a10_p),
+          "repr: the extended tier's cascade kept more rows than the "
+          "paper tier's")
+    out = {"build_s": t_build, "answers": stats,
+           "after_c10_mean": {"extended": a10_e.mean(0).tolist(),
+                              "paper": a10_p.mean(0).tolist()},
+           "screen_mean": {"extended_kernel5": float(scr_e.mean()),
+                           "extended_plain": float(plain_e.mean()),
+                           "paper_kernel5": float(k5.mean()),
+                           "paper_plain": float(plain_p.mean())},
+           "kernel5_vs_plain_rows": {
+               "paper": int(np.abs(k5 - plain_p).sum()),
+               "extended": int(np.abs(scr_e - plain_e).sum())},
+           "ms": ms,
+           "launches": {"extended": launched_e, "paper": launched_p}}
+    del tier_e, tier_p, full
+    return out, {k_: launched_e.get(k_, 0) + launched_p.get(k_, 0)
+                 for k_ in set(launched_e) | set(launched_p)}
+
+
+def repr_level_search(torch, lo, ref, ops, host, queries, dev) -> tuple:
+    """Phase 13's level-at-a-time loop with the extended stack: per level
+    ``prune_level`` (kernel 12), then ``mindist_sq`` (kernel 10) at n = N
+    on the trend words of C9 ∧ C10's survivors, then ``sqdist`` (kernel
+    11) on the last survivors; against the op-counted host engine over
+    the same stack, and the paper pair's loop timed beside it."""
+    from repro_torch.core import search
+    from repro_torch.core.fastsax import represent_query
+    from repro_torch.core.representation import get
+
+    cfg, B, n = host.config, host.size, host.n
+    A, levels = cfg.alphabet, tuple(cfg.levels)
+    series = torch.as_tensor(host.series, dtype=torch.float32, device=dev)
+    words = [torch.as_tensor(lv.words, dtype=torch.int32, device=dev)
+             for lv in host.levels]
+    resid = [torch.as_tensor(lv.residuals, dtype=torch.float32, device=dev)
+             for lv in host.levels]
+    twords = [torch.as_tensor(lv.extra["trend_slope"], dtype=torch.int32,
+                              device=dev) for lv in host.levels]
+    cols = f64_columns(torch, host, dev, "trend_slope")
+    trend = get("trend_slope")
+    qs = queries[:REPR["level_queries"]]
+    tally = dict.fromkeys(("answers", "cand_band", "cand_wrong",
+                           "answer_band", "answer_wrong", "paper_band",
+                           "paper_wrong"), 0)
+    stats = {e: {"extended": dict.fromkeys(
+        ("card_ms", "candidates", "latency", "excluded_c9", "excluded_c10",
+         "trend_kills"), 0.0),
+        "paper": {"card_ms": 0.0, "candidates": 0.0}}
+        for e in REPR["level_eps"]}
+    lo.reset_launch_counts()
+    for eps in REPR["level_eps"]:
+        eps2 = ref.eps_sq_f32(eps)
+        for qi in range(len(qs)):
+            qr = represent_query(qs[qi], cfg)
+            q = torch.as_tensor(qr.q, dtype=torch.float32, device=dev)
+            # The paper pair on the card (phase 13's FAST_SAX).
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            alive = torch.ones(B, dtype=torch.bool, device=dev)
+            for li in range(len(levels)):
+                alive = lo.prune_level(alive, resid[li], words[li],
+                                       qr.words[li], qr.residuals[li], eps,
+                                       n, A)
+            p_cand = torch.nonzero(alive).flatten()
+            p_ans = p_cand[lo.sqdist(series[p_cand], q) <= eps2]
+            p_cand, p_ans = p_cand.cpu().numpy(), p_ans.cpu().numpy()
+            p_ms = (time.perf_counter() - t) * 1e3
+            # The extended stack: trend_slope after each level's C10.
+            t = time.perf_counter()
+            alive = torch.ones(B, dtype=torch.bool, device=dev)
+            kills = 0
+            for li, N in enumerate(levels):
+                alive = lo.prune_level(alive, resid[li], words[li],
+                                       qr.words[li], qr.residuals[li], eps,
+                                       n, A)
+                cand = torch.nonzero(alive).flatten()
+                tb = lo.mindist_sq(twords[li][cand],
+                                   qr.extra[li]["trend_slope"], N, A)
+                dead = cand[tb > eps2]
+                alive[dead] = False
+                kills += int(dead.numel())
+            e_cand = torch.nonzero(alive).flatten()
+            e_ans = e_cand[lo.sqdist(series[e_cand], q) <= eps2]
+            e_cand, e_ans = e_cand.cpu().numpy(), e_ans.cpu().numpy()
+            e_ms = (time.perf_counter() - t) * 1e3
+            # The op-counted host engine (f64) over the same stack.
+            rf = search.fastsax_range_query(host, qr, eps)
+            near = torch.zeros(B, dtype=torch.bool, device=dev)
+            h_alive = torch.ones(B, dtype=torch.bool, device=dev)
+            for li in range(len(levels)):
+                gap, b2, t2 = host_bounds(torch, cols, qr, li, "trend_slope")
+                near |= ((gap - eps).abs() <= band(eps)) | \
+                    ((b2 - eps * eps).abs() <= band(eps * eps)) | \
+                    ((t2 - eps * eps).abs() <= band(eps * eps))
+                h_alive &= (gap <= eps) & (b2 <= eps * eps) & \
+                    (t2 <= eps * eps)
+            near, h_alive = near.cpu().numpy(), h_alive.cpu().numpy()
+            check(int(h_alive.sum()) == rf.candidates,
+                  "repr: the host cascade's candidates differ from "
+                  "search.py's count")
+            diff = np.setxor1d(e_cand, np.nonzero(h_alive)[0])
+            tally["cand_band"] += int(near[diff].sum())
+            tally["cand_wrong"] += int((~near[diff]).sum())
+            for got, want, key in ((e_ans, rf.answers, "answer"),
+                                   (e_ans, p_ans, "paper")):
+                diff = np.setxor1d(got, want)
+                d2 = np.sum((host.series[diff] - qr.q) ** 2, axis=-1)
+                near_d2 = np.abs(d2 - eps * eps) <= band(eps * eps)
+                tally[f"{key}_band"] += int(near_d2.sum())
+                tally[f"{key}_wrong"] += int((~near_d2).sum())
+            tally["answers"] += len(rf.answers)
+            ext, pap = stats[eps]["extended"], stats[eps]["paper"]
+            ext["card_ms"] += e_ms / len(qs)
+            pap["card_ms"] += p_ms / len(qs)
+            ext["candidates"] += rf.candidates / len(qs)
+            pap["candidates"] += p_cand.size / len(qs)
+            ext["latency"] += rf.latency / len(qs)
+            ext["excluded_c9"] += rf.excluded_c9 / len(qs)
+            ext["excluded_c10"] += rf.excluded_c10 / len(qs)
+            ext["trend_kills"] += kills / len(qs)
+        ext, pap = stats[eps]["extended"], stats[eps]["paper"]
+        log(f"[repr-level] eps={eps}: card ms per query extended "
+            f"{ext['card_ms']:.3f} (the paper pair's loop, run first, "
+            f"{pap['card_ms']:.3f}); candidates {ext['candidates']:.1f} "
+            f"against the paper pair's {pap['candidates']:.1f}, "
+            f"trend_slope's kills on the card {ext['trend_kills']:.1f}; the "
+            f"host engine over the stack: op-counted latency "
+            f"{ext['latency']:.0f}, excluded C9 {ext['excluded_c9']:.1f} "
+            f"C10 {ext['excluded_c10']:.1f} (means over {len(qs)} "
+            f"queries)")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in lo.KERNELS}
+    check(tally["cand_wrong"] == 0 and tally["answer_wrong"] == 0
+          and tally["paper_wrong"] == 0,
+          f"repr: the extended level-at-a-time search disagrees outside "
+          f"the f32 band: {tally}")
+    check(all(launches[k] > 0 for k in ("mindist_sq", "sqdist",
+                                         "prune_level")),
+          f"repr: a level kernel did not launch: {launches}")
+    # Kernel 10 at n = N is the trend_slope bound: bit for bit its plain
+    # version, and the engine's dev_bound_sq (the scale is exactly 1.0f).
+    qr = represent_query(qs[0], cfg)
+    tab = ops.mindist_table_cached(A, str(dev))
+    bit = True
+    for li, N in enumerate(levels):
+        qt = qr.extra[li]["trend_slope"]
+        got = lo.mindist_sq(twords[li], qt, N, A)
+        want = ref.mindist_sq_level_ref(twords[li],
+                                        lo.query_table(qt, A, dev), N)
+        bound = trend.dev_bound_sq(
+            twords[li], torch.as_tensor(qt[None], device=dev), n=n, N=N,
+            tab=tab)[0]
+        bit &= bool(torch.equal(got, want)) and bool(torch.equal(got, bound))
+    check(bit and float(np.float32(levels[0]) / np.float32(levels[0]))
+          == 1.0, "repr: mindist_sq at n = N is not the trend_slope bound")
+    log(f"[repr-level] B={B}, {len(qs)} queries at eps {REPR['level_eps']}: "
+        f"card against the host engine {tally}; launches {launches}; "
+        f"mindist_sq at n = N bit-identical to ref.mindist_sq_level_ref "
+        f"and trend_slope's dev_bound_sq")
+    return {"stats": {str(e): v for e, v in stats.items()},
+            "agreement": tally, "launches": launches}, launches
+
+
+def repr_subseq(torch, engine, fq, lo, ss) -> tuple:
+    """subseq-1M's streams and shapes with the extended stack: the window
+    hook's trend words against the materialised windows', the range and
+    k-NN answers through kernels 3-4 against the paper stack's, and the
+    torch engine's range answers with the trend test against them."""
+    from repro_torch.core.fastsax import FastSAXConfig, LevelData
+    from repro_torch.core.options import SearchOptions
+    from repro_torch.core.representation import _trend_scaled_slope_np, get
+    from repro_torch.data.timeseries import (make_subseq_queries,
+                                             make_wafer_like)
+
+    cfg = SUBSEQ
+    streams = make_wafer_like(cfg["streams"], cfg["stream_len"], seed=0,
+                              normalize=False)
+    t0 = time.perf_counter()
+    hidx = ss.build_subseq_index(streams, FastSAXConfig(
+        n_segments=REPR["levels"], stack=EXT_STACK), cfg["window"],
+        cfg["stride"])
+    t_host = time.perf_counter() - t0
+    W, W_s, w = hidx.n_windows, hidx.windows_per_stream, hidx.window
+    rep = get("trend_slope")
+    want = {lv.n_segments: [] for lv in hidx.levels}
+    vals = {lv.n_segments: [] for lv in hidx.levels}
+    for lo_ in range(0, W, 1 << 17):
+        wid = np.arange(lo_, min(W, lo_ + (1 << 17)))
+        win = hidx.streams[(wid // W_s)[:, None],
+                           ((wid % W_s) * hidx.stride)[:, None]
+                           + np.arange(w)[None, :]]
+        z = (win - hidx.mu[wid, None]) / hidx.sd[wid, None]
+        for Nseg in want:
+            slope = _trend_scaled_slope_np(z, Nseg)
+            want[Nseg].append(rep.symbolize_np(z, Nseg, REPR["alphabet"]))
+            vals[Nseg].append(slope)
+    hook = {f"N{lv.n_segments}": symbol_band(
+        torch.as_tensor(lv.extra["trend_slope"]),
+        np.concatenate(want[lv.n_segments]),
+        np.concatenate(vals[lv.n_segments])) for lv in hidx.levels}
+    check(all(v["outside_band"] == 0 for v in hook.values()),
+          f"repr: the window hook's trend words differ from the "
+          f"materialised windows' outside the band: {hook}")
+    paper = dataclasses.replace(
+        hidx, config=FastSAXConfig(n_segments=REPR["levels"]),
+        levels=[LevelData(n_segments=lv.n_segments, words=lv.words,
+                          residuals=lv.residuals) for lv in hidx.levels])
+    t0 = time.perf_counter()
+    sidx_e = ss.subseq_device_index(hidx)
+    sidx_p = ss.subseq_device_index(paper)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    queries = make_subseq_queries(streams, cfg["queries"], w, seed=1)
+    qr_e = ss.represent_subseq_queries(sidx_e, queries)
+    qr_p = ss.represent_subseq_queries(sidx_p, queries)
+    eps, k, excl = cfg["eps"], cfg["k"], cfg["excl"]
+    runs, launched = {}, {}
+    for label, sidx, qr in (("paper", sidx_p, qr_p),
+                            ("extended", sidx_e, qr_e)):
+        reset_counts(fq, lo)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ans, d2 = ss.subseq_range_query(sidx, qr, eps)
+        torch.cuda.synchronize()
+        t_range = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        sel, sel_d2, exact = ss.subseq_knn_query(sidx, qr, k, excl=excl)
+        torch.cuda.synchronize()
+        t_knn = (time.perf_counter() - t0) * 1e3
+        launched[label] = {k_: v for k_, v in counts_now(fq, lo).items()
+                           if v}
+        check(bool(np.all(exact)), f"repr: subseq {label} k-NN not exact")
+        runs[label] = (ans, d2, sel, sel_d2, t_range, t_knn)
+    check(all(launched[lab].get("fused_subseq_range", 0) > 0
+              and launched[lab].get("fused_subseq_topk", 0) > 0
+              for lab in launched),
+          f"repr: kernels 3-4 did not launch: {launched}")
+    a_p, d_p, s_p, sd_p = runs["paper"][:4]
+    a_e, d_e, s_e, sd_e = runs["extended"][:4]
+    # The torch engine over the windows-as-rows index, the trend test in
+    # its cascade (a comparison, not a path run).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_t, d_t = ss.subseq_range_query(sidx_e, qr_e, eps,
+                                     options=SearchOptions(backend="torch"))
+    torch.cuda.synchronize()
+    t_torch = (time.perf_counter() - t0) * 1e3
+    agree = {"answers": int(a_p.sum())}
+    for key, (a, d) in (("extended", (a_e, d_e)), ("torch", (a_t, d_t))):
+        differ = (a_p != a).cpu().numpy()
+        d2 = torch.where(a_p, d_p, d).cpu().numpy()
+        near = np.abs(d2 - eps * eps) <= band(eps * eps)
+        agree[f"{key}_range_band"] = int((differ & near).sum())
+        agree[f"{key}_range_wrong"] = int((differ & ~near).sum())
+    off = s_p != s_e
+    kgap = np.abs(sd_p - sd_e)
+    agree["knn_band"] = int((off & (kgap <= band(sd_p))).sum())
+    agree["knn_wrong"] = int((off & ~(kgap <= band(sd_p))).sum())
+    check(agree["extended_range_wrong"] == 0 and agree["knn_wrong"] == 0
+          and agree["torch_range_wrong"] == 0,
+          f"repr: subseq answers differ from the paper stack's: {agree}")
+    # trend_slope's kills over the windows, at the range radius.
+    tr_e = engine.cascade_trace(sidx_e.index, qr_e, eps)
+    tr_p = engine.cascade_trace(sidx_p.index, qr_p, eps)
+    out = {"windows": W, "host_build_s": t_host, "upload_s": t_dev,
+           "hook_vs_windows": hook, "agreement": agree,
+           "ms": {**{lab: {"range": runs[lab][4], "knn": runs[lab][5]}
+                     for lab in runs}, "torch_range_extended": t_torch},
+           "after_c10_mean": {
+               "extended": tr_e.after_c10.float().mean(0).tolist(),
+               "paper": tr_p.after_c10.float().mean(0).tolist()},
+           "launches": launched}
+    log(f"[repr-subseq] {W} windows: host build with the window hook "
+        f"{t_host:.2f}s, upload {t_dev:.2f}s; hook against the materialised "
+        f"windows {hook}; answers against kernels 3-4 {agree}; ms per call "
+        f"{out['ms']}; after C10 per level (means) {out['after_c10_mean']}; "
+        f"launches {launched}")
+    del sidx_e, sidx_p
+    return out, {k_: launched["paper"].get(k_, 0)
+                 + launched["extended"].get(k_, 0)
+                 for k_ in set(launched["paper"]) | set(launched["extended"])}
+
+
+def plant_duplicates(rows: int, length: int, share: float, noise: float,
+                     seed: int = 3):
+    """Trending rows in admit order with a known share of planted near
+    duplicates: a planted row is an earlier row of the stream (of an
+    earlier batch or of its own) plus ``noise`` per sample.  Returns the
+    rows and the planted mask."""
+    from repro_torch.data.timeseries import make_trending
+    rng = np.random.default_rng(seed)
+    x = make_trending(rows, length, seed=seed + 8)
+    planted = rng.random(rows) < share
+    planted[0] = False
+    for i in np.nonzero(planted)[0]:
+        x[i] = x[rng.integers(i)] + noise * rng.standard_normal(length)
+    return x, planted
+
+
+def repr_curation(torch) -> dict:
+    """``NearDuplicateFilter`` on the card over trending rows with planted
+    near-duplicates, batch by batch against a brute-force dedup on the
+    card (f64, the same z-normalised f32 rows); admits per second."""
+    from repro_torch.core.paa import znormalize_np
+    from repro_torch.data.curation import NearDuplicateFilter
+
+    cfg = REPR
+    rows, bs, eps = cfg["curate_rows"], cfg["curate_batch"], \
+        cfg["curate_eps"]
+    x, planted = plant_duplicates(rows, cfg["length"], cfg["curate_share"],
+                                  cfg["curate_noise"])
+    filt = NearDuplicateFilter(cfg["length"], epsilon=eps)
+    check(filt.device.type == "cuda", "repr: the filter is not on the card")
+    dev = filt.device
+    pool = torch.zeros((0, cfg["length"]), dtype=torch.float64, device=dev)
+    margin, keeps, t_admit = np.inf, [], 0.0
+    for lo_ in range(0, rows, bs):
+        batch = x[lo_:lo_ + bs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep = filt.admit(batch)
+        torch.cuda.synchronize()
+        t_admit += time.perf_counter() - t0
+        z = torch.as_tensor(znormalize_np(batch).astype(np.float32),
+                            device=dev).double()
+        zn = (z * z).sum(-1)
+        bf = torch.ones(z.shape[0], dtype=torch.bool, device=dev)
+        if pool.shape[0]:
+            d2 = zn[:, None] - 2.0 * z @ pool.T + (pool * pool).sum(-1)[None]
+            bf &= ~(d2 <= eps * eps).any(-1)
+            margin = min(margin, float((d2 - eps * eps).abs().min()))
+        d2b = zn[:, None] - 2.0 * z @ z.T + zn[None]
+        off = ~torch.eye(z.shape[0], dtype=torch.bool, device=dev)
+        margin = min(margin, float((d2b - eps * eps).abs()[off].min()))
+        near = (d2b <= eps * eps).cpu().numpy()
+        bf = bf.cpu().numpy()
+        kept = []
+        for i in np.nonzero(bf)[0]:
+            if near[i, kept].any():
+                bf[i] = False
+            else:
+                kept.append(i)
+        check(np.array_equal(keep, bf),
+              f"repr: the filter's keep mask differs from the brute force "
+              f"in the batch at row {lo_}")
+        pool = torch.cat([pool, z[torch.as_tensor(bf, device=dev)]])
+        keeps.append(keep)
+    keep = np.concatenate(keeps)
+    out = {"rows": rows, "batch": bs, "eps": eps,
+           "planted": int(planted.sum()),
+           "rejected": int((~keep).sum()),
+           "planted_rejected": int((planted & ~keep).sum()),
+           "accepted": filt.stats.accepted, "pool": filt.pool_size,
+           "indexed_rows": filt._indexed_rows,
+           "min_margin_d2": margin, "admit_s": t_admit,
+           "rows_per_s": rows / t_admit,
+           "admits_per_s": (rows // bs) / t_admit}
+    check(out["accepted"] == out["pool"] == int(keep.sum())
+          and out["rejected"] > 0 and margin > band(eps * eps),
+          f"repr: curation figures do not add up: {out}")
+    log(f"[repr-curate] {rows} trending rows in batches of {bs} at eps "
+        f"{eps}: {out['planted']} planted, {out['rejected']} rejected "
+        f"({out['planted_rejected']} of them planted); keep masks equal to "
+        f"the brute force on the card (smallest |d² − ε²| {margin:.4f}); "
+        f"{out['admits_per_s']:.2f} admits/s, {out['rows_per_s']:.0f} "
+        f"rows/s")
+    return out
+
+
+def repr_phase(torch, engine, fq, lo, ref, ops, ss, report) -> dict:
+    """Phase 16 (repr-1M).  Returns the launches of the phase's path runs
+    per kernel (the turns, the traced twins, the tier, the level-at-a-time
+    loop and the subsequence calls; not the comparisons)."""
+    import tempfile
+
+    from repro_torch.core.fastsax import FastSAXConfig, build_index
+    from repro_torch.core.paa import paa_np
+    from repro_torch.core.representation import _trend_scaled_slope_np
+    from repro_torch.data.timeseries import make_queries, make_trending
+    from repro_torch.obs.trace import to_host
+    from repro_torch.serve import (SearchService, ServeConfig, WorkloadSpec,
+                                   make_workload, run_closed_loop)
+
+    cfg = REPR
+    levels, A, eps = cfg["levels"], cfg["alphabet"], cfg["eps"]
+    B, n = cfg["rows"], cfg["length"]
+    total = {}
+    out = {}
+    t_phase = time.perf_counter()
+
+    steps, t_step = {}, [time.perf_counter()]
+
+    def add(launched):
+        for name, count in launched.items():
+            total[name] = total.get(name, 0) + count
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    # ---- 1. data and the bytes reckoned before the run
+    t0 = time.perf_counter()
+    db = make_trending(B, n)
+    queries = make_queries(db, cfg["requests"], seed=1)
+    t_data = time.perf_counter() - t0
+    reckoned = {"series": B * n * 4, "paper_words": B * sum(levels) * 4,
+                "trend_words": B * sum(levels) * 4,
+                "residuals": B * len(levels) * 4, "norms": B * 4,
+                "gather_per_level_and_extra_q32": 32 * B * max(levels) * 4}
+    log(f"[repr-data] make_trending({B}, {n}) and {cfg['requests']} "
+        f"queries in {t_data:.1f}s; bytes reckoned before the run: "
+        f"{reckoned}")
+
+    step("data")
+    # ---- 2. the device build against the host build uploaded
+    t0 = time.perf_counter()
+    host = build_index(db, FastSAXConfig(n_segments=levels, alphabet=A,
+                                         stack=EXT_STACK))
+    t_host = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    svc_e = SearchService.from_series(db, ServeConfig(stack=EXT_STACK))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    svc_p = SearchService.from_series(db, ServeConfig())
+    built = svc_e.backend.index
+    check(svc_e.backend.backend == "cuda"
+          and built.device.type == "cuda" and built.stack == EXT_STACK,
+          "repr: the extended service must run the kernels on the card")
+    check(svc_p.backend.backend == "cuda",
+          "repr: the paper-stack service must run the kernels")
+    up = engine.device_index_from_host(host)
+    bands = {}
+    for li, N in enumerate(levels):
+        lv = host.levels[li]
+        check(np.array_equal(up.extra[li]["trend_slope"].cpu().numpy(),
+                             lv.extra["trend_slope"]),
+              "repr: device_index_from_host changed the trend words")
+        bands[f"words_N{N}"] = symbol_band(built.words[li], lv.words,
+                                           paa_np(host.series, N))
+        bands[f"trend_N{N}"] = symbol_band(
+            built.extra[li]["trend_slope"], lv.extra["trend_slope"],
+            _trend_scaled_slope_np(host.series, N))
+        bands[f"resid_N{N}_max_abs"] = float(
+            (built.residuals[li] - up.residuals[li]).abs().max())
+    check(all(v["outside_band"] == 0 for v in bands.values()
+              if isinstance(v, dict)),
+          f"repr: device symbols differ from the host build outside the "
+          f"f32 band of a breakpoint: {bands}")
+    nbytes = lambda ts: int(sum(t.numel() * t.element_size() for t in ts))
+    resident = {"series": nbytes([built.series]),
+                "paper_words": nbytes(built.words),
+                "trend_words": nbytes([lv["trend_slope"]
+                                       for lv in built.extra]),
+                "residuals": nbytes(built.residuals),
+                "norms": nbytes([built.norms_sq])}
+    del up
+    log(f"[repr-build] host build {t_host:.1f}s, device build + service "
+        f"{t_build:.2f}s; device symbols against the f64 host build "
+        f"{bands}; resident bytes {resident}")
+
+    step("build")
+    # ---- 3. serving, in turns with the paper stack
+    svc_e.warmup()
+    svc_p.warmup()
+    spec = WorkloadSpec(n_requests=cfg["requests"],
+                        knn_frac=cfg["knn_frac"], k=cfg["k"], epsilon=eps)
+    workload = make_workload(queries, spec)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        turns = repr_turns(torch, fq, lo, [("paper", svc_p),
+                                           ("extended", svc_e),
+                                           ("extended", svc_e),
+                                           ("paper", svc_p)], workload, tmp)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    for t in turns:
+        check(t["launches"].get("fused_range", 0) > 0
+              and t["launches"].get("fused_topk", 0) > 0,
+              f"repr: kernels 1-2 did not launch in the {t['stack']} "
+              f"service: {t['launches']}")
+        add(t["launches"])
+    res_e, res_p = turns[1]["result"], turns[0]["result"]
+    # One request of each kind alone through each service.
+    direct = {}
+    for label, svc in (("paper", svc_p), ("extended", svc_e)):
+        for kind, kw in (("range", {"epsilon": eps}), ("knn",
+                                                       {"k": cfg["k"]})):
+            t0 = time.perf_counter()
+            for q in queries[:4]:
+                svc.direct_query(kind, q, **kw)
+            direct[f"{label}_{kind}_ms"] = \
+                (time.perf_counter() - t0) * 1e3 / 4
+    mismatches, t_replay = replay_check(svc_e, workload, res_e, "repr-serve")
+    bf = brute_force_check(built.series.cpu().numpy(), workload, res_e, 16)
+    check(bf["wrong"] == 0 and bf["checked"] >= 8,
+          f"repr: brute-force disagreement: {bf}")
+    vs_paper = cross_check(built.series.cpu().numpy(), workload, res_e,
+                           res_p)
+    check(vs_paper["wrong"] == 0,
+          f"repr: extended answers differ from the paper stack's: "
+          f"{vs_paper}")
+    out["serve"] = {"turns": [{k: v for k, v in t.items() if k != "result"}
+                              for t in turns],
+                    "exact_mismatches": mismatches, "replay_s": t_replay,
+                    "direct_ms": direct, "brute_force": bf,
+                    "vs_paper": vs_paper,
+                    "peak_bytes_above_start": peak}
+    log(f"[repr-serve] exactness mismatches {mismatches} ({t_replay:.1f}s); "
+        f"brute force {bf}; against the paper stack {vs_paper}; one "
+        f"request alone (ms) {direct}; max_memory_allocated during the "
+        f"turns {peak} bytes above the "
+        f"phase's start (two services resident)")
+
+    step("serve")
+    # ---- 4. traced: counters per level, extended against paper
+    dev = built.device
+    q32 = torch.as_tensor(queries[:cfg["queries"]], dtype=torch.float32,
+                          device=dev)
+    qr_e = engine.represent_queries(q32, levels, A, stack=EXT_STACK)
+    qr_p = engine.represent_queries(q32, levels, A)
+    eps_t = torch.full((q32.shape[0],), eps, dtype=torch.float32,
+                       device=dev)
+    reset_counts(fq, lo)
+    _, _, tr_e = engine.range_query_traced(built, qr_e, eps)
+    nn_e = engine.knn_query_traced(built, qr_e, cfg["k"])
+    torch.cuda.synchronize()
+    launched_e = {k_: v for k_, v in counts_now(fq, lo).items() if v}
+    reset_counts(fq, lo)
+    _, _, tr_p = engine.range_query_traced(svc_p.backend.index, qr_p, eps)
+    engine.knn_query_traced(svc_p.backend.index, qr_p, cfg["k"])
+    torch.cuda.synchronize()
+    launched_p = {k_: v for k_, v in counts_now(fq, lo).items() if v}
+    check(all(ln.get("fused_range", 0) > 0 and ln.get("fused_topk", 0) > 0
+              for ln in (launched_e, launched_p)),
+          f"repr: traced launches {launched_e} / {launched_p}")
+    add(launched_e)
+    add(launched_p)
+    check(counters_equal(tr_p, index_counts(torch, ref, ops,
+                                            svc_p.backend.index, qr_p,
+                                            eps_t)),
+          "repr: the paper stack's counters differ from the plain counts")
+    check(counters_equal(tr_e, index_counts(torch, ref, ops, built, qr_e,
+                                            eps_t)),
+          "repr: the traced counters differ from the plain per-level counts")
+    # The torch engine's cascade with the trend test on the card against
+    # kernels 1-2 on the paper stack (a comparison, not a path run).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_ans, t_d2 = engine.range_query(built, qr_e, eps)
+    t_idx, t_kd2, t_exact = engine.knn_query_auto(built, qr_e, cfg["k"])
+    torch.cuda.synchronize()
+    ms_torch = (time.perf_counter() - t0) * 1e3
+    p_ans, p_d2 = engine.range_query_fused(svc_p.backend.index, qr_p, eps)
+    p_idx, p_kd2, _ = engine.knn_query_fused(svc_p.backend.index, qr_p,
+                                             cfg["k"])
+    differ = (t_ans != p_ans).cpu().numpy()
+    d2 = torch.where(p_ans, p_d2, t_d2).cpu().numpy()
+    near = np.abs(d2 - eps * eps) <= band(eps * eps)
+    koff = (t_idx != p_idx).cpu().numpy()
+    kd2 = p_kd2.cpu().numpy()
+    kgap = np.abs(t_kd2.cpu().numpy() - kd2)
+    vs_torch = {"range_band": int((differ & near).sum()),
+                "range_wrong": int((differ & ~near).sum()),
+                "knn_band": int((koff & (kgap <= band(kd2))).sum()),
+                "knn_wrong": int((koff & ~(kgap <= band(kd2))).sum()),
+                "torch_range_knn_ms": ms_torch}
+    check(vs_torch["range_wrong"] == 0 and vs_torch["knn_wrong"] == 0
+          and bool(t_exact.all()),
+          f"repr: the torch engine with the trend test differs from "
+          f"kernels 1-2: {vs_torch}")
+    del t_ans, t_d2, p_ans, p_d2, d2
+    tr_e, tr_p = to_host(tr_e), to_host(tr_p)
+    d_k = engine._final_radius(nn_e[1], cfg["k"]).reshape(-1)
+    check(counters_equal(nn_e[3], index_counts(torch, ref, ops, built, qr_e,
+                                               d_k)),
+          "repr: the k-NN trace differs from the plain counts at d_k")
+    med = float(np.median(tr_e.answers))
+    check(med >= 1, f"repr: the median query has no answer at eps {eps}")
+    check(np.all(tr_e.after_c9 <= tr_p.after_c9)
+          and np.all(tr_e.after_c10 <= tr_p.after_c10)
+          and tr_e.verified.sum() < tr_p.verified.sum(),
+          "repr: the extended stack kept more rows than the paper stack")
+    # trend_slope's own kills per level: the rows that survive C9 and C10
+    # of a level on the extended cascade but not its trend test.
+    kills = {}
+    alive = None
+    for li, N in enumerate(levels):
+        ok9 = (built.residuals[li][None] - qr_e.residuals[li][:, None]
+               ).abs() <= eps
+        alive = ok9 if alive is None else alive & ok9
+        alive &= ref.mindist_sq_ref(built.words[li], ops.query_panels(
+            qr_e.words[li], A), N, n) <= eps * eps
+        before = alive.sum(-1)
+        alive &= trend_bound_plain(torch, ops, built.extra[li]["trend_slope"],
+                                   qr_e.extra[li]["trend_slope"], A) \
+            <= eps * eps
+        kills[f"N{N}"] = float((before - alive.sum(-1)).float().mean())
+    del alive
+    check(all(v > 0 for v in kills.values()),
+          f"repr: trend_slope killed no row at some level: {kills}")
+    host_counts = host_op_counts(torch, engine, ref, ops, host,
+                                 queries[:cfg["host_queries"]], eps, dev)
+    # Traced services: the extras' kills reach stats and /metrics.  Range
+    # requests at one ε, so the two stacks' counters compare row for row.
+    served = {}
+    wl16 = make_workload(queries[:cfg["traced_requests"]], WorkloadSpec(
+        n_requests=cfg["traced_requests"], knn_frac=0.0, epsilon=eps))
+    for label, svc, stack in (("extended", svc_e, EXT_STACK),
+                              ("paper", svc_p, EXT_STACK[:2])):
+        tsvc = SearchService(svc.backend, ServeConfig(stack=stack,
+                                                      trace=True))
+        reset_counts(fq, lo)
+        with tsvc:
+            r = run_closed_loop(tsvc, wl16, clients=cfg["clients"])
+            torch.cuda.synchronize()
+        check(r.served == len(wl16), f"repr: traced {label} served "
+                                     f"{r.served} of {len(wl16)}")
+        add({k_: v for k_, v in counts_now(fq, lo).items() if v})
+        served[label] = tsvc.stats.snapshot()["cascade"]
+        check("repro_cascade_rows_total" in tsvc.metrics_text(),
+              "repr: no cascade family in the metrics text")
+    check(served["extended"]["after_c10"] < served["paper"]["after_c10"],
+          f"repr: the traced service shows no extra kills: {served}")
+    out["traced"] = {
+        "after_c9_mean": {"extended": tr_e.after_c9.mean(0).tolist(),
+                          "paper": tr_p.after_c9.mean(0).tolist()},
+        "after_c10_mean": {"extended": tr_e.after_c10.mean(0).tolist(),
+                           "paper": tr_p.after_c10.mean(0).tolist()},
+        "verified_mean": {"extended": float(tr_e.verified.mean()),
+                          "paper": float(tr_p.verified.mean())},
+        "median_answers": med,
+        "trend_kills_mean": kills, "host_op_counts": host_counts,
+        "service_cascade": served, "torch_engine_vs_kernels": vs_torch,
+        "launches": {"extended": launched_e, "paper": launched_p}}
+    log(f"[repr-trace] eps={eps}, {q32.shape[0]} queries: after C9 per "
+        f"level {out['traced']['after_c9_mean']}, after C10 "
+        f"{out['traced']['after_c10_mean']}, verified "
+        f"{out['traced']['verified_mean']} (means; counters equal the "
+        f"plain per-level counts), median answers {med}; trend_slope "
+        f"kills per level {kills}; the torch engine's cascade with the "
+        f"trend test against kernels 1-2 {vs_torch}; "
+        f"host op counts on {host_counts['queries']} queries: "
+        f"{host_counts['band_rows']} band rows, 0 wrong; traced services' "
+        f"after_c10 {served['extended']['after_c10']} against "
+        f"{served['paper']['after_c10']}")
+    del svc_e, svc_p, built, qr_e, qr_p
+
+    step("traced")
+    # ---- 5. the int8 tier
+    out["tier"], launched = repr_tier(torch, engine, fq, lo, ref, ops, host,
+                                      queries[:cfg["queries"]])
+    add(launched)
+    log(f"[repr-tier] int8: answers {out['tier']['answers']}; widened "
+        f"cascade after C10 per level (means) "
+        f"{out['tier']['after_c10_mean']}; series-screen survivors (means) "
+        f"{out['tier']['screen_mean']}; kernel 5 against "
+        f"its plain keep (rows) {out['tier']['kernel5_vs_plain_rows']}; ms "
+        f"{out['tier']['ms']}; launches {out['tier']['launches']}")
+
+    step("tier")
+    # ---- 6. level at a time
+    out["level"], launched = repr_level_search(torch, lo, ref, ops, host,
+                                               queries, dev)
+    add(launched)
+    del host, db
+
+    step("level")
+    # ---- 7. subsequence
+    out["subseq"], launched = repr_subseq(torch, engine, fq, lo, ss)
+    add(launched)
+
+    step("subseq")
+    # ---- 8. curation
+    out["curation"] = repr_curation(torch)
+    step("curation")
+
+    out.update({"data_s": t_data, "host_build_s": t_host,
+                "device_build_s": t_build, "bands": bands,
+                "reckoned_bytes": reckoned, "resident_bytes": resident,
+                "seconds": time.perf_counter() - t_phase,
+                "steps_s": steps, "launches": total})
+    report["repr"] = out
+    log(f"[repr] phase 16 in {out['seconds']:.1f}s (steps "
+        f"{ {k: round(v, 1) for k, v in steps.items()} }); path launches "
+        f"{total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3455,7 +4465,9 @@ def main() -> int:
         f"timing, not serving): {kernel_phase_launches}")
 
     # ---- 8. the quantized slice: the same 64 requests through the tier
+    t0 = time.perf_counter()
     qservice.warmup()
+    log(f"[quant-serve] warmup {time.perf_counter() - t0:.1f}s")
     qresult, qlaunches = serve_phase(torch, fq, qservice, workload,
                                      "quant-serve")
     qsnap = qservice.stats.snapshot()
@@ -3521,6 +4533,15 @@ def main() -> int:
     for name, count in olaunches.items():
         plaunches[name] = plaunches.get(name, 0) + count
 
+    # ---- 16. extended representation stacks, trending data, curation
+    rlaunches = repr_phase(torch, engine, fq, lo, ref, ops, ss, report)
+    log(f"[time] phases 1-16 in {time.perf_counter() - t_start:.1f}s")
+    for name, count in rlaunches.items():
+        if name in LEVEL_REPLACES:
+            llaunches[name] = llaunches.get(name, 0) + count
+        else:
+            plaunches[name] = plaunches.get(name, 0) + count
+
     kernels = []
     for name in ("fused_range", "fused_topk"):
         main = report["kernels"]["serving"][name]
@@ -3550,8 +4571,8 @@ def main() -> int:
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"],
                         "library_ms": main["library_ms"]})
-    # Kernels 3, 4 and 7: launches from phase 10's and phase 14's engine
-    # calls.
+    # Kernels 3, 4 and 7: launches from the engine calls of phases 10 and
+    # 14-16.
     for name, key in (("fused_subseq_range", "range"),
                       ("fused_subseq_topk", "topk"),
                       ("fused_quant_subseq_range", "quant")):
@@ -3568,7 +4589,7 @@ def main() -> int:
                         "bound_by": main["bound_by"],
                         "library_ms": main["library_ms"]})
     # Kernels 8-9: launches from phase 12's build comparison; 10-12 from
-    # phase 13's level-at-a-time search.  sqdist's figures are at the
+    # phase 13's and phase 16's level-at-a-time searches.  sqdist's figures are at the
     # shape phase 13 gives it (its survivors), phase 12's at 2^20 rows
     # are in the report.
     for name in LEVEL_REPLACES:

@@ -26,7 +26,15 @@ resident tier (:class:`TieredIndex`, the ``quantized_*`` engines): the
 screen is the CUDA kernel ``fused_quant_range`` on the ``cuda`` backend.
 
 ``resolve_backend("auto", device)`` picks ``"cuda"`` for an index on a
-CUDA device and ``"torch"`` for one on the CPU.  All device math is
+CUDA device and ``"torch"`` for one on the CPU.  An index built with a
+stack beyond the paper pair (``core/representation.py``, e.g. with
+``trend_slope``) carries the extra columns in ``extra``.  The torch
+engine's cascade applies them (:func:`cascade_mask`); the fused kernels
+run the paper pair's cascade and verify its survivors exactly, so they
+return the same answers (an extra only prunes rows a lower bound already
+places beyond ε) and stay on the path for any stack.  The extras' kills
+show in the counting pass of the traced twins, and the tier's screen
+applies them to kernel 5's kept rows.  All device math is
 float32, as the reference runs with x64 off; TF32 must stay off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default),
 because the top-k certificate's tie window is sized for f32 noise.
@@ -58,29 +66,6 @@ from .sax import discretize
 
 INF = math.inf
 
-#: The ROADMAP.md queue 1 item that extends the device engines to stacks
-#: beyond the paper pair.
-EXTENDED_STACK_ITEM = 12
-
-
-def extended_stack_error(what: str, stack) -> NotImplementedError:
-    """The refusal of a device path given a stack beyond the paper pair:
-    it builds only words and residuals and would drop the extra columns
-    without a word.  The host engines of ``core/search.py`` take any
-    stack."""
-    return NotImplementedError(
-        f"{what} with the stack {tuple(stack)}: extended stacks on the "
-        f"device engines are not ported (ROADMAP.md queue 1 item "
-        f"{EXTENDED_STACK_ITEM}); core/search.py's host engines take it")
-
-
-def check_device_stack(stack, what: str) -> tuple:
-    """Validate ``stack`` and refuse one beyond the paper pair."""
-    stack = repr_registry.validate_stack(stack)
-    if repr_registry.extra_names(stack):
-        raise extended_stack_error(what, stack)
-    return stack
-
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else the
@@ -101,13 +86,17 @@ class DeviceIndex:
 
     ``series``: (B, n) f32, ``norms_sq``: (B,) f32 precomputed ‖u‖²,
     ``words[l]``: (B, N_l) int32, ``residuals[l]``: (B,) f32, all on one
-    device; ``levels`` in cascade visit order.
+    device; ``levels`` in cascade visit order.  ``extra[l]`` holds the
+    columns of the stack's representations beyond the paper pair, one
+    ``{name: column}`` dict per level (word-kind (B, N_l) int32, gap-kind
+    (B,) f32); the paper stack leaves it ``()``.
     """
 
     series: torch.Tensor
     norms_sq: torch.Tensor
     words: tuple
     residuals: tuple
+    extra: tuple = ()
     levels: tuple = ()
     alphabet: int = 10
     stack: tuple = DEFAULT_STACK
@@ -247,13 +236,35 @@ def upload_host_array(a, dtype: torch.dtype, device) -> torch.Tensor:
     return out
 
 
+def _extra_dtype(name: str) -> torch.dtype:
+    """Device dtype of an extra column: int32 symbols (word-kind), f32
+    values (gap-kind)."""
+    return (torch.int32 if repr_registry.get(name).kind == "word"
+            else torch.float32)
+
+
+def _dev_extra_levels(x: torch.Tensor, levels, alphabet: int,
+                      stack: tuple) -> tuple:
+    """Per level, the ``{name: column}`` dict of the stack's extra
+    representations of a (B, n) or (Q, n) tensor, symbolized on its
+    device by each one's ``symbolize_dev``; ``()`` for the paper stack."""
+    extras = repr_registry.extra_names(stack)
+    if not extras:
+        return ()
+    return tuple(
+        {name: repr_registry.get(name).symbolize_dev(x, int(N), alphabet)
+         .to(_extra_dtype(name)).contiguous() for name in extras}
+        for N in levels)
+
+
 def device_index_from_host(index: FastSAXIndex, device=None) -> DeviceIndex:
     """Upload a host-built index (f64 columns cast to f32 by
     :func:`upload_host_array`, so a store's mmap columns upload without a
-    second host copy); the paper stack only."""
-    stack = check_device_stack(index.config.stack, "device_index_from_host")
+    second host copy), the stack's extra columns with it."""
+    stack = repr_registry.validate_stack(index.config.stack)
     dev = resolve_device(device)
     series = upload_host_array(index.series, torch.float32, dev)
+    extras = repr_registry.extra_names(stack)
     return DeviceIndex(
         series=series,
         norms_sq=torch.sum(series * series, dim=-1),
@@ -261,6 +272,10 @@ def device_index_from_host(index: FastSAXIndex, device=None) -> DeviceIndex:
                     for lv in index.levels),
         residuals=tuple(upload_host_array(lv.residuals, torch.float32, dev)
                         for lv in index.levels),
+        extra=tuple({name: upload_host_array(lv.extra[name],
+                                             _extra_dtype(name), dev)
+                     for name in extras}
+                    for lv in index.levels) if extras else (),
         levels=tuple(lv.n_segments for lv in index.levels),
         alphabet=index.config.alphabet,
         stack=stack)
@@ -280,10 +295,10 @@ def build_device_index(series, levels: Sequence[int], alphabet: int,
                        normalize: bool = True, stack: tuple = DEFAULT_STACK,
                        device=None) -> DeviceIndex:
     """Offline phase on the device: z-normalise (optionally) and compute
-    every level's words and residuals in f32.  ``series`` is a (B, n)
-    array or tensor; a tensor stays on its device unless ``device`` is
-    given.  The paper stack only."""
-    stack = check_device_stack(stack, "build_device_index")
+    every level's words, residuals and the stack's extra columns in f32.
+    ``series`` is a (B, n) array or tensor; a tensor stays on its device
+    unless ``device`` is given."""
+    stack = repr_registry.validate_stack(stack)
     if device is None and isinstance(series, torch.Tensor):
         device = series.device
     dev = resolve_device(device)
@@ -297,6 +312,7 @@ def build_device_index(series, levels: Sequence[int], alphabet: int,
         words=tuple(discretize(paa(x, N), alphabet) for N in levels),
         residuals=tuple(linfit_residual(x, N).to(torch.float32)
                         for N in levels),
+        extra=_dev_extra_levels(x, levels, alphabet, stack),
         levels=tuple(int(N) for N in levels),
         alphabet=int(alphabet),
         stack=stack)
@@ -305,19 +321,21 @@ def build_device_index(series, levels: Sequence[int], alphabet: int,
 @dataclasses.dataclass(frozen=True)
 class QueryReprDev:
     """Device query representation: ``q`` (Q, n) f32 and, per level,
-    ``words`` (Q, N) int32 and ``residuals`` (Q,) f32."""
+    ``words`` (Q, N) int32 and ``residuals`` (Q,) f32; ``extra`` mirrors
+    :attr:`DeviceIndex.extra` (``()`` for the paper stack)."""
 
     q: torch.Tensor
     words: tuple
     residuals: tuple
+    extra: tuple = ()
 
 
 def represent_queries(q: torch.Tensor, levels: Sequence[int], alphabet: int,
                       normalize: bool = True,
                       stack: tuple = DEFAULT_STACK) -> QueryReprDev:
-    """Represent a (Q, n) batch of queries at every level, on its device
-    (the paper stack only)."""
-    check_device_stack(stack, "represent_queries")
+    """Represent a (Q, n) batch of queries at every level, on its device.
+    ``stack`` must be the index's: its extras are represented too."""
+    stack = repr_registry.validate_stack(stack)
     if normalize:
         q = znormalize(q)
     q = q.to(torch.float32).contiguous()
@@ -325,7 +343,8 @@ def represent_queries(q: torch.Tensor, levels: Sequence[int], alphabet: int,
         q=q,
         words=tuple(discretize(paa(q, N), alphabet) for N in levels),
         residuals=tuple(linfit_residual(q, N).to(torch.float32).contiguous()
-                        for N in levels))
+                        for N in levels),
+        extra=_dev_extra_levels(q, levels, alphabet, stack))
 
 
 def _mindist_sq_tab(alphabet: int, device) -> torch.Tensor:
@@ -357,23 +376,54 @@ def _bottom_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _extra_reps(index) -> tuple:
+    """The index stack's extra representations, split ``(gap, word)``."""
+    reps = [repr_registry.get(name) for name in
+            repr_registry.extra_names(getattr(index, "stack", DEFAULT_STACK))]
+    return ([r for r in reps if r.kind == "gap"],
+            [r for r in reps if r.kind == "word"])
+
+
+def _extra_gap_ok(rep, index, qr: QueryReprDev, li: int, eps,
+                  rows=slice(None)) -> torch.Tensor:
+    """(Q, rows) gap-kind extra test ``gap ≤ ε`` of level ``li``."""
+    return rep.dev_gap(index.extra[li][rep.name][rows],
+                       qr.extra[li][rep.name]) <= eps
+
+
+def _extra_word_ok(rep, index, qr: QueryReprDev, li: int, eps2, tab,
+                   rows=slice(None)) -> torch.Tensor:
+    """(Q, rows) word-kind extra test ``bound² ≤ ε²`` of level ``li``
+    (``tab`` the MINDIST table; int8 tier columns widen in the gather)."""
+    return rep.dev_bound_sq(index.extra[li][rep.name][rows],
+                            qr.extra[li][rep.name], n=index.n,
+                            N=index.levels[li], tab=tab) <= eps2
+
+
 def cascade_mask(index: DeviceIndex, qr: QueryReprDev, epsilon) -> torch.Tensor:
-    """(Q, B) alive mask of the exclusion cascade: True = candidate."""
+    """(Q, B) alive mask of the exclusion cascade: True = candidate.  Per
+    level, the stack's gap-kind extras run after C9 and its word-kind
+    extras after C10."""
     n, dev = index.n, index.device
     Q = qr.q.shape[0]
     eps = _eps_qcol(epsilon, Q, dev)
     eps2 = eps * eps
     alive = torch.ones((Q, index.size), dtype=torch.bool, device=dev)
     tab = _mindist_sq_tab(index.alphabet, dev)
+    gap_extras, word_extras = _extra_reps(index)
     for li, N in enumerate(index.levels):
         # C9: |d(u,ū) − d(q,q̄)| > ε  → kill.
         gap = torch.abs(index.residuals[li][None, :] - qr.residuals[li][:, None])
         alive &= gap <= eps
+        for rep in gap_extras:
+            alive &= _extra_gap_ok(rep, index, qr, li, eps)
         # C10: MINDIST²(q̃,ũ) > ε² → kill.
         cell = tab[index.words[li].long()[None, :, :],
                    qr.words[li].long()[:, None, :]]
         md_sq = (n / N) * torch.sum(cell * cell, dim=-1)
         alive &= md_sq <= eps2
+        for rep in word_extras:
+            alive &= _extra_word_ok(rep, index, qr, li, eps2, tab)
     return alive
 
 
@@ -398,9 +448,11 @@ def range_query(index: DeviceIndex, qr: QueryReprDev, epsilon):
 def compact_verify(index: DeviceIndex, qr: QueryReprDev, alive: torch.Tensor,
                    capacity: int, order_key: torch.Tensor | None = None):
     """Compact alive lanes to ``capacity`` slots and verify only those rows
-    (diff² form).  Slots fill lowest index first, or by ``order_key``
-    (higher first) when given.  Returns ``(idx (Q, C) int32, valid (Q, C),
-    d2 (Q, C))`` with +inf on invalid slots."""
+    (diff² form, summed with ``paa.row_sum``, so a row's distance does not
+    depend on the capacity or on :func:`dense_diff_sq`'s chunks).  Slots
+    fill lowest index first, or by ``order_key`` (higher first) when
+    given.  Returns ``(idx (Q, C) int32, valid (Q, C), d2 (Q, C))`` with
+    +inf on invalid slots."""
     B = alive.shape[-1]
     if order_key is None:
         keys = torch.where(alive, B - _arange(B, alive.device)[None, :], 0)
@@ -412,7 +464,7 @@ def compact_verify(index: DeviceIndex, qr: QueryReprDev, alive: torch.Tensor,
         valid = top > -INF
     rows = index.series[idx]                                  # (Q, C, n)
     diff = rows - qr.q[:, None, :]
-    d2 = torch.sum(diff * diff, dim=-1)
+    d2 = row_sum(diff * diff)
     return idx.to(torch.int32), valid, torch.where(valid, d2, INF)
 
 
@@ -593,18 +645,41 @@ def mixed_query(index: DeviceIndex, qr: QueryReprDev, epsilon, is_knn,
     return idx, answer, torch.where(answer, d2, INF), overflow
 
 
+#: Elements of one (Q, rows, n) difference chunk of :func:`dense_diff_sq`
+#: (1 GiB of f32).
+_DENSE_CHUNK_ELEMS = 1 << 28
+
+
+def dense_diff_sq(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(Q, R) d² of every (R, n) row against every (Q, n) query in
+    :func:`compact_verify`'s diff² form (``paa.row_sum``), over row chunks
+    of bounded memory: a row's distance is the one the compacting path
+    verifies it with, whatever the layout or the chunk."""
+    Q, n = q.shape
+    step = max(1, _DENSE_CHUNK_ELEMS // max(1, Q * n))
+    parts = []
+    for lo in range(0, rows.shape[0], step):
+        diff = rows[None, lo:lo + step, :] - q[:, None, :]
+        parts.append(row_sum(diff * diff))
+    return torch.cat(parts, dim=-1) if parts else \
+        torch.zeros((Q, 0), dtype=torch.float32, device=q.device)
+
+
 def mixed_query_dense(index: DeviceIndex, qr: QueryReprDev, epsilon, is_knn,
                       k: int, valid_mask: torch.Tensor | None = None):
-    """Dense-verify form of :func:`mixed_query`: range rows follow
-    :func:`range_query`, k-NN rows are answered over the dense distances.
-    Cannot overflow; same return convention with C = B."""
+    """Dense-verify form of :func:`mixed_query`: range rows are the
+    cascade's survivors within ε, k-NN rows are answered over every valid
+    row.  The distances are :func:`compact_verify`'s diff² form, so a
+    request gets the same ids and distances in either layout (the
+    service's dense switch keeps replays exact).  Cannot overflow; same
+    return convention with C = B."""
     del k
     Q, B = qr.q.shape[0], index.size
     dev = index.device
     knn_col = torch.as_tensor(is_knn, dtype=torch.bool, device=dev).reshape(Q, 1)
     eps = _eps_qcol(epsilon, Q, dev)
     alive = cascade_mask(index, qr, eps)
-    d2 = verify_distances(index, qr)
+    d2 = dense_diff_sq(qr.q, index.series)
     valid = torch.ones((Q, B), dtype=torch.bool, device=dev)
     if valid_mask is not None:
         alive &= valid_mask[None, :]
@@ -718,7 +793,7 @@ def _reverify_rows(index: DeviceIndex, qr: QueryReprDev, idx: torch.Tensor,
     safe = idx.long().clamp(0, B - 1)
     rows = index.series[safe]                             # (Q, C, n)
     diff = rows - qr.q[:, None, :]
-    d2 = torch.sum(diff * diff, dim=-1)
+    d2 = row_sum(diff * diff)
     ok = (idx >= 0) & (idx < B)
     if valid_mask is not None:
         ok &= valid_mask[safe]
@@ -932,7 +1007,9 @@ class QuantizedDeviceIndex:
     of the dequantized rows; per level ``words``: (B, N_l) int8,
     ``residuals``: (B,) int8 codes or bf16, ``resid_scale`` /
     ``resid_zero`` (int8 only, else None) and ``resid_err``: (nb,) f32
-    per block of ``index.quantized.RESID_BLOCK`` rows.
+    per block of ``index.quantized.RESID_BLOCK`` rows; ``extra``: per
+    level ``{name: (B, N_l) int8}`` symbols of the stack's word-kind
+    extras (lossless; the host tier refuses gap-kind extras).
     """
 
     series: torch.Tensor
@@ -945,6 +1022,7 @@ class QuantizedDeviceIndex:
     resid_scale: tuple
     resid_zero: tuple
     resid_err: tuple
+    extra: tuple = ()
     levels: tuple = ()
     alphabet: int = 10
     mode: str = "int8"
@@ -984,16 +1062,19 @@ def quantized_device_index(qhost, device=None) -> QuantizedDeviceIndex:
     :func:`resolve_device`).  ``qhost`` is any object with the numpy
     fields of ``index.quantized.QuantizedHostIndex`` — the port's, or the
     reference's handed over as it is.  Per-block and per-row columns
-    become (m,) f32."""
+    become (m,) f32; the word-kind extras' int8 symbols upload as they
+    are."""
     dev = resolve_device(device)
     int8 = _quant.check_mode(qhost.mode) == "int8"
-    stack = check_device_stack(getattr(qhost, "stack", DEFAULT_STACK),
-                               "quantized_device_index")
-    extras = sorted({name for lv in qhost.levels
-                     for name in getattr(lv, "extra", {})})
-    if extras:
-        raise extended_stack_error("quantized_device_index",
-                                   stack + tuple(extras))
+    stack = repr_registry.validate_stack(getattr(qhost, "stack",
+                                                 DEFAULT_STACK))
+    extras = repr_registry.extra_names(stack)
+    for lv in qhost.levels:
+        stray = sorted(set(getattr(lv, "extra", {})) - set(extras))
+        if stray:
+            raise ValueError(
+                f"quantized level N={lv.n_segments} carries the columns "
+                f"{stray}, which the stack {stack} does not name")
 
     def col(a):
         return upload_host_array(np.asarray(a).reshape(-1), torch.float32,
@@ -1014,6 +1095,10 @@ def quantized_device_index(qhost, device=None) -> QuantizedDeviceIndex:
         resid_zero=tuple(col(lv.zero) if int8 else None
                          for lv in qhost.levels),
         resid_err=tuple(col(lv.err) for lv in qhost.levels),
+        extra=tuple({name: _upload_codes(np.asarray(lv.extra[name], np.int8),
+                                         dev)
+                     for name in extras}
+                    for lv in qhost.levels) if extras else (),
         levels=tuple(int(lv.n_segments) for lv in qhost.levels),
         alphabet=int(qhost.alphabet),
         mode=qhost.mode,
@@ -1042,14 +1127,36 @@ def _eps_vec(epsilon, Q: int, device) -> torch.Tensor:
     return _eps_qcol(epsilon, Q, device).reshape(-1).contiguous()
 
 
+def _quant_extras_ok(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
+                     eps) -> torch.Tensor | None:
+    """(Q, B) AND over the levels of the stack's word-kind extra tests on
+    the int8 symbols, unwidened (they are lossless); None for the paper
+    stack."""
+    _, word_extras = _extra_reps(qindex)
+    if not word_extras:
+        return None
+    eps2 = eps * eps
+    tab = _mindist_sq_tab(qindex.alphabet, qindex.device)
+    ok = None
+    for li in range(len(qindex.levels)):
+        for rep in word_extras:
+            t = _extra_word_ok(rep, qindex, qr, li, eps2, tab)
+            ok = t if ok is None else ok & t
+    return ok
+
+
 def quantized_cascade_mask(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
                            epsilon) -> torch.Tensor:
     """(Q, B) widened cascade over the quantized columns: C9 ``|r̂(u) −
-    r(q)| ≤ ε + e_blk``, C10 unwidened on the lossless int8 words."""
+    r(q)| ≤ ε + e_blk``, C10 and the stack's word-kind extras unwidened
+    on the lossless int8 symbols."""
     Q = qr.q.shape[0]
-    return _ref.quant_cascade_alive_ref(
+    eps = _eps_qcol(epsilon, Q, qindex.device)
+    alive = _ref.quant_cascade_alive_ref(
         qindex, _query_panels(qr, qindex.alphabet), qr.residuals,
-        _eps_vec(epsilon, Q, qindex.device))
+        eps.reshape(-1).contiguous())
+    ok = _quant_extras_ok(qindex, qr, eps)
+    return alive if ok is None else alive & ok
 
 
 def quantized_screen(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
@@ -1058,11 +1165,18 @@ def quantized_screen(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
     d̂² (Q, B))``.  ``keep`` marks rows that may be answers — a row with
     d(û, q) > ε + e_u has d(u, q) > ε — and the caller verifies them
     exactly against the raw tier.  The oracle the CUDA kernel
-    ``fused_quant_range`` is held against."""
+    ``fused_quant_range`` is held against; an extended stack's word-kind
+    extras screen too (:func:`quantized_cascade_mask`)."""
     Q = qr.q.shape[0]
-    return _ref.fused_quant_range_ref(
+    eps = _eps_qcol(epsilon, Q, qindex.device)
+    keep, d2 = _ref.fused_quant_range_ref(
         qindex, qr.q, _query_panels(qr, qindex.alphabet), qr.residuals,
-        _eps_vec(epsilon, Q, qindex.device))
+        eps.reshape(-1).contiguous())
+    ok = _quant_extras_ok(qindex, qr, eps)
+    if ok is None:
+        return keep, d2
+    keep = keep & ok
+    return keep, torch.where(keep, d2, INF)
 
 
 def _compact_mask(keep: torch.Tensor, capacity: int):
@@ -1185,19 +1299,55 @@ class TieredIndex:
                    ids=ids)
 
 
+def _screen_kept_extras(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
+                        eps, keep: torch.Tensor, d2: torch.Tensor):
+    """Kernel 5's ``(keep, d̂²)`` with the stack's word-kind extra tests
+    of :func:`quantized_screen` applied to the kept rows only: each kept
+    (query, row) pair gathers its int8 symbols, so the extras cost the
+    survivors and not B.  Each bound is the representation's
+    ``dev_bound_sq`` of that pair (a query of one row), summed with
+    ``paa.row_sum``: pair for pair the dense screen's.  The paper stack
+    passes through."""
+    _, word_extras = _extra_reps(qindex)
+    if not word_extras:
+        return keep, d2
+    qi, bi = torch.nonzero(keep, as_tuple=True)
+    eps = _eps_qcol(eps, keep.shape[0], keep.device)
+    eps2 = (eps * eps)[qi, 0]
+    tab = _mindist_sq_tab(qindex.alphabet, keep.device)
+    ok = torch.ones_like(qi, dtype=torch.bool)
+    for li, N in enumerate(qindex.levels):
+        for rep in word_extras:
+            bound = rep.dev_bound_sq(
+                qindex.extra[li][rep.name][bi][:, None, :],
+                qr.extra[li][rep.name][qi], n=qindex.n, N=N, tab=tab)
+            ok &= bound[:, 0] <= eps2
+    kept = torch.zeros_like(keep)
+    kept[qi[ok], bi[ok]] = True
+    return kept, torch.where(kept, d2, INF)
+
+
+def _kernel5_screen(qindex: QuantizedDeviceIndex, qr: QueryReprDev, eps):
+    """The screen of the ``cuda`` backend: the CUDA kernel
+    ``fused_quant_range`` (its plain version on a CPU index), then the
+    stack's extras on its kept rows (:func:`_screen_kept_extras`)."""
+    Q = qr.q.shape[0]
+    block_q, block_b = _fused_blocks(qindex, Q, quant=True)
+    keep, d2 = _fused.fused_quant_range(
+        qindex, qr.q, qr.words, qr.residuals,
+        _eps_vec(eps, Q, qindex.device), block_q=block_q, block_b=block_b)
+    return _screen_kept_extras(qindex, qr, eps, keep, d2)
+
+
 def _quantized_screen_backend(tindex: TieredIndex, qr: QueryReprDev,
                               eps_col, backend: str):
-    """The dense quantized screen: the CUDA kernel ``fused_quant_range``
-    on the ``cuda`` backend (on a CUDA index it launches or raises), the
-    plain oracle :func:`quantized_screen` on ``torch``."""
+    """The dense quantized screen: :func:`_kernel5_screen` on the ``cuda``
+    backend (on a CUDA index kernel 5 launches or raises), the plain
+    oracle :func:`quantized_screen` on ``torch``."""
     qdev = tindex.dev
     if resolve_backend(backend, qdev.device) == "torch":
         return quantized_screen(qdev, qr, eps_col)
-    Q = qr.q.shape[0]
-    block_q, block_b = _fused_blocks(qdev, Q, quant=True)
-    return _fused.fused_quant_range(
-        qdev, qr.q, qr.words, qr.residuals,
-        _eps_vec(eps_col, Q, qdev.device), block_q=block_q, block_b=block_b)
+    return _kernel5_screen(qdev, qr, eps_col)
 
 
 def _raw_rows(raw, ids: torch.Tensor, device) -> torch.Tensor:
@@ -1456,32 +1606,45 @@ def _c10_sq(words: torch.Tensor, q_words: torch.Tensor, tab_sq: torch.Tensor,
 def _cascade_counting(index: DeviceIndex, qr: QueryReprDev, eps,
                       valid_mask: torch.Tensor | None):
     """:func:`cascade_mask`, chunk by chunk, counting per level:
-    ``(after_c9, after_c10)``, (Q, L) int32.  ``eps`` is a scalar, (Q,)
-    or (Q, 1); ``valid_mask`` is folded into the first alive set, so
-    masked rows never count as C9 kills."""
+    ``(after_c9, after_c10)``, (Q, L) int32, the stack's gap-kind extras'
+    kills under ``after_c9`` and its word-kind extras' under
+    ``after_c10``.  ``eps`` is a scalar, (Q,) or (Q, 1); ``valid_mask`` is
+    folded into the first alive set, so masked rows never count as C9
+    kills."""
     n, dev, B = index.n, index.device, index.size
     Q, L = qr.q.shape[0], len(index.levels)
     eps = _eps_qcol(eps, Q, dev)
     eps2 = eps * eps
     tab = _mindist_sq_tab(index.alphabet, dev)
-    tab = tab * tab
+    tab_sq = tab * tab
     words = [w.long() for w in index.words]
     q_words = [w.long() for w in qr.words]
+    gap_extras, word_extras = _extra_reps(index)
     a9 = torch.zeros((Q, L), dtype=torch.int64, device=dev)
     a10 = torch.zeros_like(a9)
     chunks = _count_chunks(B, Q, index.levels)
     for lo in chunks:
         hi = min(B, lo + chunks.step)
+        rows = slice(lo, hi)
         alive0 = torch.ones((Q, hi - lo), dtype=torch.bool, device=dev)
         if valid_mask is not None:
             alive0 = alive0 & valid_mask[None, lo:hi]
-        c9, c10 = _level_counts(
-            alive0,
-            lambda li: torch.abs(index.residuals[li][None, lo:hi]
-                                 - qr.residuals[li][:, None]) <= eps,
-            lambda li: _c10_sq(words[li][lo:hi], q_words[li], tab, n,
-                               index.levels[li]) <= eps2,
-            L)
+
+        def c9_ok(li):
+            ok = torch.abs(index.residuals[li][None, lo:hi]
+                           - qr.residuals[li][:, None]) <= eps
+            for rep in gap_extras:
+                ok = ok & _extra_gap_ok(rep, index, qr, li, eps, rows)
+            return ok
+
+        def c10_ok(li):
+            ok = _c10_sq(words[li][lo:hi], q_words[li], tab_sq, n,
+                         index.levels[li]) <= eps2
+            for rep in word_extras:
+                ok = ok & _extra_word_ok(rep, index, qr, li, eps2, tab, rows)
+            return ok
+
+        c9, c10 = _level_counts(alive0, c9_ok, c10_ok, L)
         a9 += c9
         a10 += c10
     return a9.to(torch.int32), a10.to(torch.int32)
@@ -1541,7 +1704,7 @@ def range_query_traced(index: DeviceIndex, qr: QueryReprDev, epsilon,
     """Range query and its trace: ``(answers, d2, trace)``.  The answers
     are the untraced backend call's (on ``cuda``: kernel 1,
     :func:`range_query_fused`); the counters come from the counting pass
-    at the same radius."""
+    at the same radius, the stack's extras included."""
     if resolve_backend(backend, index.device) == "cuda":
         ans, d2 = range_query_fused(index, qr, epsilon,
                                     valid_mask=valid_mask, **fused_kw)
@@ -1640,30 +1803,40 @@ def _quant_cascade_counting(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
     """:func:`quantized_cascade_mask`, chunk by chunk, counting per level:
     the widened C9 ``|r̂(u) − r(q)| ≤ ε + e_blk`` on the dequantized
     residuals, C10 unwidened on the int8 words (the expressions of
-    ``kernels/ref.py::quant_meta_alive_ref``)."""
+    ``kernels/ref.py::quant_meta_alive_ref``), then the stack's word-kind
+    extras on their int8 symbols, counted under ``after_c10``."""
     n, dev, B = qindex.n, qindex.device, qindex.size
     Q, L = qr.q.shape[0], len(qindex.levels)
     eps = _eps_qcol(eps, Q, dev)
     eps2 = eps * eps
     tab = _mindist_sq_tab(qindex.alphabet, dev)
-    tab = tab * tab
+    tab_sq = tab * tab
     words = [w.long() for w in qindex.words]
     q_words = [w.long() for w in qr.words]
     res = [_dequant_residuals_dev(qindex, li) for li in range(L)]
     err = [_expand_block_col(qindex.resid_err[li], B) for li in range(L)]
+    _, word_extras = _extra_reps(qindex)
     a9 = torch.zeros((Q, L), dtype=torch.int64, device=dev)
     a10 = torch.zeros_like(a9)
     chunks = _count_chunks(B, Q, qindex.levels)
     for lo in chunks:
         hi = min(B, lo + chunks.step)
+        rows = slice(lo, hi)
+
+        def c10_ok(li):
+            ok = _c10_sq(words[li][lo:hi], q_words[li], tab_sq, n,
+                         qindex.levels[li]) <= eps2
+            for rep in word_extras:
+                ok = ok & _extra_word_ok(rep, qindex, qr, li, eps2, tab,
+                                         rows)
+            return ok
+
         c9, c10 = _level_counts(
             torch.ones((Q, hi - lo), dtype=torch.bool, device=dev),
             lambda li: torch.abs(res[li][None, lo:hi]
                                  - qr.residuals[li][:, None])
             <= eps + err[li][None, lo:hi],
-            lambda li: _c10_sq(words[li][lo:hi], q_words[li], tab, n,
-                               qindex.levels[li]) <= eps2,
-            L)
+            c10_ok, L)
         a9 += c9
         a10 += c10
     return a9.to(torch.int32), a10.to(torch.int32)
@@ -1676,15 +1849,12 @@ def quantized_cascade_trace(qindex: QuantizedDeviceIndex, qr: QueryReprDev,
     Per level the widened-C9 and C10 survivors (the widened host oracle
     ``search.quantized_fastsax_range_query`` counts the same); then the
     series screen's survivors, the tier's own pruning figure with no
-    host counterpart: the keep count of ``fused_quant_range`` (kernel 5
-    on a CUDA index, its plain version on the CPU).  ``verified`` is the
-    screen's survivors: the rows the raw tier is read for."""
-    Q, dev = qr.q.shape[0], qindex.device
+    host counterpart: the keep count of :func:`_kernel5_screen` (kernel 5
+    on a CUDA index, its plain version on the CPU, then the stack's
+    extras on its kept rows).  ``verified`` is the screen's survivors:
+    the rows the raw tier is read for."""
     a9, a10 = _quant_cascade_counting(qindex, qr, epsilon)
-    block_q, block_b = _fused_blocks(qindex, Q, quant=True)
-    keep, _ = _fused.fused_quant_range(
-        qindex, qr.q, qr.words, qr.residuals, _eps_vec(epsilon, Q, dev),
-        block_q=block_q, block_b=block_b)
+    keep, _ = _kernel5_screen(qindex, qr, epsilon)
     return _trace_of(a9, a10, screened=_count_alive(keep))
 
 

@@ -20,9 +20,11 @@ The registrations:
     beyond the paper).
 
 Every stack must contain the paper pair, and gap-kind representations run
-before word-kind ones (C9 → C10).  The host engines take any stack; the
-device engines build only the paper pair and refuse a longer stack
-(``engine.extended_stack_error``).
+before word-kind ones (C9 → C10).  Every engine takes any stack: the host
+engines of ``core/search.py``, and the device engines, which carry the
+extra columns beside the words (``engine.DeviceIndex.extra``): the torch
+engine's cascade applies them, and the fused kernels keep answering
+with the paper pair's cascade (``core/engine.py``).
 """
 from __future__ import annotations
 
@@ -107,7 +109,8 @@ class Representation:
     def dev_bound_sq(self, col: torch.Tensor, qcol: torch.Tensor, *, n: int,
                      N: int, tab: torch.Tensor) -> torch.Tensor:
         """(Q, B) device squared bound — word-kind only; ``tab`` is the
-        (α, α) float32 MINDIST table on the columns' device."""
+        (α, α) float32 MINDIST table on the columns' device.  ``col`` is
+        (B, N), or (Q, C, N) with each query's own rows."""
         raise NotImplementedError
 
     # -- cost-model hooks --------------------------------------------------
@@ -214,8 +217,10 @@ def linfit_residual_sq(x, n_segments: int, backend: str = "numpy"):
 
 
 def _gather_bound_sq(col, qcol, tab):
-    """(Q, B) Σᵢ tab[colᵢ, qcolᵢ]² on the device."""
-    cell = tab[col.long()[None, :, :], qcol.long()[:, None, :]]
+    """(Q, B) Σᵢ tab[colᵢ, qcolᵢ]² on the device: ``col`` (B, N) rows
+    every query meets, or (Q, C, N) rows of each query's own."""
+    col = col.long()
+    cell = tab[col if col.dim() == 3 else col[None], qcol.long()[:, None, :]]
     return row_sum(cell * cell)
 
 

@@ -28,11 +28,16 @@ The store round trip (:func:`save_subseq_index` /
 :func:`load_subseq_index`) writes and reads the reference's format.
 The traced twins (:func:`subseq_range_query_traced`,
 :func:`subseq_knn_query_traced`) return the cascade counters of
-``obs/trace.py`` beside the untraced answers.  Only the paper's
-representation stack is built: the reference's extension columns
-(``window_symbolize_np``) need ROADMAP.md queue 1 item 12, and the
-build refuses another stack naming it; the distributed form (item 8) has
-no entry point here.
+``obs/trace.py`` beside the untraced answers.  A stack beyond the paper
+pair builds its extra columns from the same cumsum statistics through
+each representation's ``window_symbolize_np`` hook (:class:`WindowStats`;
+a representation without the hook is refused).  The torch engine's
+cascade over the windows-as-rows index applies them; the streaming
+kernels run the paper pair's cascade and verify exactly, so they return
+the same answers, and the traced twins count the extras' kills.  The
+quantized streaming screen reads the paper pair's columns only, as the
+reference's does.  The distributed form (ROADMAP.md queue 1
+item 8) has no entry point here.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from ..kernels import fused_query as _fused
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import device_windows
 from . import engine as _engine
+from . import representation as repr_registry
 from .engine import DeviceIndex, QueryReprDev, represent_queries
 from .fastsax import FastSAXConfig, LevelData
 from .options import SearchOptions, resolve_options
@@ -92,9 +98,26 @@ def _window_moments(c0, c1, starts, window: int):
     return mu, np.maximum(sd, ZNORM_EPS)
 
 
+@dataclasses.dataclass
+class WindowStats:
+    """One level's per-window segment statistics, handed to a
+    representation's ``window_symbolize_np`` hook so that an extra column
+    comes from the same O(N)-per-window cumsum lookups as the paper
+    pair's.  ``sxy`` is None when L == 1 (a one-sample segment has no
+    slope)."""
+
+    sum_y: np.ndarray          # (S, W_s, N) raw segment sums
+    sxy: np.ndarray | None     # (S, W_s, N) raw Σ xc·y per segment
+    L: int                     # samples per segment
+    sxx: float                 # Σ xc² of the centred abscissa (0 if L == 1)
+    sd: np.ndarray             # (S, W_s) guarded per-window std
+    alphabet: int
+
+
 def _window_level(c0, c1, c2, starts, window, mu, sd, N, alphabet):
     """One representation level for every window of every stream, O(W·N):
-    ``(words (S, W_s, N) int32, residuals (S, W_s) f64)``.
+    ``(words (S, W_s, N) int32, residuals (S, W_s) f64,`` the level's
+    :class:`WindowStats` ``)``.
 
     The PAA of the z window is the affine image of the raw segment means,
     ``(m − μ)/σ``; the linear-fit residual of the z window is the raw
@@ -108,7 +131,8 @@ def _window_level(c0, c1, c2, starts, window, mu, sd, N, alphabet):
     mean = sum_y / L
     words = discretize_np((mean - mu[..., None]) / sd[..., None], alphabet)
     if L == 1:                                   # exact fit per sample
-        return words, np.zeros(mu.shape)
+        return words, np.zeros(mu.shape), WindowStats(
+            sum_y=sum_y, sxy=None, L=1, sxx=0.0, sd=sd, alphabet=alphabet)
     # With the centred abscissa xc = t − b − (L−1)/2 of each segment,
     # Σxc·y = (Σ t·y) − (b + (L−1)/2)·Σy: two more cumsum lookups.
     g1 = c1[:, bounds]
@@ -120,7 +144,8 @@ def _window_level(c0, c1, c2, starts, window, mu, sd, N, alphabet):
     off = bounds[:, :-1] + (L - 1) / 2.0
     sxy = t_sum - off[None, :, :] * sum_y
     per_seg = np.maximum(sum_y2 - L * mean * mean - (sxy * sxy) / sxx, 0.0)
-    return words, np.sqrt(per_seg.sum(axis=-1)) / sd
+    return words, np.sqrt(per_seg.sum(axis=-1)) / sd, WindowStats(
+        sum_y=sum_y, sxy=sxy, L=L, sxx=sxx, sd=sd, alphabet=alphabet)
 
 
 @dataclasses.dataclass
@@ -164,11 +189,6 @@ class SubseqHostIndex:
         return wid // W_s, (wid % W_s) * self.stride
 
 
-def _check_stack(stack) -> None:
-    _engine.check_device_stack(stack, "subsequence search (windowed "
-                                      "extension columns)")
-
-
 def _as_streams(streams) -> np.ndarray:
     streams = np.asarray(streams, dtype=np.float64)
     if streams.ndim == 1:
@@ -182,22 +202,37 @@ def build_subseq_index(streams, config: FastSAXConfig, window: int,
                        stride: int = 1) -> SubseqHostIndex:
     """Offline phase: one pass over each stream (cumsums), then O(N) work
     per window and level.  ``window`` must be divisible by every level's
-    segment count.  Only the canonical stack is built."""
-    _check_stack(config.stack)
+    segment count.  The stack's extra columns come from each
+    representation's ``window_symbolize_np`` hook; a representation
+    without one raises NotImplementedError."""
     streams = _as_streams(streams)
     for N in config.n_segments:
         if window % N != 0:
             raise ValueError(f"level N={N} does not divide window={window}")
+    extras = config.extra_stack
+    for name in extras:
+        if getattr(repr_registry.get(name), "window_symbolize_np",
+                   None) is None:
+            raise NotImplementedError(
+                f"representation {name!r} defines no window_symbolize_np "
+                "hook, so it cannot be computed over sliding windows; drop "
+                "it from the stack for subsequence search")
     W_s = n_windows_per_stream(streams.shape[-1], window, stride)
     starts = np.arange(W_s) * stride
     c0, c1, c2 = _cumsums(streams)
     mu, sd = _window_moments(c0, c1, starts, window)
     levels = []
     for N in config.levels:
-        words, resid = _window_level(c0, c1, c2, starts, window, mu, sd, N,
-                                     config.alphabet)
+        words, resid, ws = _window_level(c0, c1, c2, starts, window, mu, sd,
+                                         N, config.alphabet)
+        extra = {}
+        for name in extras:
+            rep = repr_registry.get(name)
+            col = rep.window_symbolize_np(ws)
+            extra[name] = (col.reshape(-1, col.shape[-1])
+                           if rep.column.per_segment else col.reshape(-1))
         levels.append(LevelData(n_segments=N, words=words.reshape(-1, N),
-                                residuals=resid.reshape(-1)))
+                                residuals=resid.reshape(-1), extra=extra))
     return SubseqHostIndex(config=config, window=window, stride=stride,
                            streams=streams, mu=mu.reshape(-1),
                            sd=sd.reshape(-1), levels=levels)
@@ -407,8 +442,10 @@ def subseq_device_index(hidx: SubseqHostIndex,
     """Upload the streams and the per-window features to ``device``
     (default: CUDA, see ``engine.resolve_device``); the window rows are
     materialised there by :func:`device_windows` and their norms ‖z‖²
-    summed with ``paa.row_sum``, so each is independent of the batch."""
-    _check_stack(hidx.config.stack)
+    summed with ``paa.row_sum``, so each is independent of the batch.
+    The stack's extra columns upload with the words."""
+    stack = repr_registry.validate_stack(hidx.config.stack)
+    extras = repr_registry.extra_names(stack)
     dev = _engine.resolve_device(device)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     streams = f32(hidx.streams).contiguous()
@@ -421,8 +458,13 @@ def subseq_device_index(hidx: SubseqHostIndex,
         words=tuple(torch.as_tensor(lv.words.astype(np.int32), device=dev)
                     for lv in hidx.levels),
         residuals=tuple(f32(lv.residuals) for lv in hidx.levels),
+        extra=tuple({name: _engine.upload_host_array(
+                         lv.extra[name], _engine._extra_dtype(name), dev)
+                     for name in extras}
+                    for lv in hidx.levels) if extras else (),
         levels=tuple(int(lv.n_segments) for lv in hidx.levels),
-        alphabet=int(hidx.config.alphabet))
+        alphabet=int(hidx.config.alphabet),
+        stack=stack)
     return SubseqDeviceIndex(index=index, streams=streams, mu=mu, sd=sd,
                              window=int(hidx.window), stride=int(hidx.stride))
 
@@ -439,7 +481,7 @@ def represent_subseq_queries(sidx: SubseqDeviceIndex, queries,
         raise ValueError(f"subseq queries must be length window="
                          f"{sidx.window}, got {q.shape[-1]}")
     return represent_queries(q, sidx.levels, sidx.alphabet,
-                             normalize=normalize)
+                             normalize=normalize, stack=sidx.index.stack)
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Synthetic wafer-like time series (the benchmark database)."""
+"""Synthetic wafer-like and trending time series (the benchmark
+databases) and the FAST_SAX near-duplicate curation filter."""

@@ -1,10 +1,10 @@
-"""Synthetic wafer-like time series, the benchmark database, and the UCR
-reader.
+"""Synthetic wafer-like and trending time series, the benchmark database,
+and the UCR reader.
 
 Counterpart of ``repro/data/timeseries.py`` (``make_wafer_like``,
-``make_queries``, ``make_subseq_queries``, ``load_ucr``,
-``benchmark_database``), the same numpy code, so one seed gives the same
-data in both packages.  The generator stands in for the UCR *wafer*
+``make_trending``, ``make_queries``, ``make_subseq_queries``,
+``load_ucr``, ``benchmark_database``), the same numpy code, so one seed
+gives the same data in both packages.  The generator stands in for the UCR *wafer*
 dataset the paper reports on: a few process prototypes that series
 cluster around, heteroscedastic noise (which spreads the linear-fit
 residual C9 exploits), and a small fraction of transient-spike
@@ -67,6 +67,43 @@ def make_wafer_like(
             width = rng.integers(2, 6)
             x[r, pos:pos + width] += rng.uniform(1.0, 3.0) * rng.choice([-1, 1])
 
+    return znormalize_np(x) if normalize else x
+
+
+def make_trending(
+    n_series: int = 4096,
+    length: int = DEFAULT_LENGTH,
+    n_prototypes: int = 16,
+    n_pieces: int = 8,
+    slope_scale: float = 2.5,
+    noise: float = 0.08,
+    seed: int = 7,
+    normalize: bool = True,
+) -> np.ndarray:
+    """Trending database: (n_series, length) float64.
+
+    Series share a few smooth low-frequency prototypes, so their segment
+    means cluster and the SAX word is weakly selective, but each carries
+    its own continuous piecewise-linear trend, ``n_pieces`` independent
+    slopes.  The per-segment least-squares slope sees that trend where the
+    segment means barely do: the data the ``trend_slope`` representation
+    prunes on."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, length)
+
+    protos = np.empty((n_prototypes, length))
+    for k in range(n_prototypes):
+        protos[k] = (rng.uniform(0.5, 1.5)
+                     * np.sin(2 * np.pi * rng.uniform(0.5, 1.5) * t
+                              + rng.uniform(0, 2 * np.pi)))
+
+    assign = rng.integers(0, n_prototypes, size=n_series)
+    piece_slopes = slope_scale * rng.standard_normal((n_series, n_pieces))
+    steps = np.repeat(piece_slopes, length // n_pieces, axis=-1) / length
+    trend = np.cumsum(steps, axis=-1)
+    trend -= trend.mean(axis=-1, keepdims=True)
+    x = (protos[assign] + trend
+         + noise * rng.standard_normal((n_series, length)))
     return znormalize_np(x) if normalize else x
 
 

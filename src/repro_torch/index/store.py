@@ -281,8 +281,8 @@ def load_index(path: str | os.PathLike, mmap: bool = True,
                verify: bool = False) -> FastSAXIndex:
     """Open a committed index.  ``mmap=True`` (default) maps the arrays
     lazily; ``verify=True`` also re-hashes every array (a full read).
-    Any registered stack loads; the device uploads refuse one beyond the
-    paper pair (``engine.check_device_stack``)."""
+    Any registered stack loads, its extra columns with it; the device
+    uploads carry them (``engine.device_index_from_host``)."""
     path = pathlib.Path(path)
     manifest = read_manifest(path)
     if manifest.get("kind") != _KIND:

@@ -53,7 +53,7 @@ import torch
 
 from ..core.cost_model import fused_pass_estimate
 from ..core.engine import (DeviceIndex, TieredIndex, build_device_index,
-                           check_device_stack, device_index_from_host,
+                           device_index_from_host,
                            device_trace_bytes, mixed_query,
                            mixed_query_dense, mixed_query_dense_and_trace,
                            mixed_query_fused, mixed_trace,
@@ -63,7 +63,7 @@ from ..core.engine import (DeviceIndex, TieredIndex, build_device_index,
                            tiered_trace_bytes)
 from ..core.fastsax import FastSAXConfig, build_index
 from ..core.options import SearchOptions
-from ..core.representation import DEFAULT_STACK
+from ..core.representation import DEFAULT_STACK, validate_stack
 from ..index.quantized import check_mode
 from ..obs.calibration import CalibrationLog
 from ..obs.spans import SpanRecorder, prepare_profiler, profiler_capture
@@ -145,7 +145,7 @@ class ServeConfig:
 
     def __post_init__(self):
         check_mode(self.quantization)
-        check_device_stack(self.stack, "ServeConfig")
+        validate_stack(self.stack)
         # The reference's settings of slices not ported yet: accepted at
         # their defaults, refused with the slice's item otherwise.
         for f in dataclasses.fields(self):
@@ -204,7 +204,9 @@ class _SingleBackend:
     ``mixed_query`` runs with sticky capacity escalation, switching for
     good to ``mixed_query_dense`` once the learned capacity passes
     ``dense_fallback_frac``·B, so a direct replay takes the same path as
-    the batch that served it.
+    the batch that served it.  An index with a stack beyond the paper
+    pair serves the same way: the kernels answer with the paper pair's
+    cascade, the torch engine applies the extras too.
     """
 
     def __init__(self, index: DeviceIndex, cfg: ServeConfig):
@@ -260,7 +262,8 @@ class _SingleBackend:
         qr = represent_queries(torch.as_tensor(q, dtype=torch.float32,
                                                device=dev),
                                self.index.levels, self.index.alphabet,
-                               normalize=self.cfg.normalize_queries)
+                               normalize=self.cfg.normalize_queries,
+                               stack=self.index.stack)
         eps_t = torch.as_tensor(eps, dtype=torch.float32, device=dev)
         knn_t = torch.as_tensor(is_knn, dtype=torch.bool, device=dev)
         # Large k buckets demote the fused path to torch; the decision is
@@ -311,7 +314,9 @@ class _QuantizedBackend:
     its own capacity).  Answers are set-identical to the full-precision
     backend: the widened screen keeps a superset and the verify is exact.
     On the ``cuda`` backend the screen is the ``fused_quant_range``
-    kernel.  The answers come back compact, (Q, C) rather than (Q, B).
+    kernel, followed for a stack beyond the paper pair by the extras'
+    tests on its kept rows.  The answers come back compact, (Q, C) rather
+    than (Q, B).
     """
 
     def __init__(self, tindex: TieredIndex, cfg: ServeConfig):
@@ -365,7 +370,8 @@ class _QuantizedBackend:
         qr = represent_queries(torch.as_tensor(q, dtype=torch.float32,
                                                device=dev),
                                qdev.levels, qdev.alphabet,
-                               normalize=self.cfg.normalize_queries)
+                               normalize=self.cfg.normalize_queries,
+                               stack=qdev.stack)
         cap = self.cfg.capacity0 or max(4 * k, 64)
         eps_t = torch.as_tensor(eps, dtype=torch.float32, device=dev)
         knn_t = torch.as_tensor(is_knn, dtype=torch.bool, device=dev)

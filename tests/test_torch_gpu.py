@@ -1494,3 +1494,134 @@ def test_profiler_capture_names_the_fused_kernels(cuda, tmp_path):
              ["traceEvents"] if e.get("cat") == "kernel"}
     assert any("fused_range_kernel" in n for n in names), names
     assert any("fused_topk_kernel" in n for n in names), names
+
+
+# ---------------------------------------------------------------------------
+# Extended representation stacks on the card: the kernels keep answering.
+# ---------------------------------------------------------------------------
+
+EXT_STACK = ("linfit_residual", "sax_word", "trend_slope")
+
+
+def ext_case(device, B=4096, Q=8):
+    from repro_torch.data.timeseries import make_trending
+    db = make_trending(B, 128, seed=3)
+    qs = make_queries(db, Q, seed=4)
+    out = {}
+    for stack in (EXT_STACK, engine.DEFAULT_STACK):
+        index = engine.build_device_index(db, (8, 16), 10, normalize=False,
+                                          stack=stack, device=device)
+        qr = engine.represent_queries(
+            torch.as_tensor(qs, dtype=torch.float32, device=device),
+            (8, 16), 10, stack=stack)
+        out[stack] = (index, qr)
+    return db, qs, out
+
+
+def test_extended_stack_serves_on_card_through_the_kernels(cuda):
+    """The extended stack's service runs kernels 1-2 on the card like the
+    paper stack's; asked for the torch engine, it runs none.  All three
+    replay exactly and give the same answers."""
+    db, qs, _ = ext_case(cuda)
+    wl = make_workload(qs, WorkloadSpec(n_requests=32, k=5, epsilon=1.0))
+    results = {}
+    for stack, backend in ((EXT_STACK, "auto"), (engine.DEFAULT_STACK, "auto"),
+                           (EXT_STACK, "torch")):
+        svc = SearchService.from_series(
+            db, ServeConfig(stack=stack, backend=backend), normalize=False)
+        assert svc.backend.index.device.type == "cuda"
+        assert svc.backend.index.stack == stack
+        fq.reset_launch_counts()
+        with svc:
+            result = run_closed_loop(svc, wl, clients=4)
+            assert check_exactness(svc, wl, result) == 0
+        launched = fq.fused_range.launches + fq.fused_topk.launches
+        if backend == "torch":
+            assert svc.backend.backend == "torch" and launched == 0
+        else:
+            assert svc.backend.backend == "cuda" and launched > 0
+        results[stack, backend] = result
+    want = results[engine.DEFAULT_STACK, "auto"].requests
+    for key in ((EXT_STACK, "auto"), (EXT_STACK, "torch")):
+        for a, b in zip(results[key].requests, want):
+            assert sorted(a.ids.tolist()) == sorted(b.ids.tolist())
+
+
+def test_extended_answers_equal_fused_paper_stack(cuda):
+    """The torch engine's cascade with trend_slope on the card against
+    kernels 1-2 on the paper stack; on the extended index the backend
+    dispatchers reach the kernels and equal them on the paper index."""
+    _, _, out = ext_case(cuda)
+    eindex, eqr = out[EXT_STACK]
+    pindex, pqr = out[engine.DEFAULT_STACK]
+    for eps in (0.5, 1.0, 2.0):
+        ea, ed = engine.range_query(eindex, eqr, eps)
+        pa, pd = engine.range_query_fused(pindex, pqr, eps)
+        differ = (ea != pa).cpu().numpy()
+        d2 = torch.where(pa, pd, ed).cpu().numpy()
+        near = np.abs(d2 - eps * eps) <= band(eps * eps)
+        assert not (differ & ~near).any()
+        fq.reset_launch_counts()
+        ba, bd = engine.range_query_backend(eindex, eqr, eps)
+        assert fq.fused_range.launches == 1
+        assert torch.equal(ba, pa) and torch.equal(bd, pd)
+    ei, ed, ee = engine.knn_query_auto(eindex, eqr, 5)
+    pi, pdd, pe = engine.knn_query_fused(pindex, pqr, 5)
+    assert bool(ee.all()) and bool(pe.all())
+    same = (ei == pi).cpu().numpy()
+    gap = np.abs(ed.cpu().numpy() - pdd.cpu().numpy())
+    assert np.all(same | (gap <= band(pdd.cpu().numpy())))
+    bi, bd, be = engine.knn_query_backend(eindex, eqr, 5)
+    assert torch.equal(bi, pi) and torch.equal(bd, pdd) and bool(be.all())
+
+
+def test_mindist_sq_at_n_equal_N_is_trend_slope_bound(cuda):
+    from repro_torch.core import representation as rep_registry
+    _, _, out = ext_case(cuda, B=50_001)
+    index, qr = out[EXT_STACK]
+    rep = rep_registry.get("trend_slope")
+    tab = ops.mindist_table_cached(10, str(cuda))
+    for li, N in enumerate(index.levels):
+        words = index.extra[li]["trend_slope"]
+        for qi in range(2):
+            qword = qr.extra[li]["trend_slope"][qi].cpu().numpy()
+            got = lo.mindist_sq(words, qword, N, 10)
+            torch.cuda.synchronize()
+            want = ref.mindist_sq_level_ref(
+                words, lo.query_table(qword, 10, cuda), N)
+            assert torch.equal(got, want)
+            bound = rep.dev_bound_sq(
+                words, qr.extra[li]["trend_slope"][qi:qi + 1], n=index.n,
+                N=N, tab=tab)[0]
+            assert torch.equal(got, bound)
+
+
+@pytest.mark.parametrize("Q", [1, 32])
+def test_dense_switch_replays_exactly_at_2_20_rows(cuda, Q):
+    """The torch engine's two layouts at B = 2^20: a mixed batch served
+    compact (capacity escalation) and dense (``mixed_query_dense``, every
+    row in chunks) gives each row the same answers and bit-identical
+    distances, so a request replayed across the service's dense switch
+    gets what it was served."""
+    B, n, levels, k = 1 << 20, 128, (8, 16), 5
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    walk = torch.cumsum(torch.randn((B, n), generator=gen, device=cuda),
+                        dim=-1)
+    index = engine.build_device_index(walk, levels, 10)
+    rows = torch.arange(Q, device=cuda) * (B // 32 - 1)
+    noise = 0.1 * torch.randn((Q, n), generator=gen, device=cuda)
+    qr = engine.represent_queries(index.series[rows] + noise, levels, 10)
+    is_knn = torch.arange(Q, device=cuda) % 2 == 1
+    eps = torch.full((Q,), 4.0, device=cuda)
+    idx, ans, d2, _ = engine.mixed_query_auto(index, qr, eps, is_knn, k)
+    didx, dans, dd2, _ = engine.mixed_query_dense(index, qr, eps, is_knn, k)
+    for qi in range(Q):
+        if bool(is_knn[qi]):
+            ci, cd = engine.mixed_topk(idx[qi:qi + 1], d2[qi:qi + 1], k)
+            di, dd = engine.mixed_topk(didx[qi:qi + 1], dd2[qi:qi + 1], k)
+            assert torch.equal(ci, di) and torch.equal(cd, dd)
+        else:
+            got = idx[qi][ans[qi]].long()
+            assert torch.equal(torch.sort(got).values,
+                               torch.nonzero(dans[qi]).flatten())
+            assert torch.equal(d2[qi][ans[qi]], dd2[qi][got])

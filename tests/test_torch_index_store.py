@@ -385,6 +385,8 @@ def test_upload_host_array_casts_row_chunks(monkeypatch):
 
 
 def test_extended_stack_store_loads_on_host_refused_on_device(db, tmp_path):
+    # A reference store with trend_slope loads on the host and warm-starts
+    # the device index and the tier with its extra columns as stored.
     stack = ("linfit_residual", "sax_word", "trend_slope")
     jext = jfs.build_index(db[:64], jfs.FastSAXConfig(
         n_segments=(8, 16), alphabet=10, stack=stack), normalize=False)
@@ -394,10 +396,26 @@ def test_extended_stack_store_loads_on_host_refused_on_device(db, tmp_path):
     assert loaded.config.stack == stack
     assert np.array_equal(loaded.levels[0].extra["trend_slope"],
                           jext.levels[0].extra["trend_slope"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        teng.DeviceIndex.from_store(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        teng.TieredIndex.from_store(path, device="cpu")
+    dev = teng.DeviceIndex.from_store(path, device="cpu")
+    jdev = jeng.device_index_from_host(jext)
+    assert dev.stack == stack
+    for li in range(2):
+        np.testing.assert_array_equal(
+            dev.extra[li]["trend_slope"].numpy(),
+            np.asarray(jdev.extra[li]["trend_slope"]))
+    tier = teng.TieredIndex.from_store(path, device="cpu")
+    assert tier.dev.stack == stack
+    np.testing.assert_array_equal(
+        tier.dev.extra[1]["trend_slope"].numpy(),
+        jext.levels[1].extra["trend_slope"].astype(np.int8))
+    q = torch.as_tensor(db[:3], dtype=torch.float32)
+    qr = teng.represent_queries(q, (8, 16), 10, normalize=False, stack=stack)
+    ans, _ = teng.range_query(dev, qr, 1.0)
+    idx, tans, _, exact = teng.quantized_range_query(tier, qr, 1.0)
+    assert bool(exact.all()) and bool(ans[[0, 1, 2], [0, 1, 2]].all())
+    for i in range(3):
+        assert sorted(idx[i][tans[i]].tolist()) == \
+            torch.nonzero(ans[i]).flatten().tolist()
 
 
 @pytest.mark.parametrize("mode", ["int8", "bf16"])

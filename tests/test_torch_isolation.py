@@ -46,7 +46,8 @@ def test_port_files_import_neither_jax_nor_reference():
             "src/repro_torch/obs/trace.py",
             "src/repro_torch/obs/spans.py",
             "src/repro_torch/obs/calibration.py",
-            "src/repro_torch/obs/metrics.py"} <= names
+            "src/repro_torch/obs/metrics.py",
+            "src/repro_torch/data/curation.py"} <= names
     offenders = {str(p.relative_to(ROOT)): sorted(
                      imported_modules(p) & set(FORBIDDEN))
                  for p in PORT_FILES}
@@ -65,6 +66,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core.subseq, repro_torch.core.search\n"
             "import repro_torch.kernels.level_ops\n"
             "import repro_torch.obs, repro_torch.obs.metrics\n"
+            "import repro_torch.data.curation\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
             "assert not bad, bad\n")

@@ -551,10 +551,18 @@ def test_unported_settings_raise():
         ServeConfig(quantization="int8", failover_shards=2)
     _, jhost, _ = host_indexes(300)
     qhost = jq.quantize_host_index(jhost, "int8")
+    # A column the stack does not name is refused, not dropped; under a
+    # stack that names it, it uploads.
     lv = dataclasses.replace(qhost.levels[0],
                              extra={"trend_slope": qhost.levels[0].words})
-    with pytest.raises(NotImplementedError, match="trend_slope"):
-        teng.quantized_device_index(dataclasses.replace(
-            qhost, levels=(lv,) + qhost.levels[1:]), device="cpu")
+    stray = dataclasses.replace(qhost, levels=(lv,) + qhost.levels[1:])
+    with pytest.raises(ValueError, match="trend_slope"):
+        teng.quantized_device_index(stray, device="cpu")
+    named = dataclasses.replace(
+        stray, stack=("linfit_residual", "sax_word", "trend_slope"),
+        levels=tuple(dataclasses.replace(
+            q, extra={"trend_slope": q.words}) for q in stray.levels))
+    qdev = teng.quantized_device_index(named, device="cpu")
+    assert torch.equal(qdev.extra[0]["trend_slope"], qdev.words[0])
     with pytest.raises(TypeError, match="unexpected kwargs"):
         teng.quantized_range_query(None, None, 1.0, block_q=8)

@@ -169,15 +169,20 @@ def test_stack_validation_and_config_errors():
         trep.validate_stack(("sax_word",))
     with pytest.raises(ValueError, match="gap-kind"):
         trep.validate_stack(("sax_word", "linfit_residual"))
-    # trend_slope is registered; the device engines refuse a stack that
-    # carries it (extended stacks on the device engines, queue 1 item 12).
+    # trend_slope is registered, and the device build carries its column
+    # as the reference's does (word symbols, int32, per level).
     ext = trep.DEFAULT_STACK + ("trend_slope",)
     assert trep.validate_stack(ext) == ext
     with pytest.raises(KeyError, match="unregistered"):
         trep.validate_stack(trep.DEFAULT_STACK + ("no_such_rep",))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        teng.build_device_index(make_wafer_like(8, 64, seed=0), (8,), 10,
-                                stack=ext, device="cpu")
+    x = make_wafer_like(8, 64, seed=0)
+    dev = teng.build_device_index(x, (8,), 10, stack=ext, device="cpu")
+    want = jeng.build_device_index(jnp.asarray(x, jnp.float32), (8,), 10,
+                                   stack=ext)
+    assert dev.stack == ext and set(dev.extra[0]) == {"trend_slope"}
+    assert dev.extra[0]["trend_slope"].dtype == torch.int32
+    np.testing.assert_array_equal(dev.extra[0]["trend_slope"].numpy(),
+                                  np.asarray(want.extra[0]["trend_slope"]))
     with pytest.raises(ValueError, match="ascending"):
         tfs.FastSAXConfig(n_segments=(8, 8))
     with pytest.raises(ValueError, match="alphabet"):

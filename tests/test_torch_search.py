@@ -410,34 +410,45 @@ def test_level_at_a_time_composition_matches_host_engines(eps):
 
 
 # ---------------------------------------------------------------------------
-# Device paths refuse an extended stack, naming the ROADMAP item.
+# Device paths take an extended stack and agree with the host engines.
 # ---------------------------------------------------------------------------
 
 def test_device_paths_refuse_extended_stacks():
     _, _, tidx, queries = indexes(TREND, "coarse_first")
-    match = f"item {teng.EXTENDED_STACK_ITEM}"
-    assert teng.EXTENDED_STACK_ITEM == 12
-    with pytest.raises(NotImplementedError, match=match):
-        teng.device_index_from_host(tidx, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        teng.build_device_index(tidx.series, LEVELS, 10, stack=TREND,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        teng.represent_queries(torch.as_tensor(queries, dtype=torch.float32),
-                               LEVELS, 10, stack=TREND)
-    with pytest.raises(NotImplementedError, match=match):
-        ServeConfig(stack=TREND)
-    with pytest.raises(NotImplementedError, match=match):
-        teng.quantized_device_index(tq.quantize_host_index(tidx, "int8"),
-                                    device="cpu")
+    dev = teng.device_index_from_host(tidx, device="cpu")
+    assert dev.stack == TREND
+    built = teng.build_device_index(tidx.series, LEVELS, 10, stack=TREND,
+                                    normalize=False, device="cpu")
+    qr = teng.represent_queries(torch.as_tensor(queries, dtype=torch.float32),
+                                LEVELS, 10, stack=TREND)
+    assert ServeConfig(stack=TREND).stack == TREND
+    tier = teng.quantized_device_index(tq.quantize_host_index(tidx, "int8"),
+                                       device="cpu")
+    assert tier.stack == TREND and set(tier.extra[0]) == {"trend_slope"}
     streams = make_wafer_like(2, 300, seed=0, normalize=False)
-    with pytest.raises(NotImplementedError, match=match):
-        tsubseq.build_subseq_index(
-            streams, tfs.FastSAXConfig(n_segments=LEVELS, stack=TREND), 64, 2)
+    hsub = tsubseq.build_subseq_index(
+        streams, tfs.FastSAXConfig(n_segments=LEVELS, stack=TREND), 64, 2)
+    assert set(hsub.levels[0].extra) == {"trend_slope"}
+    # The device cascade's candidates are the host engine's (band rows of
+    # the f32 representation aside), and so are its answers.
+    for qi in range(len(queries)):
+        eps = eps_at(tidx, queries[qi], 0.02)
+        r = tsearch.fastsax_range_query(tidx, queries[qi], eps)
+        one = teng.QueryReprDev(
+            q=qr.q[qi:qi + 1], words=tuple(w[qi:qi + 1] for w in qr.words),
+            residuals=tuple(x[qi:qi + 1] for x in qr.residuals),
+            extra=tuple({k: v[qi:qi + 1] for k, v in lv.items()}
+                        for lv in qr.extra))
+        for index in (dev, built):
+            cand = torch.nonzero(teng.cascade_mask(index, one, eps)[0])
+            assert abs(cand.numel() - r.candidates) <= 2
+            ans, _ = teng.range_query(index, one, eps)
+            assert torch.nonzero(ans[0]).flatten().tolist() == \
+                r.answers.tolist()
     # The paper stack still builds on the device paths.
     paper = tfs.build_index(tidx.series, tfs.FastSAXConfig(n_segments=LEVELS),
                             normalize=False)
     dev = teng.device_index_from_host(paper, device="cpu")
-    assert dev.stack == trep.DEFAULT_STACK
+    assert dev.stack == trep.DEFAULT_STACK and dev.extra == ()
     assert math.isclose(float(dev.residuals[0][0]),
                         paper.levels[0].residuals[0], rel_tol=1e-6)

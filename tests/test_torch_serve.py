@@ -234,3 +234,29 @@ def test_launcher_serve_on_cpu(capsys):
                if ln.startswith("[serve] summary ")][-1]
     s = json.loads(summary[len("[serve] summary "):])
     assert s["served"] == 12 and s["exact_mismatches"] == 0
+
+
+def test_replay_after_the_dense_switch_is_exact():
+    # The torch backend switches for good to the dense layout once its
+    # capacity escalation passes dense_fallback_frac·B, so a request served
+    # before the switch is replayed after it in the other layout: both
+    # must give the same ids and distances (both verify in the diff²
+    # form).  A service whose fallback lies beyond B never switches.
+    from repro_torch.data.timeseries import make_trending
+    db = make_trending(512, 128, seed=5)
+    compact = SearchService.from_series(
+        db, ServeConfig(backend="torch", dense_fallback_frac=4.0),
+        normalize=False, device="cpu")
+    dense = SearchService.from_series(db, ServeConfig(backend="torch"),
+                                      normalize=False, device="cpu")
+    # A zero query's k-NN radius admits every row: the escalation goes
+    # dense.
+    dense.direct_query("knn", np.zeros(128, np.float32), k=3)
+    assert dense.backend._cap == -1
+    for q in make_queries(db, 6, seed=6).astype(np.float32):
+        for kind in ("range", "knn"):
+            i0, d0 = compact.direct_query(kind, q, epsilon=1.0, k=3)
+            i1, d1 = dense.direct_query(kind, q, epsilon=1.0, k=3)
+            assert compact.backend._cap != -1
+            np.testing.assert_array_equal(i0, i1)
+            np.testing.assert_array_equal(d0, d1)

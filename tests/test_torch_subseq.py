@@ -435,12 +435,18 @@ def test_launcher_serves_subsequences_on_cpu(capsys):
 
 
 def test_later_slices_raise_naming_their_items():
+    # The extended stack builds (its trend words from the window hook, as
+    # the reference's); the subsequence service still serves full
+    # precision only.
     streams = make_wafer_like(2, 300, seed=0, normalize=False)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tss.build_subseq_index(
-            streams, JConfig(n_segments=LEVELS,
-                             stack=("linfit_residual", "sax_word",
-                                    "trend_slope")), 64, 2)
+    ext = ("linfit_residual", "sax_word", "trend_slope")
+    hidx = tss.build_subseq_index(
+        streams, FastSAXConfig(n_segments=LEVELS, stack=ext), 64, 2)
+    jhidx = jss.build_subseq_index(
+        streams, JConfig(n_segments=LEVELS, stack=ext), 64, 2)
+    for lv, jlv in zip(hidx.levels, jhidx.levels):
+        np.testing.assert_array_equal(lv.extra["trend_slope"],
+                                      jlv.extra["trend_slope"])
     with pytest.raises(ValueError, match="quantization"):
         SubseqSearchService.from_streams(
             streams, 64, 2, ServeConfig(levels=LEVELS, quantization="int8"),
