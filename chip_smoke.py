@@ -217,6 +217,32 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    an eighth planted near-duplicates, in batches of 1,024: the keep masks
    equal a brute-force dedup on the card (f64), admits per second.  The
    kernels line adds the phase's path launches (not its comparisons).
+17. Sharded search at shard-1M, report key ``shard``, ``[shard-*]``
+   lines: serve-1M's database and 64 requests and subseq-1M's streams
+   over a mesh of P = 4 shards (``dist_search.make_data_mesh(4)``: all
+   four on the one card here, shard i on card i mod the card count).
+   (a) ``distributed_build``, then the range, k-NN and mixed engines and
+   their ``_auto`` forms on 32 queries at ε = 2, k = 5, each counted
+   (kernels 1-2 on every shard): range sets, range d², k-NN ids and k-NN
+   d² bit-identical to phase 3's index through ``range_query_fused`` /
+   ``knn_query_fused``, and held to the f64 brute force by the band rule;
+   kernel 1's wrapper timed on one shard and on the whole index.  (b)
+   ``SearchService.from_series(mesh=…)``: the closed loop, 0 replay
+   mismatches, every answer bit-identical to phase 5's; qps beside phase
+   5's.  (c) ``store_sharded`` into phase 14's roomy temp directory, then
+   ``SearchService.from_store``: the 64 requests replayed bit-identical,
+   save and warm-start seconds.  (d) phase 7's int8 tier resharded
+   (``distributed_tiered_index``): kernel 5 on every shard, 0 replay
+   mismatches, phase 8's answers bit for bit.  (e) subseq-1M's 16 streams
+   over the shards (``distributed_subseq_index``): the range and k-NN
+   entry points launch kernels 3-4 (not 1-2) and answer as phase 10.
+   (f) ``ServeConfig(failover_shards=4)`` under ``FaultPlan`` s: a
+   transient fault on shard 1 healed by a retry; shard 2 killed, marked
+   down, every answer certified-partial (``exact`` False, ``rows_ok`` the
+   other shards' rows, ``/healthz`` saying so) and equal to the f64 brute
+   force over the other shards' rows; revived by a probe, exact again; a
+   slowed shard hedged.  The kernels line adds the phase's counted
+   launches.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -4263,6 +4289,511 @@ def repr_phase(torch, engine, fq, lo, ref, ops, ss, report) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: sharded search (shard-1M) — the database sharded over a mesh of
+# P = 4 shards on the card, sharded stores, the sharded int8 tier, the
+# stream-sharded subsequence search and failover shards under a FaultPlan.
+# ---------------------------------------------------------------------------
+
+# shard-1M: serve-1M's index and requests and subseq-1M's streams over 4
+# shards (all on one card here: make_data_mesh places shard i on card
+# i mod the card count).
+SHARD = dict(shards=4, queries=32, eps=2.0, k=5, rows=N_SERVE)
+
+
+def resident_bytes(tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors
+                   if t is not None))
+
+
+def index_bytes(idx) -> int:
+    return resident_bytes([idx.series, idx.norms_sq, *idx.words,
+                           *idx.residuals])
+
+
+def shard_engines(torch, engine, fq, ds, db, index, queries, smi) -> tuple:
+    """Step (a): the sharded engines on 32 queries, each counted, against
+    the single index's fused path (bit for bit) and the f64 brute force."""
+    from repro_torch.core.paa import znormalize_np
+
+    cfg = SHARD
+    mesh = ds.make_data_mesh(cfg["shards"])
+    check(mesh.size == cfg["shards"], f"mesh of {mesh.size} shards")
+    padded, nv = ds.pad_database(db, mesh.size)
+    t0 = time.perf_counter()
+    sidx = ds.distributed_build(padded, (8, 16), 10, mesh, n_valid=nv)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    qs = queries[:cfg["queries"]]
+    Q = qs.shape[0]
+    is_knn = np.arange(Q) % 2 == 0
+    eps_vec = np.full(Q, cfg["eps"], np.float32)
+    launches: dict = {}
+    out = {}
+    for name, fn in (
+            ("range", lambda: ds.distributed_range_query(
+                sidx, qs, cfg["eps"], mesh)),
+            ("range_auto", lambda: ds.distributed_range_query_auto(
+                sidx, qs, cfg["eps"], mesh)),
+            ("knn", lambda: ds.distributed_knn_query(sidx, qs, cfg["k"],
+                                                     mesh)),
+            ("mixed", lambda: ds.distributed_mixed_query(
+                sidx, qs, eps_vec, is_knn, cfg["k"], mesh)),
+            ("mixed_auto", lambda: ds.distributed_mixed_query_auto(
+                sidx, qs, eps_vec, is_knn, cfg["k"], mesh))):
+        out[name], ln = counted(torch, fq, fn)
+        check(ln["fused_range"] + ln["fused_topk"] > 0,
+              f"{name}: kernels 1-2 did not launch: {ln}")
+        add_launches(launches, ln)
+    check(launches["fused_range"] > 0 and launches["fused_topk"] > 0,
+          f"the sharded engines did not launch kernels 1-2: {launches}")
+    # The single index of phase 3 through the fused path, uncounted.
+    qr = engine.represent_queries(
+        torch.as_tensor(qs, dtype=torch.float32, device="cuda"), (8, 16), 10)
+    w_ans, w_d2 = engine.range_query_fused(index, qr, cfg["eps"])
+    w_idx, w_kd2, _ = engine.knn_query_fused(index, qr, cfg["k"])
+    gidx, ans, d2, ovf = out["range_auto"]
+    check(not bool(ovf.any()), "range_auto still overflowed")
+    bit = {"range_sets": 0, "range_d2": 0, "knn_ids": 0, "knn_d2": 0}
+    for i in range(Q):
+        g = gidx[i][ans[i]].long()
+        want = torch.nonzero(w_ans[i]).flatten()
+        bit["range_sets"] += int(torch.equal(torch.sort(g).values, want))
+        bit["range_d2"] += int(torch.equal(
+            d2[i][ans[i]], w_d2[i][g]))
+    nn_idx, nn_d2, exact = out["knn"]
+    check(bool(exact.all()), "sharded k-NN certificates")
+    bit["knn_ids"] = int((nn_idx[:, :cfg["k"]] == w_idx.long()).all(
+        dim=-1).sum())
+    bit["knn_d2"] = int((nn_d2[:, :cfg["k"]] == w_kd2).all(dim=-1).sum())
+    check(all(v == Q for v in bit.values()),
+          f"sharded answers differ from the single index's: {bit} of {Q}")
+    # The mixed batch: range rows the same sets, k-NN rows the same ids.
+    mg, ma, md, movf = out["mixed_auto"]
+    check(not bool(movf.any()), "mixed_auto still overflowed")
+    mixed_ok = 0
+    for i in range(Q):
+        if is_knn[i]:
+            top, _ = engine.mixed_topk(mg[i:i + 1], md[i:i + 1], cfg["k"])
+            mixed_ok += int(torch.equal(top[0].long(), w_idx[i].long()))
+        else:
+            mixed_ok += int(torch.equal(
+                torch.sort(mg[i][ma[i]].long()).values,
+                torch.nonzero(w_ans[i]).flatten()))
+    check(mixed_ok == Q, f"mixed: {mixed_ok} of {Q} equal")
+    # The f64 brute force under the band rule.
+    s64 = index.series.double()
+    bf = {"checked": 0, "boundary_rows": 0, "wrong": 0}
+    for i in range(Q):
+        qz = torch.as_tensor(znormalize_np(qs[i].astype(np.float64)),
+                             device="cuda")
+        dd = torch.cat([((s64[s:s + (1 << 18)] - qz) ** 2).sum(-1)
+                        for s in range(0, s64.shape[0], 1 << 18)])
+        e2 = cfg["eps"] ** 2
+        got = gidx[i][ans[i]].long().cpu().numpy()
+        d_np = dd.cpu().numpy()
+        sym = np.setxor1d(np.flatnonzero(d_np <= e2), got)
+        bad = int((np.abs(d_np[sym] - e2) > band(e2)).sum())
+        want = torch.sort(dd, stable=True).indices[:cfg["k"]].cpu().numpy()
+        kid = nn_idx[i, :cfg["k"]].cpu().numpy()
+        off = np.flatnonzero(kid != want)
+        bad += int((np.abs(d_np[kid[off]] - d_np[want[off]])
+                    > band(d_np[want[off]])).sum())
+        bf["checked"] += 1
+        bf["boundary_rows"] += int(sym.size + off.size)
+        bf["wrong"] += bad
+    del s64
+    check(bf["wrong"] == 0, f"sharded answers vs the f64 brute force: {bf}")
+    # Per-shard kernel 1 at the path's shape against the whole index's.
+    shard0 = sidx.shards[0]
+    eps_col = engine._eps_qcol(cfg["eps"], Q, "cuda")
+    shard_ms = cuda_ms(torch, lambda: engine.range_query_fused(
+        shard0, qr, eps_col), 5)
+    whole_ms = cuda_ms(torch, lambda: engine.range_query_fused(
+        index, qr, eps_col), 5)
+    res = {"build_s": t_build, "launches": launches, "bit_identical": bit,
+           "mixed_equal": mixed_ok, "brute_force": bf,
+           "resident_bytes": sum(index_bytes(s) for s in sidx.shards),
+           "single_index_bytes": index_bytes(index),
+           "kernel1_ms_one_shard": shard_ms,
+           "kernel1_ms_whole_index": whole_ms}
+    log(f"[shard-engines] {smi}: {mesh.size} shards of {sidx.b_loc} rows on "
+        f"{sorted({str(d) for d in mesh.devices})}, built in {t_build:.2f}s, "
+        f"{res['resident_bytes']} bytes resident (one index "
+        f"{res['single_index_bytes']}); range/range_auto/knn/mixed/"
+        f"mixed_auto launches {launches}; bit-identical to phase 5's fused "
+        f"path {bit} of {Q}; mixed {mixed_ok}/{Q}; f64 brute force {bf}; "
+        f"range_query_fused (kernel 1 wrapper) at Q={Q}: one shard "
+        f"{shard_ms:.3f} ms, the whole index {whole_ms:.3f} ms")
+    return mesh, sidx, res
+
+
+def dispatch_ms(torch, backend, queries, reps: int = 5) -> float:
+    """Host ms of one Q = 32 mixed dispatch (half k-NN at k = 8, half
+    range at ε = 2), answers on the host, mean of ``reps`` after one."""
+    q = np.asarray(queries[:32], np.float32)
+    eps = np.full(32, SHARD["eps"], np.float32)
+    is_knn = np.arange(32) % 2 == 0
+    backend.dispatch(q, eps, is_knn, 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        backend.dispatch(q, eps, is_knn, 8)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def shard_service(torch, fq, ds, db, index, mesh, queries, workload, result,
+                  root, smi) -> tuple:
+    """Steps (b) and (c): serve-1M's closed loop through
+    ``from_series(mesh=…)``, a Q = 32 dispatch against one index's; the
+    sharded store and a warm start."""
+    from repro_torch.serve import SearchService, ServeConfig
+    from repro_torch.serve.service import _ShardedBackend, _SingleBackend
+
+    t0 = time.perf_counter()
+    svc = SearchService.from_series(db, ServeConfig(), mesh=mesh)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check(isinstance(svc.backend, _ShardedBackend)
+          and svc.backend.backend == "cuda",
+          "the sharded service must serve through the kernels")
+    t0 = time.perf_counter()
+    svc.warmup()
+    t_warm = time.perf_counter() - t0
+    res, launched = serve_phase(torch, fq, svc, workload, "shard-serve")
+    check(res.served == len(workload), f"served {res.served}")
+    check(launched["fused_range"] > 0 and launched["fused_topk"] > 0,
+          f"kernels 1-2 did not launch from the sharded service: {launched}")
+    mismatches, t_replay = replay_check(svc, workload, res, "shard-serve")
+    vs5 = {"requests": len(workload), "equal": sum(
+        int(np.array_equal(g.ids, w.ids)
+            and np.array_equal(g.distances, w.distances))
+        for g, w in zip(res.requests, result.requests))}
+    check(vs5["equal"] == len(workload),
+          f"sharded service answers differ from phase 5's: {vs5}")
+    snap = svc.stats.snapshot()
+    served = direct_answers(svc, workload)
+    # Where a batch's time goes: the sharded dispatch (four compact
+    # buffers copied) against one index's (the dense (Q, B) layout).
+    split = {"sharded_ms": dispatch_ms(torch, svc.backend, queries),
+             "one_index_ms": dispatch_ms(
+                 torch, _SingleBackend(index, ServeConfig()), queries),
+             "sharded_d2h_bytes": svc.backend.last_d2h_bytes}
+    path = root / "sharded"
+    t0 = time.perf_counter()
+    ds.store_sharded(svc.backend.index, path)
+    t_save = time.perf_counter() - t0
+    del svc
+    t0 = time.perf_counter()
+    warm = SearchService.from_store(path)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(isinstance(warm.backend, _ShardedBackend)
+          and len(warm.backend.index.shards) == mesh.size,
+          "the sharded store must warm-start the sharded backend")
+    (warm_answers, wl) = counted(torch, fq,
+                                 lambda: direct_answers(warm, workload))
+    check(wl["fused_range"] > 0 and wl["fused_topk"] > 0,
+          f"the warm start did not launch kernels 1-2: {wl}")
+    check(same_answers(warm_answers, served, exact=True),
+          "the warm-started sharded service answers differently")
+    store_bytes = sum(f.stat().st_size for f in path.rglob("*")
+                      if f.is_file())
+    shutil.rmtree(path)
+    out = {"build_s": t_build, "warmup_s": t_warm, "qps": res.qps,
+           "phase5_qps": result.qps, "latency_ms": snap["latency_ms"],
+           "mean_batch": snap["mean_batch_size"], "launches": launched,
+           "exact_mismatches": mismatches, "replay_s": t_replay,
+           "vs_phase5": vs5, "store_save_s": t_save,
+           "warm_start_s": t_load, "store_bytes": store_bytes,
+           "warm_launches": wl, "dispatch_q32": split}
+    lat = snap["latency_ms"]
+    log(f"[shard-serve] {smi}: 64 requests at {res.qps:.2f} qps over "
+        f"{mesh.size} shards (phase 5, one index: {result.qps:.2f} qps); "
+        f"p50 {lat['p50']} ms p99 {lat['p99']} ms; launches {launched}; "
+        f"replay mismatches {mismatches}; answers bit-identical to phase "
+        f"5's {vs5['equal']}/{vs5['requests']}; a Q=32 mixed dispatch "
+        f"(k=8) {split['sharded_ms']:.1f} ms sharded "
+        f"({split['sharded_d2h_bytes']} bytes to the host) against "
+        f"{split['one_index_ms']:.1f} ms on one index")
+    log(f"[shard-store] {smi}: store_sharded {t_save:.2f}s "
+        f"({store_bytes} bytes), warm start {t_load:.2f}s, the 64 requests "
+        f"replayed bit-identical, launches {wl}")
+    return out, launched, wl
+
+
+def shard_tier(torch, fq, ds, tier8, mesh, workload, qresult, smi) -> tuple:
+    """Step (d): the sharded int8 tier, kernel 5 on every shard."""
+    from repro_torch.serve import SearchService, ServeConfig
+    from repro_torch.serve.service import _DistQuantizedBackend
+
+    cfg = ServeConfig(quantization="int8")
+    t0 = time.perf_counter()
+    dti = ds.distributed_tiered_index(tier8, mesh)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+    svc = SearchService(_DistQuantizedBackend(dti, mesh, cfg), cfg)
+    check(svc.backend.backend == "cuda", "the sharded tier must use kernel 5")
+    svc.warmup()
+    res, launched = serve_phase(torch, fq, svc, workload, "shard-tier")
+    check(res.served == len(workload), f"served {res.served}")
+    check(launched["fused_quant_range"] >= mesh.size,
+          f"kernel 5 did not launch on every shard: {launched}")
+    mismatches, _ = replay_check(svc, workload, res, "shard-tier")
+    vs8 = {"requests": len(workload), "equal": sum(
+        int(np.array_equal(g.ids, w.ids)
+            and np.array_equal(g.distances, w.distances))
+        for g, w in zip(res.requests, qresult.requests))}
+    check(vs8["equal"] == len(workload),
+          f"sharded tier answers differ from phase 8's: {vs8}")
+    out = {"reshard_s": t_shard, "qps": res.qps,
+           "phase8_qps": qresult.qps, "launches": launched,
+           "exact_mismatches": mismatches, "vs_phase8": vs8,
+           "resident_bytes": sum(quant_resident_bytes(s)
+                                 for s in dti.shards)}
+    log(f"[shard-tier] {smi}: int8 tier resharded onto {mesh.size} shards "
+        f"in {t_shard:.2f}s ({out['resident_bytes']} bytes resident); 64 "
+        f"requests at {res.qps:.2f} qps (phase 8, one tier: "
+        f"{qresult.qps:.2f}), launches {launched}, replay "
+        f"mismatches {mismatches}, phase 8's answers {vs8['equal']}/"
+        f"{vs8['requests']}")
+    return out, launched
+
+
+def shard_subseq(torch, fq, ds, sub, mesh, smi) -> tuple:
+    """Step (e): subseq-1M's 16 streams over the shards, kernels 3-4."""
+    cfg = SUBSEQ
+    t0 = time.perf_counter()
+    dsx = ds.distributed_subseq_index(sub["hidx"], mesh)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    launches: dict = {}
+    (gidx, ans, d2, ovf), ln = counted(torch, fq, lambda: (
+        ds.distributed_subseq_range_query(dsx, sub["queries"], cfg["eps"],
+                                          mesh)))
+    add_launches(launches, ln)
+    (sel, sel_d2, exact), ln = counted(torch, fq, lambda: (
+        ds.distributed_subseq_knn_query(dsx, sub["queries"], cfg["k"], mesh,
+                                        excl=cfg["excl"])))
+    add_launches(launches, ln)
+    check(launches["fused_subseq_range"] >= mesh.size
+          and launches["fused_subseq_topk"] >= mesh.size,
+          f"kernels 3-4 did not launch on every shard: {launches}")
+    check(launches["fused_range"] == 0 and launches["fused_topk"] == 0,
+          f"the stream shards went through kernels 1-2: {launches}")
+    check(bool(exact.all()) and not bool(ovf.any()),
+          "stream-sharded certificates")
+    want = sub["ans"]
+    equal = sum(int(torch.equal(torch.sort(gidx[i][ans[i]].long()).values,
+                                torch.nonzero(want[i]).flatten()))
+                for i in range(want.shape[0]))
+    knn_equal = int((sel == sub["sel"]).all(axis=1).sum())
+    check(equal == want.shape[0] and knn_equal == want.shape[0],
+          f"stream-sharded answers differ from phase 10's: range {equal}, "
+          f"k-NN {knn_equal} of {want.shape[0]}")
+    out = {"build_s": t_build, "launches": launches, "range_equal": equal,
+           "knn_equal": knn_equal, "shard_windows": dsx.w_loc,
+           "resident_bytes": sum(
+               resident_bytes([s.streams, s.mu, s.sd]) + index_bytes(s.index)
+               for s in dsx.shards)}
+    log(f"[shard-subseq] {smi}: {cfg['streams']} streams over {mesh.size} "
+        f"shards ({dsx.w_loc} windows each) in {t_build:.2f}s, "
+        f"{out['resident_bytes']} bytes resident; launches {launches}; "
+        f"range {equal} and k-NN {knn_equal} of {want.shape[0]} equal to "
+        f"phase 10's")
+    return out, launches
+
+
+def failover_request(svc, kind, q, eps, k):
+    req = (svc.submit_knn(q, k) if kind == "knn"
+           else svc.submit_range(q, eps))
+    req.wait(120)
+    return req
+
+
+def shard_failover(torch, fq, db, series, workload, smi) -> tuple:
+    """Step (f): failover shards under a FaultPlan — a transient fault
+    healed by a retry, a killed shard marked down (certified-partial
+    answers equal to the brute force over the other shards' rows, the
+    coverage in /healthz), revived by a probe, and a slowed shard
+    hedged."""
+    import urllib.request
+
+    from repro_torch.obs.metrics import start_metrics_server
+    from repro_torch.runtime import chaos
+    from repro_torch.serve import SearchService, ServeConfig
+
+    cfg = ServeConfig(max_batch=8, failover_shards=SHARD["shards"])
+    t0 = time.perf_counter()
+    svc = SearchService.from_series(db, cfg)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    eng = svc.backend.engine
+    check(svc.backend.backend == "cuda" and eng.n_shards == SHARD["shards"]
+          and all(d.type == "cuda" for d in eng.devices),
+          "failover shards must sit on the card")
+    t0 = time.perf_counter()
+    svc.warmup(qs=(1, 8))
+    t_warm = time.perf_counter() - t0
+    check(eng.shard_states() == ["up"] * eng.n_shards,
+          f"a shard went down in the warmup: {eng.shard_states()}")
+    per = [int(s.size) for s in eng.shards]
+    off = eng.offsets
+    picks = [i for i, w in enumerate(workload) if w[0] == "knn"][:4] + \
+        [i for i, w in enumerate(workload) if w[0] == "range"][:4]
+    server = start_metrics_server(svc.metrics_text, 0, health_fn=svc.health)
+    url = f"http://127.0.0.1:{server.server_address[1]}/healthz"
+    steps = {}
+    launches: dict = {}
+    try:
+        with svc:
+            fq.reset_launch_counts()
+            healthy = [failover_request(svc, *workload[i]) for i in picks]
+            check(all(r.exact for r in healthy), "healthy: not exact")
+            # A transient fault on shard 1: one attempt, healed by a retry.
+            plan = chaos.FaultPlan(seed=0, specs=[chaos.FaultSpec(
+                site="shard_query", key="1", start=0, stop=1)])
+            with chaos.injected(plan):
+                r = failover_request(svc, *workload[picks[0]])
+            check(r.exact and eng.events["retries"] >= 1,
+                  f"transient fault not healed: {r.coverage}, "
+                  f"{dict(eng.events)}")
+            steps["transient"] = {"coverage": r.coverage,
+                                  "retries": eng.events["retries"]}
+            # Shard 2 killed: down after 3 dispatches, partial answers.
+            plan = chaos.FaultPlan(seed=0, specs=[chaos.FaultSpec(
+                site="shard_query", key="2")])
+            with chaos.injected(plan):
+                partial = [failover_request(svc, *workload[i])
+                           for i in picks]
+                health = json.loads(urllib.request.urlopen(url).read())
+            states = eng.shard_states()
+            check(states[2] == "down" and eng.events["shard_down"] >= 1,
+                  f"shard 2 not marked down: {states}")
+            rows_other = sum(per) - per[2]
+            check(all((not p.exact) and p.coverage["shards_ok"] == 3
+                      and p.coverage["rows_ok"] == rows_other
+                      for p in partial),
+                  f"partial coverage: {[p.coverage for p in partial]}")
+            check(health["coverage"]["rows_ok"] == rows_other
+                  and not health["coverage"]["exact"],
+                  f"/healthz coverage: {health}")
+            # Revived by a probe: exact again within probe_every dispatches.
+            revived = []
+            for i in picks:
+                revived.append(failover_request(svc, *workload[i]))
+                if revived[-1].exact:
+                    break
+            check(revived[-1].exact and eng.shard_states()[2] == "up",
+                  f"shard 2 not revived: {eng.shard_states()}")
+            again = [failover_request(svc, *workload[i]) for i in picks]
+            check(all(a.exact for a in again), "not exact after revival")
+            # A slowed shard: its first attempt outlasts the watchdog's
+            # timeout and is hedged; the re-dispatch answers in time.
+            plan = chaos.FaultPlan(seed=0, specs=[chaos.FaultSpec(
+                site="shard_query", key="0", mode="slow", delay_s=2.0,
+                start=0, stop=1)])
+            hedges0 = eng.events["hedges"]
+            t0 = time.perf_counter()
+            with chaos.injected(plan):
+                slow = failover_request(svc, *workload[picks[0]])
+            t_slow = time.perf_counter() - t0
+            check(eng.events["hedges"] > hedges0 and t_slow < 2.0,
+                  f"the slowed shard was not hedged: {dict(eng.events)}, "
+                  f"{t_slow:.2f}s")
+            torch.cuda.synchronize()
+            launches = {k.__name__: k.launches for k in fq.KERNELS}
+    finally:
+        server.shutdown()
+        server.server_close()
+    check(launches["fused_range"] > 0 and launches["fused_topk"] > 0,
+          f"the failover shards did not launch kernels 1-2: {launches}")
+    # Answers: healthy and revived ones equal phase 5's by the band rule;
+    # the partial ones the f64 brute force over the other shards' rows.
+    from repro_torch.core.paa import znormalize_np
+    s64 = rows_f64(torch, series, torch.device("cuda"))
+    keep = torch.ones(s64.shape[0], dtype=torch.bool, device="cuda")
+    keep[off[2]:off[2] + per[2]] = False
+    bf = {"checked": 0, "boundary_rows": 0, "wrong": 0}
+    for reqs, mask in ((healthy, None), (again, None), (partial, keep)):
+        for i, req in zip(picks, reqs):
+            kind, q, eps, k = workload[i]
+            qz = torch.as_tensor(znormalize_np(
+                np.asarray(q, np.float32).astype(np.float64)), device="cuda")
+            dd = ((s64 - qz) ** 2).sum(-1)
+            if mask is not None:
+                dd = torch.where(mask, dd, torch.full_like(dd, np.inf))
+            d_np = dd.cpu().numpy()
+            if kind == "range":
+                sym = np.setxor1d(np.flatnonzero(d_np <= eps * eps), req.ids)
+                bad = int((np.abs(d_np[sym] - eps * eps)
+                           > band(eps * eps)).sum())
+            else:
+                want = torch.sort(dd, stable=True).indices[:k].cpu().numpy()
+                sym = np.flatnonzero(want != req.ids)
+                bad = int((np.abs(d_np[req.ids[sym]] - d_np[want[sym]])
+                           > band(d_np[want[sym]])).sum())
+            bf["checked"] += 1
+            bf["boundary_rows"] += int(sym.size)
+            bf["wrong"] += bad
+    del s64
+    check(bf["wrong"] == 0, f"failover answers vs the f64 brute force: {bf}")
+    eng.close()
+    out = {"build_s": t_build, "warmup_s": t_warm, "steps": steps,
+           "partial_coverage": partial[0].coverage,
+           "healthz": health, "revived_after": len(revived),
+           "slowed_dispatch_s": t_slow, "events": dict(eng.events),
+           "brute_force": bf, "launches": launches}
+    log(f"[shard-failover] {smi}: {eng.n_shards} failover shards built in "
+        f"{t_build:.2f}s, warmup {t_warm:.1f}s; transient fault healed "
+        f"({steps['transient']}); shard 2 killed: down, coverage "
+        f"{partial[0].coverage}, /healthz {health['coverage']}; revived "
+        f"after {len(revived)} dispatch(es); slowed shard hedged in "
+        f"{t_slow:.2f}s; events {dict(eng.events)}; f64 brute force {bf}; "
+        f"launches {launches}")
+    return out, launches
+
+
+def shard_phase(torch, engine, fq, db, index, tier8, sub, queries,
+                workload, result, qresult, report) -> dict:
+    """Phase 17; returns the launch counts of its counted runs, summed."""
+    from repro_torch.core import dist_search as ds
+
+    smi = report["env"]["nvidia_smi"]
+    t_start = time.perf_counter()
+    launches: dict = {}
+    mesh, sidx, engines = shard_engines(torch, engine, fq, ds, db, index,
+                                        queries, smi)
+    add_launches(launches, engines["launches"])
+    del sidx
+    root = store_dir()
+    try:
+        serve, ln, wl = shard_service(torch, fq, ds, db, index, mesh,
+                                      queries, workload, result, root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    add_launches(launches, ln)
+    add_launches(launches, wl)
+    tier, ln = shard_tier(torch, fq, ds, tier8, mesh, workload, qresult, smi)
+    add_launches(launches, ln)
+    subseq, ln = shard_subseq(torch, fq, ds, sub, mesh, smi)
+    add_launches(launches, ln)
+    failover, ln = shard_failover(torch, fq, db, index.series.cpu().numpy(),
+                                  workload, smi)
+    add_launches(launches, ln)
+    report["shard"] = {"card": smi, "shards": SHARD["shards"],
+                       "engines": engines, "serve": serve, "tier": tier,
+                       "subseq": subseq, "failover": failover,
+                       "launches": launches,
+                       "seconds": time.perf_counter() - t_start,
+                       "max_memory_allocated":
+                           torch.cuda.max_memory_allocated()}
+    log(f"[shard] phase 17 in {report['shard']['seconds']:.1f}s on {smi}; "
+        f"launches of its counted runs {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4503,8 +5034,8 @@ def main() -> int:
     report["quant_breakdown"] = quant_breakdown(torch, engine, qservice,
                                                 queries)
     log(f"[time] phases 1-8 in {time.perf_counter() - t_start:.1f}s")
-    index = service.backend.index          # phase 3's, for phases 12-13, 15
-    del qservice, service, db
+    index = service.backend.index   # phase 3's, for phases 12-13, 15, 17
+    del qservice, service
 
     # ---- 9-11. subsequence search
     slaunches, sk, sub = subseq_phases(torch, engine, fq, ref, report)
@@ -4528,7 +5059,7 @@ def main() -> int:
     # the profiler
     olaunches = obs_phase(torch, engine, fq, ref, ops, index, host, queries,
                           workload, result, tier8, sub, report)
-    del host, sub, index, tier8
+    del host
     log(f"[time] phases 1-15 in {time.perf_counter() - t_start:.1f}s")
     for name, count in olaunches.items():
         plaunches[name] = plaunches.get(name, 0) + count
@@ -4541,6 +5072,13 @@ def main() -> int:
             llaunches[name] = llaunches.get(name, 0) + count
         else:
             plaunches[name] = plaunches.get(name, 0) + count
+
+    # ---- 17. sharded search, sharded stores, failover shards (shard-1M)
+    shlaunches = shard_phase(torch, engine, fq, db, index, tier8, sub,
+                             queries, workload, result, qresult, report)
+    del db, index, tier8, sub
+    log(f"[time] phases 1-17 in {time.perf_counter() - t_start:.1f}s")
+    add_launches(plaunches, shlaunches)
 
     kernels = []
     for name in ("fused_range", "fused_topk"):

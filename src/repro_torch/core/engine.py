@@ -1350,11 +1350,13 @@ def _quantized_screen_backend(tindex: TieredIndex, qr: QueryReprDev,
     return _kernel5_screen(qdev, qr, eps_col)
 
 
-def _raw_rows(raw, ids: torch.Tensor, device) -> torch.Tensor:
+def _raw_rows(raw, ids: torch.Tensor, device, key: str = "0") -> torch.Tensor:
     """Raw-tier rows of the (M,) row ids, uploaded as f32 — the only touch
-    of full-precision data on the query path."""
-    return torch.as_tensor(_store.gather_rows(raw, ids.cpu().numpy()),
-                           device=device)
+    of full-precision data on the query path.  The read goes through
+    ``index.store.gather_rows`` and its ``verify_fetch`` chaos site under
+    ``key``."""
+    return torch.as_tensor(_store.gather_rows(raw, ids.cpu().numpy(),
+                                              key=key), device=device)
 
 
 def _verify_gathered(rows: torch.Tensor, q_rows: torch.Tensor) -> torch.Tensor:
@@ -1371,57 +1373,60 @@ def _verify_gathered(rows: torch.Tensor, q_rows: torch.Tensor) -> torch.Tensor:
 _PREFETCH_CHUNKS = 2
 
 
-def _verify_prefetched(raw, ids: torch.Tensor, q: torch.Tensor,
-                       qi: torch.Tensor) -> torch.Tensor:
-    """Double-buffered raw-tier verify of the (M,) row ids against their
-    queries ``q[qi]``.
+def _verify_prefetched(raw, idx: torch.Tensor, q: torch.Tensor,
+                       valid: torch.Tensor, key: str = "") -> torch.Tensor:
+    """Double-buffered raw-tier verify: (Q, C) d², +inf on dead slots.
 
-    The ids split into :data:`_PREFETCH_CHUNKS` spans.  One worker thread
-    gathers span j+1 from the raw tier into a staging buffer (pinned on a
-    CUDA device) while span j uploads with a ``non_blocking`` copy on the
+    The slot columns split into :data:`_PREFETCH_CHUNKS` spans, as the
+    reference splits them, so the ``verify_fetch`` site fires once per
+    span under ``key + str(j)``.  One worker thread gathers span j+1's
+    valid rows from the raw tier into a staging buffer (pinned on a CUDA
+    device) while span j uploads with a ``non_blocking`` copy on the
     current stream and verifies.  The verify is row-local, so the result
     is the synchronous path's, bit for bit.  A fault in the worker
     re-raises here.
     """
-    M, n = int(ids.shape[0]), int(raw.shape[1])
+    C, n = int(valid.shape[-1]), int(raw.shape[1])
     dev = q.device
-    if M == 0:
-        return torch.empty((0,), dtype=torch.float32, device=dev)
-    nchunks = max(1, min(_PREFETCH_CHUNKS, M))
-    bounds = [(M * i) // nchunks for i in range(nchunks + 1)]
+    nchunks = max(1, min(_PREFETCH_CHUNKS, C))
+    bounds = [(C * i) // nchunks for i in range(nchunks + 1)]
     spans = [(lo, hi) for lo, hi in zip(bounds, bounds[1:]) if hi > lo]
-    ids_np = ids.cpu().numpy()
     pin = dev.type == "cuda"
+    slots = []
+    for lo, hi in spans:
+        qi, si = torch.nonzero(valid[:, lo:hi], as_tuple=True)
+        slots.append((qi, si + lo, idx[:, lo:hi][qi, si].cpu().numpy()))
 
-    def fetch(lo: int, hi: int) -> torch.Tensor:
-        buf = torch.empty((hi - lo, n), dtype=torch.float32, pin_memory=pin)
-        _store.gather_rows(raw, ids_np[lo:hi], out=buf.numpy())
+    def fetch(j: int) -> torch.Tensor:
+        ids = slots[j][2]
+        buf = torch.empty((ids.size, n), dtype=torch.float32, pin_memory=pin)
+        _store.gather_rows(raw, ids, key=f"{key}{j}", out=buf.numpy())
         return buf
 
-    parts = []
+    d2 = torch.full(valid.shape, INF, dtype=torch.float32, device=dev)
     with _futures.ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(fetch, *spans[0])
-        for j, (lo, hi) in enumerate(spans):
+        fut = pool.submit(fetch, 0)
+        for j, (qi, si, _) in enumerate(slots):
             buf = fut.result()
-            if j + 1 < len(spans):
-                fut = pool.submit(fetch, *spans[j + 1])
+            if j + 1 < len(slots):
+                fut = pool.submit(fetch, j + 1)
             rows = buf.to(dev, non_blocking=True)
-            parts.append(_verify_gathered(rows, q[qi[lo:hi]]))
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+            d2[qi, si] = _verify_gathered(rows, q[qi])
+    return d2
 
 
 def _verify_tier(raw, idx: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
-                 opts: SearchOptions) -> torch.Tensor:
+                 opts: SearchOptions, key: str = "") -> torch.Tensor:
     """The raw-tier exact verify behind every tiered engine: (Q, C) d²,
     +inf on dead slots.  Only the valid slots' rows are fetched — the
-    reference gathers all Q·C slots — synchronously, or double-buffered
-    when ``opts.verify_prefetch`` (the same d², bit for bit)."""
-    qi, si = torch.nonzero(valid, as_tuple=True)
-    ids = idx[qi, si]
+    reference gathers all Q·C slots — in one read (``verify_fetch`` key
+    ``key or "0"``), or double-buffered when ``opts.verify_prefetch`` (the
+    same d², bit for bit)."""
     if opts.verify_prefetch:
-        d2v = _verify_prefetched(raw, ids, q, qi)
-    else:
-        d2v = _verify_gathered(_raw_rows(raw, ids, q.device), q[qi])
+        return _verify_prefetched(raw, idx, q, valid, key=key)
+    qi, si = torch.nonzero(valid, as_tuple=True)
+    d2v = _verify_gathered(_raw_rows(raw, idx[qi, si], q.device,
+                                     key=key or "0"), q[qi])
     d2 = torch.full(valid.shape, INF, dtype=torch.float32, device=q.device)
     d2[qi, si] = d2v
     return d2

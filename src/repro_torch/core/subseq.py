@@ -36,8 +36,10 @@ cascade over the windows-as-rows index applies them; the streaming
 kernels run the paper pair's cascade and verify exactly, so they return
 the same answers, and the traced twins count the extras' kills.  The
 quantized streaming screen reads the paper pair's columns only, as the
-reference's does.  The distributed form (ROADMAP.md queue 1
-item 8) has no entry point here.
+reference's does.  The stream-sharded distributed form is
+``core/dist_search.py``'s ``distributed_subseq_*``: each shard holds a
+:class:`SubseqDeviceIndex` over its streams and answers through the
+entry points here.
 """
 from __future__ import annotations
 
@@ -556,13 +558,17 @@ def subseq_range_query(sidx: SubseqDeviceIndex, qr: QueryReprDev, epsilon,
 
 def _subseq_knn_fused(sidx: SubseqDeviceIndex, qr: QueryReprDev, k: int,
                       n_iters: int, block_q: int | None = None,
-                      block_w: int | None = None):
+                      block_w: int | None = None,
+                      valid_mask: torch.Tensor | None = None):
     """Streaming twin of ``engine.knn_query_fused`` (the reference's
     ``_subseq_knn_pallas``): seed, ``n_iters − 1`` tightening passes, a
     final pass, merge and certificate, each pass one ``fused_subseq_topk``
     read emitting block-local partials in canonical window ids; the
     candidates re-verify in the diff² form over the materialised windows,
-    so the distances are the torch engine's."""
+    so the distances are the torch engine's.  ``valid_mask`` (W,) keeps
+    windows out of the seed sample and the answers (a stream shard's
+    padded windows; their level-0 sentinel already fails C9 in the
+    kernel)."""
     Q = qr.q.shape[0]
     index = sidx.index
     k = min(int(k), index.size)
@@ -577,9 +583,9 @@ def _subseq_knn_fused(sidx: SubseqDeviceIndex, qr: QueryReprDev, k: int,
             q_residuals=qr.residuals,
             eps=_engine._cascade_eps(eps).reshape(-1).contiguous(),
             k=k_sel, block_q=block_q, block_b=block_w)
-        return idxp, _engine._reverify_rows(index, qr, idxp)
+        return idxp, _engine._reverify_rows(index, qr, idxp, valid_mask)
 
-    eps = _engine._seed_eps(index, qr, k, None)
+    eps = _engine._seed_eps(index, qr, k, valid_mask)
     for _ in range(max(0, int(n_iters) - 1)):
         _, d2v = topk_pass(eps)
         eps = torch.minimum(eps, torch.sqrt(_engine._kth_smallest(d2v, k)))
@@ -590,16 +596,19 @@ def _subseq_knn_fused(sidx: SubseqDeviceIndex, qr: QueryReprDev, k: int,
 
 
 def _subseq_knn_fetch(sidx: SubseqDeviceIndex, qr: QueryReprDev, kf: int,
-                      opts: SearchOptions, block_q=None, block_w=None):
+                      opts: SearchOptions, block_q=None, block_w=None,
+                      valid_mask: torch.Tensor | None = None):
     """The k-NN fetch of :func:`subseq_knn_query`: the exact k-NN of the
     ``kf`` nearest windows, by the streaming kernels on ``cuda`` (a fetch
     keeping more than ``cost_model.TOPK_DEMOTE_KSEL`` slots demotes to the
-    torch engine, as the reference demotes its Pallas selection)."""
+    torch engine, as the reference demotes its Pallas selection).
+    ``valid_mask`` excludes windows (a stream shard's pads)."""
     if _engine.resolve_knn_backend(opts.backend, kf, sidx.device) == "cuda":
         return _subseq_knn_fused(sidx, qr, kf, opts.n_iters, block_q,
-                                 block_w)
+                                 block_w, valid_mask)
     return _engine.knn_query_auto(sidx.index, qr, kf, capacity=opts.capacity,
                                   n_iters=opts.n_iters,
+                                  valid_mask=valid_mask,
                                   max_doublings=opts.max_doublings)
 
 
@@ -631,11 +640,13 @@ def subseq_knn_query(sidx: SubseqDeviceIndex, qr: QueryReprDev, k: int,
     return sel_idx, sel_d2, exact.cpu().numpy()
 
 
-def _suppress_candidates(sidx: SubseqDeviceIndex, idx: np.ndarray,
-                         d2: np.ndarray, k: int, excl: int):
+def _suppress_candidates(sidx, idx: np.ndarray, d2: np.ndarray, k: int,
+                         excl: int):
     """:func:`suppress_trivial_matches` over (Q, K) candidate window ids,
-    run on the candidates' positions with each one's stream and start,
-    so the host never maps all W windows."""
+    run on the candidates' positions with each one's stream and start
+    (``sidx.window_meta``: a :class:`SubseqDeviceIndex` or the
+    stream-sharded ``dist_search.DistSubseqIndex``), so the host never
+    maps all W windows."""
     pos = np.where(idx >= 0, np.arange(idx.size).reshape(idx.shape), -1)
     stream_of, start_of = sidx.window_meta(idx.reshape(-1))
     sel_pos, sel_d2 = suppress_trivial_matches(pos, d2, stream_of, start_of,

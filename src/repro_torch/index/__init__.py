@@ -1,6 +1,5 @@
-"""Index lifecycle on the host, counterpart of ``repro/index`` (its
-single-device part): the layer between the offline builder
-(``core/fastsax.py``) and the engines.
+"""Index lifecycle on the host, counterpart of ``repro/index``: the
+layer between the offline builder (``core/fastsax.py``) and the engines.
 
   * ``store``     — the persistent columnar format: a manifest and one
                     ``.npy`` per column, sha256 integrity, atomic commit,
@@ -9,11 +8,10 @@ single-device part): the layer between the offline builder
                     bitmap, ``compact()``; answers always equal a fresh
                     rebuild over the live rows;
   * ``quantized`` — the quantized resident tier;
+  * ``sharded``   — one store per shard of the distributed engine
+                    (``core/dist_search.py``), full precision or tiered;
   * ``cli``       — ``python -m repro_torch.index.cli build|insert|delete|
                     compact|info|verify``.
-
-The reference's sharded stores (``index/sharded.py``) come with the
-multi-device slice of the port (ROADMAP.md queue 1 item 8).
 """
 from .mutable import MutableIndex
 from .store import load_index, save_index, store_info, verify_store

@@ -21,9 +21,9 @@ until the new one is in place.
 
 Loading uses ``np.load(mmap_mode="r")``: opening a multi-GB index costs
 milliseconds and pages lazily.  ``verify_store`` re-hashes every array
-against the manifest.  The reference's fault-injection sites
-``store_read`` and ``verify_fetch`` come with the fault-tolerance slice
-of the port (ROADMAP.md queue 1 item 8).
+against the manifest.  Two fault-injection sites of ``runtime/chaos.py``
+sit here, as in the reference: ``store_read`` on every column read and
+``verify_fetch`` on every raw-tier row fetch.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import numpy as np
 from ..core import representation as repr_registry
 from ..core.fastsax import FastSAXConfig, FastSAXIndex, LevelData
 from ..core.representation import DEFAULT_STACK
+from ..runtime import chaos
 
 FORMAT_VERSION = 1
 MANIFEST = "manifest.json"
@@ -137,6 +138,9 @@ def read_array(path: str | os.PathLike, name: str,
     if entry is None:
         raise KeyError(f"store {path} has no array {name!r}")
     a = np.load(path / entry["file"], mmap_mode="r" if mmap else None)
+    # Chaos site "store_read": a truncate fault shears rows here, before
+    # the manifest shape check, so the store's own validation fails loudly.
+    a = chaos.apply("store_read", name, a)
     if list(a.shape) != entry["shape"] or str(a.dtype) != entry["dtype"]:
         raise IOError(f"{path}/{name}: header {a.shape}/{a.dtype} does not "
                       f"match manifest {entry['shape']}/{entry['dtype']}")
@@ -145,18 +149,21 @@ def read_array(path: str | os.PathLike, name: str,
     return a
 
 
-def gather_rows(raw, idx, out: np.ndarray | None = None) -> np.ndarray:
+def gather_rows(raw, idx, key: str = "0",
+                out: np.ndarray | None = None) -> np.ndarray:
     """Fetch full-precision verify rows from the raw tier by row id, as
     float32 of shape ``idx.shape + raw.shape[1:]``.
 
     The one place every raw-tier verify read goes through, synchronous or
     prefetched.  ``raw`` is anything with row-major fancy indexing (an
-    ``np.memmap`` of a store's f64 series or a plain array).  Row ids
-    clamp into the raw tier's row range, so a dead slot's arbitrary id
-    never faults the read; an empty raw tier serves zeros.  ``out``, when
-    given, receives the rows (e.g. a pinned staging buffer) and is
-    returned.  A read of the wrong shape raises ``IOError`` instead of
-    returning a truncated candidate set.
+    ``np.memmap`` of a store's f64 series, a plain array, or a per-shard
+    ``index.sharded.ShardedRaw``).  Row ids clamp into the raw tier's row
+    range, so a dead slot's arbitrary id never faults the read; an empty
+    raw tier serves zeros.  ``out``, when given, receives the rows (e.g. a
+    pinned staging buffer) and is returned.  The read passes through the
+    ``verify_fetch`` chaos site under ``key`` (the fetch chunk's label);
+    a read of the wrong shape raises ``IOError`` instead of returning a
+    truncated candidate set.
     """
     n_rows = int(raw.shape[0])
     idx = np.asarray(idx)
@@ -169,10 +176,14 @@ def gather_rows(raw, idx, out: np.ndarray | None = None) -> np.ndarray:
     else:
         clamped = np.clip(idx, 0, n_rows - 1)
         rows = np.asarray(raw[clamped], dtype=np.float32)
+    # Chaos site "verify_fetch": a truncate fault shears rows here, between
+    # the read and the shape check, so a torn fetch fails loudly.
+    rows = chaos.apply("verify_fetch", key, rows)
     if rows.shape != want:
         raise IOError(
-            f"verify fetch returned shape {rows.shape} for row ids of shape "
-            f"{idx.shape} (expected {want}): truncated raw-tier read")
+            f"verify fetch (key={key!r}) returned shape {rows.shape} for "
+            f"row ids of shape {idx.shape} (expected {want}): truncated "
+            "raw-tier read")
     if out is None or rows is out:
         return rows
     out[...] = rows

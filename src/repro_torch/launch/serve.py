@@ -1,7 +1,8 @@
 """The online query service event loop, driven by the closed-loop load
-generator.
+generator, and the one-shot distributed search.
 
-Counterpart of the ``--serve`` paths of ``repro/launch/serve.py``::
+Counterpart of the ``--serve`` and ``--search`` paths of
+``repro/launch/serve.py``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --serve \\
         --db-size 1048576 --bench-requests 64 --verify-exact \\
@@ -21,8 +22,21 @@ window of ``--streams`` wafer-like streams at ``--stride`` and serves
 range and exclusion-zone k-NN requests on them.  Each prints a final
 machine-readable line ``[serve] summary {...}`` with
 ``"exact_mismatches": 0`` when every replayed request matched.  Runs on
-CUDA unless ``--device cpu``.  ``--search`` (the one-shot distributed
-search) needs the multi-device slice of the port and raises.
+CUDA unless ``--device cpu``.  ``--failover-shards P`` serves through P
+independently queried shards with timeout / retry failover.  A SIGTERM
+drains the service (accepted requests finish, new ones are shed).
+
+``--search`` answers one batch of range (or, with ``--knn K``, k-NN)
+queries over the database sharded on a mesh of ``--shards`` shards (one
+per card by default, placed round robin over the cards; on
+``--device cpu`` every shard on the CPU), with ``--subseq`` over the
+stream-sharded windows; ``--index-dir`` warm-starts it from a sharded
+store, or stores the cold build there for the next start::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --search --shards 4 \\
+        --db-size 4096 --index-dir SHIDX [--knn 5]
+    PYTHONPATH=src python -m repro_torch.launch.serve --search --subseq \\
+        --shards 4 --streams 8 --stream-len 1024 [--knn 3]
 
 Observability, off by default: ``--trace`` counts the cascade of every
 batch into the stats and keeps the span ring and the cost-model
@@ -43,20 +57,196 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import threading
 import time
+
+import numpy as np
+
+
+def _mesh(args):
+    from ..core.dist_search import make_data_mesh
+
+    return make_data_mesh(args.shards or None, device=args.device)
+
+
+def serve_subseq_search(args):
+    """One-shot stream-sharded subsequence search: index every window of
+    a stream batch across the mesh, then answer windowed range or
+    exclusion-zone k-NN queries (kernels 3-4 per shard on a card)."""
+    from ..core.dist_search import (distributed_subseq_index,
+                                    distributed_subseq_knn_query,
+                                    distributed_subseq_range_query)
+    from ..core.fastsax import FastSAXConfig
+    from ..core.options import SearchOptions
+    from ..core.subseq import build_subseq_index
+    from ..data.timeseries import make_subseq_queries, make_wafer_like
+
+    mesh = _mesh(args)
+    streams = make_wafer_like(args.streams, args.stream_len, seed=0,
+                              normalize=False)
+    t0 = time.perf_counter()
+    hidx = build_subseq_index(
+        streams, FastSAXConfig(n_segments=(8, 16), alphabet=args.alphabet),
+        args.window, args.stride)
+    dsx = distributed_subseq_index(hidx, mesh)
+    print(f"[subseq] indexed {dsx.n_valid} windows "
+          f"({args.streams}x{args.stream_len}, w={args.window}, "
+          f"s={args.stride}) on {mesh.size} shard(s) "
+          f"in {time.perf_counter() - t0:.2f}s")
+    queries = make_subseq_queries(streams, args.queries, args.window, seed=1)
+    excl = None if args.excl < 0 else args.excl
+    opts = SearchOptions(backend=args.backend)
+    if args.knn:
+        t0 = time.perf_counter()
+        sel_idx, sel_d2, exact = distributed_subseq_knn_query(
+            dsx, queries, args.knn, mesh, excl=excl, options=opts)
+        dt = time.perf_counter() - t0
+        W_s = dsx.windows_per_stream
+        for qi in range(min(4, args.queries)):
+            pairs = [f"s{w // W_s}@{(w % W_s) * dsx.stride}:{d:.3f}"
+                     for w, d in zip(sel_idx[qi], np.sqrt(sel_d2[qi]))
+                     if w >= 0]
+            print(f"[subseq-knn] q{qi}: {' '.join(pairs)}")
+        print(f"[subseq-knn] k={args.knn} "
+              f"excl={dsx.window // 2 if excl is None else excl}: "
+              f"{args.queries} queries in {dt * 1e3:.1f} ms; "
+              f"exact={bool(exact.all())}")
+        return {"exact": bool(exact.all()), "sel_idx": sel_idx}
+    t0 = time.perf_counter()
+    gidx, ans, d2, overflow = distributed_subseq_range_query(
+        dsx, queries, args.epsilon, mesh, options=opts)
+    ans, gidx = ans.cpu().numpy(), gidx.cpu().numpy()
+    dt = time.perf_counter() - t0
+    for qi in range(min(4, args.queries)):
+        hits = sorted(gidx[qi][ans[qi]].tolist())
+        print(f"[subseq] q{qi}: {ans[qi].sum()} windows within "
+              f"eps={args.epsilon} (first: {hits[:6]})")
+    print(f"[subseq] {args.queries} queries in {dt * 1e3:.1f} ms "
+          f"({args.queries / dt:.0f} qps); "
+          f"overflow={bool(overflow.any())}")
+    return {"overflow": bool(overflow.any()),
+            "answers": [sorted(gidx[i][ans[i]].tolist())
+                        for i in range(ans.shape[0])]}
+
+
+def serve_search(args):
+    """One-shot range / k-NN search over a sharded database.  With
+    ``--index-dir`` a matching sharded store warm-starts it, and a cold
+    build is stored there for the next start — into an empty or absent
+    directory only, never over an existing store that failed to load."""
+    from ..core.dist_search import (distributed_build, distributed_knn_query,
+                                    distributed_range_query_auto,
+                                    load_sharded, pad_database,
+                                    store_sharded)
+    from ..core.options import SearchOptions
+    from ..data.timeseries import make_queries, make_wafer_like
+
+    mesh = _mesh(args)
+    index = None
+    store_after_build = False
+    if args.index_dir:
+        try:
+            t0 = time.perf_counter()
+            index, n_valid = load_sharded(args.index_dir, mesh)
+            print(f"[search] warm start: {n_valid} series from "
+                  f"{args.index_dir} on {mesh.size} shard(s) "
+                  f"in {time.perf_counter() - t0:.3f}s")
+        except (FileNotFoundError, ValueError, IOError) as e:
+            print(f"[search] cold start ({e})")
+            index = None
+            store_after_build = (not os.path.exists(args.index_dir)
+                                 or (os.path.isdir(args.index_dir)
+                                     and not os.listdir(args.index_dir)))
+            if not store_after_build:
+                print(f"[search] NOT overwriting existing {args.index_dir}; "
+                      f"remove it or pick a fresh --index-dir to persist")
+    if index is None:
+        db = make_wafer_like(args.db_size, 128, seed=0)
+        padded, n_valid = pad_database(db, mesh.size)
+        t0 = time.perf_counter()
+        index = distributed_build(padded, (8, 16), args.alphabet, mesh,
+                                  n_valid=n_valid)
+        print(f"[search] indexed {n_valid} series on {mesh.size} shard(s) "
+              f"in {time.perf_counter() - t0:.2f}s")
+        if store_after_build:
+            t0 = time.perf_counter()
+            store_sharded(index, args.index_dir, n_valid=n_valid)
+            print(f"[search] stored sharded index -> {args.index_dir} "
+                  f"in {time.perf_counter() - t0:.2f}s")
+    else:
+        # The warm path needs only query-shaped rows, not the database.
+        db = make_wafer_like(max(4 * args.queries, 64), 128, seed=0)
+    queries = make_queries(db, args.queries, seed=1)
+    if args.knn:
+        k = args.knn
+        t0 = time.perf_counter()
+        nn_idx, nn_d2, exact = distributed_knn_query(
+            index, queries, k, mesh, n_valid=n_valid,
+            options=SearchOptions(backend=args.backend,
+                                  normalize_queries=False))
+        nn_idx = nn_idx.cpu().numpy()[:, :k]
+        nn_d = np.sqrt(nn_d2.cpu().numpy())[:, :k]
+        dt = time.perf_counter() - t0
+        for qi in range(min(4, args.queries)):
+            pairs = [f"{i}:{d:.3f}" for i, d in zip(nn_idx[qi], nn_d[qi])]
+            print(f"[knn] q{qi}: {' '.join(pairs[:6])}")
+        print(f"[knn] k={k}: {args.queries} queries in {dt * 1e3:.1f} ms "
+              f"({args.queries / dt:.0f} qps); "
+              f"exact={bool(exact.all())}")
+        return {"exact": bool(exact.all()), "nn_idx": nn_idx}
+    t0 = time.perf_counter()
+    # Auto-escalating capacity: a shard whose survivors overflow its
+    # buffer is re-queried at 4x capacity (up to the shard size).
+    gidx, ans, d2, overflow = distributed_range_query_auto(
+        index, queries, args.epsilon, mesh,
+        options=SearchOptions(backend=args.backend, capacity=128,
+                              normalize_queries=False))
+    ans, gidx = ans.cpu().numpy(), gidx.cpu().numpy()
+    dt = time.perf_counter() - t0
+    for qi in range(min(4, args.queries)):
+        hits = gidx[qi][ans[qi]]
+        print(f"[search] q{qi}: {ans[qi].sum()} answers "
+              f"(first: {sorted(hits.tolist())[:6]})")
+    print(f"[search] {args.queries} queries in {dt * 1e3:.1f} ms "
+          f"({args.queries / dt:.0f} qps); overflow={bool(overflow.any())}")
+    return {"overflow": bool(overflow.any()),
+            "answers": [sorted(gidx[i][ans[i]].tolist())
+                        for i in range(ans.shape[0])]}
 
 
 def _obs_start(args, service):
     """Start the metrics endpoint when ``--metrics`` is set (port 0 lets
-    the OS pick); returns the server, or None, for :func:`_obs_finish`."""
+    the OS pick), readiness at ``/healthz`` from ``service.health``;
+    returns the server, or None, for :func:`_obs_finish`."""
     if args.metrics < 0:
         return None
     from ..obs.metrics import start_metrics_server
 
-    server = start_metrics_server(service.metrics_text, args.metrics)
+    server = start_metrics_server(service.metrics_text, args.metrics,
+                                  health_fn=service.health)
     print(f"[serve] metrics at "
-          f"http://127.0.0.1:{server.server_address[1]}/metrics")
+          f"http://127.0.0.1:{server.server_address[1]}/metrics "
+          f"(readiness at /healthz)")
     return server
+
+
+def _drain_on_preempt(ph, service):
+    """Arm a watcher that drains the service gracefully when the
+    ``runtime.fault_tolerance.PreemptionHandler`` catches SIGTERM: new
+    submits are shed, accepted requests finish, then the dispatcher
+    stops — a preemption never drops an accepted request."""
+
+    def watch():
+        ph.requested.wait()
+        print("[serve] SIGTERM: draining (new submits shed)")
+        ok = service.drain(timeout_s=30.0)
+        print(f"[serve] drain {'complete' if ok else 'TIMED OUT'}")
+
+    t = threading.Thread(target=watch, name="repro-torch-drain-watch",
+                         daemon=True)
+    t.start()
+    return t
 
 
 def _obs_finish(args, service, server):
@@ -88,6 +278,7 @@ def _obs_finish(args, service, server):
 
 def serve_service(args) -> dict:
     from ..data.timeseries import make_queries, make_wafer_like
+    from ..runtime.fault_tolerance import PreemptionHandler
     from ..serve import (SearchService, ServeConfig, WorkloadSpec,
                          check_exactness, make_workload, run_closed_loop)
 
@@ -96,9 +287,12 @@ def serve_service(args) -> dict:
                       default_deadline_ms=args.deadline_ms or None,
                       backend=args.backend, quantization=args.quantization,
                       verify_prefetch=args.verify_prefetch,
-                      trace=args.trace, profile_dir=args.profile_dir)
+                      trace=args.trace, profile_dir=args.profile_dir,
+                      failover_shards=args.failover_shards)
     tier = ("" if args.quantization == "none"
             else f", {args.quantization} resident tier")
+    if args.failover_shards:
+        tier += f", {args.failover_shards} failover shards"
     if args.index_dir:
         t0 = time.perf_counter()
         service = SearchService.from_store(args.index_dir, cfg,
@@ -132,7 +326,8 @@ def serve_service(args) -> dict:
                         epsilon=args.epsilon,
                         deadline_ms=args.deadline_ms or None)
     workload = make_workload(queries, spec)
-    with service:
+    with PreemptionHandler() as ph, service:
+        _drain_on_preempt(ph, service)
         server = _obs_start(args, service)
         result = run_closed_loop(service, workload, clients=args.clients,
                                  deadline_ms=spec.deadline_ms,
@@ -179,6 +374,7 @@ def serve_subseq_service(args) -> dict:
     exclusion-zone k-NN, driven by the closed-loop load generator and
     replayed request by request."""
     from ..data.timeseries import make_subseq_queries, make_wafer_like
+    from ..runtime.fault_tolerance import PreemptionHandler
     from ..serve import (ServeConfig, SubseqSearchService, WorkloadSpec,
                          check_exactness, make_workload, run_closed_loop)
 
@@ -208,7 +404,8 @@ def serve_subseq_service(args) -> dict:
                         deadline_ms=args.deadline_ms or None)
     workload = make_workload(queries, spec)
     shim = _SubseqLoadShim(service)
-    with service:
+    with PreemptionHandler() as ph, service:
+        _drain_on_preempt(ph, service)
         server = _obs_start(args, service)
         result = run_closed_loop(shim, workload, clients=args.clients,
                                  deadline_ms=spec.deadline_ms,
@@ -235,16 +432,27 @@ def main(argv=None):
     mode.add_argument("--serve", action="store_true",
                       help="run the online query service event loop")
     mode.add_argument("--search", action="store_true",
-                      help="one-shot distributed search (needs the "
-                           "multi-device slice of the port)")
+                      help="one-shot range / k-NN search over the "
+                           "database sharded on a mesh (--shards)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run the "
                          "plain versions on the CPU)")
     ap.add_argument("--db-size", type=int, default=4096)
     ap.add_argument("--index-dir", default="",
-                    help="with --serve: warm-start from this committed "
-                         "store or MutableIndex root instead of building "
-                         "--db-size rows")
+                    help="--serve: warm-start from this committed store, "
+                         "MutableIndex root or sharded store instead of "
+                         "building --db-size rows; --search: a sharded "
+                         "store, written after a cold build")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="with --search: shards of the mesh (0 = one per "
+                         "card; on --device cpu, 1)")
+    ap.add_argument("--failover-shards", type=int, default=0, metavar="P",
+                    help="with --serve: split the database over P "
+                         "independently queried shards with timeout / "
+                         "retry failover; a lost shard degrades answers "
+                         "to certified-partial (exact=False + coverage) "
+                         "instead of an outage (0 = off; a warm start "
+                         "from a sharded store uses its shard count)")
     ap.add_argument("--queries", type=int, default=16)
     ap.add_argument("--epsilon", type=float, default=2.0)
     ap.add_argument("--knn", type=int, default=0, metavar="K",
@@ -316,10 +524,8 @@ def main(argv=None):
                          "card's kernels and copies on a CUDA device)")
     args = ap.parse_args(argv)
     if args.search:
-        raise NotImplementedError(
-            "--search (the distributed one-shot search, with or without "
-            "--subseq) needs the multi-device slice of the port (ROADMAP.md "
-            "queue 1 item 8)")
+        return serve_subseq_search(args) if args.subseq else \
+            serve_search(args)
     if args.subseq:
         return serve_subseq_service(args)
     return serve_service(args)

@@ -14,9 +14,9 @@ The registry is rebuilt per scrape from the snapshot, so it adds no work
 to the request path; every family exists (with clean zeros) from the
 first scrape because the snapshot has every key from construction.
 ``REQUIRED_FAMILIES`` is the contract a scrape is checked against.
-``/healthz`` answers only when a ``health_fn`` is given; the port's
-service has none yet (``SearchService.health`` comes with the
-multi-device slice, ROADMAP.md queue 1 item 8), so it answers 404.
+``/healthz`` answers when a ``health_fn`` is given (the launcher passes
+``SearchService.health``): 200 when ready, 503 when not, the detail as
+JSON; without one it answers 404.
 """
 from __future__ import annotations
 

@@ -1,8 +1,7 @@
-"""The online FAST_SAX query service on one device.
+"""The online FAST_SAX query service.
 
-Counterpart of the single-device part of ``repro/serve/service.py``
-(``ServeConfig``, ``_SingleBackend``, ``SearchService``,
-``SubseqSearchService``).  Request flow:
+Counterpart of ``repro/serve/service.py`` (``ServeConfig``, the
+backends, ``SearchService``, ``SubseqSearchService``).  Request flow:
 
     submit → bounded queue (admission control, deadlines)
            → micro-batch  (MicroBatcher drains and coalesces)
@@ -11,14 +10,25 @@ Counterpart of the single-device part of ``repro/serve/service.py``
                            CUDA kernels on a CUDA index, else the torch
                            engine with capacity escalation; or, with
                            ``quantization``, the tiered engine over the
-                           quantized resident tier)
+                           quantized resident tier; or the sharded
+                           engines of ``core/dist_search.py`` over a mesh,
+                           or independent failover shards)
            → respond      (per-request ids and distances, mapped to
                            external ids, latency)
 
 Warm start: ``SearchService.from_store`` takes a committed store of
 either package — a ``MutableIndex`` root (which also turns on live
-ingest), a plain store, or a plain store with a quantized tier — and
-uploads it once.
+ingest), a plain store, a plain store with a quantized tier, or a sharded
+store of either kind (``index/sharded.py``) — and uploads it once.
+
+Fault tolerance: ``ServeConfig(failover_shards=P)`` serves through
+``core.dist_search.FailoverShards`` (per-shard timeouts, retries,
+down-marking, probes); a lost shard degrades a batch to a
+certified-partial answer (``Request.exact`` False, ``Request.coverage``)
+instead of an outage.  A circuit breaker sheds batches while dispatches
+keep failing, :meth:`SearchService.health` is the ``/healthz`` body, and
+the chaos sites ``serve_dispatch`` and ``device_upload``
+(``runtime/chaos.py``) sit where the reference has them.
 
 Live ingest: ``insert`` / ``delete`` go through the ``MutableIndex``
 (durable, crash-safe); its commit hook marks the device copy stale, and
@@ -36,9 +46,6 @@ cost-model calibration of every dispatch (``calibration``) and the
 Prometheus text (:meth:`SearchService.metrics_text`); ``profile_dir``
 wraps every batch's dispatch in a ``torch.profiler`` capture.  All off by
 default: the untraced service keeps none of that state.
-
-Settings that need a later slice of the port raise NotImplementedError:
-failover shards, a mesh and sharded stores.
 """
 from __future__ import annotations
 
@@ -52,7 +59,8 @@ import numpy as np
 import torch
 
 from ..core.cost_model import fused_pass_estimate
-from ..core.engine import (DeviceIndex, TieredIndex, build_device_index,
+from ..core.engine import (_SEED_EPS_MAX, DeviceIndex, TieredIndex,
+                           build_device_index,
                            device_index_from_host,
                            device_trace_bytes, mixed_query,
                            mixed_query_dense, mixed_query_dense_and_trace,
@@ -67,30 +75,12 @@ from ..core.representation import DEFAULT_STACK, validate_stack
 from ..index.quantized import check_mode
 from ..obs.calibration import CalibrationLog
 from ..obs.spans import SpanRecorder, prepare_profiler, profiler_capture
-from ..obs.trace import select_queries, to_host, trace_totals
-from .batcher import (FAILED, KIND_KNN, KIND_RANGE, OK,
+from ..obs.trace import (screen_row_bytes, select_queries, tier_bytes,
+                         to_host, trace_totals)
+from ..runtime import chaos
+from .batcher import (BREAKER_OPEN, FAILED, KIND_KNN, KIND_RANGE, OK,
                       REJECTED_SHED, CircuitBreaker, MicroBatcher, Request)
 from .stats import StatsTracker
-
-_LATER = {
-    "failover_shards": ("the multi-device slice", 8),
-    "mesh": ("the multi-device slice", 8),
-    "shard_timeout_s": ("the multi-device slice", 8),
-    "shard_retries": ("the multi-device slice", 8),
-    "shard_backoff_s": ("the multi-device slice", 8),
-    "sharded_store": ("the multi-device slice", 8),
-}
-
-#: Store kinds of the reference's sharded layouts (``index/sharded.py``),
-#: recognised and refused.
-_SHARDED_KINDS = ("fastsax-index-sharded", "fastsax-tiered-sharded")
-
-
-def _not_ported(setting: str):
-    slice_name, item = _LATER[setting]
-    return NotImplementedError(
-        f"{setting} needs {slice_name} of the port (ROADMAP.md queue 1 "
-        f"item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,10 +104,12 @@ class ServeConfig:
     dense_fallback_frac: float = 0.125   # capacity > frac·B → dense dispatch
     refresh_min_interval_s: float = 0.0  # live-ingest refresh throttle
     warmup_ks: Sequence[int] = (8,)       # k buckets to warm up
-    failover_shards: int = 0       # only 0 in this slice
-    shard_timeout_s: float = 30.0  # only the default in this slice
-    shard_retries: int = 2         # only the default in this slice
-    shard_backoff_s: float = 0.02  # only the default in this slice
+    failover_shards: int = 0       # >0: serve through FailoverShards
+    #                                (from_series splits into this many;
+    #                                from_store uses the store's count)
+    shard_timeout_s: float = 30.0  # per-shard attempt timeout floor
+    shard_retries: int = 2         # transient-fault retries per shard
+    shard_backoff_s: float = 0.02  # exponential-backoff base
     breaker_threshold: int = 5     # consecutive dispatch failures → open
     breaker_cooldown: int = 8      # shed batches before half-open probe
     async_refresh: bool = True     # background device upload on commit
@@ -146,11 +138,6 @@ class ServeConfig:
     def __post_init__(self):
         check_mode(self.quantization)
         validate_stack(self.stack)
-        # The reference's settings of slices not ported yet: accepted at
-        # their defaults, refused with the slice's item otherwise.
-        for f in dataclasses.fields(self):
-            if f.name in _LATER and getattr(self, f.name) != f.default:
-                raise _not_ported(f.name)
 
 
 def _pow2_at_least(n: int, cap: int) -> int:
@@ -186,12 +173,15 @@ def _trace_to_host(backend, trace) -> None:
 
 def _to_host(backend, out: tuple) -> tuple:
     """Copy a dispatch's ``(idx, answer, d2, overflow)`` to the host,
-    note the bytes and the certificates, return ``(idx, answer, d2)``."""
+    note the bytes and the per-query certificates (a query is exact when
+    no buffer of it overflowed: ``overflow`` is (Q,), or (Q, P) over
+    shards), return ``(idx, answer, d2)``."""
     out = tuple(t.cpu().numpy() for t in out)
     backend.last_d2h_bytes = sum(a.nbytes for a in out)
     if backend.stats is not None:
-        bad = int(out[3].sum())
-        backend.stats.on_certificates(out[3].size - bad, out[3].size)
+        bad = out[3].reshape(out[3].shape[0], -1).any(axis=-1)
+        backend.stats.on_certificates(int(bad.size - bad.sum()),
+                                      int(bad.size))
     return out[:3]
 
 
@@ -385,6 +375,226 @@ class _QuantizedBackend:
         return _to_host(self, (idx, answer, d2, overflow))
 
 
+def _host_index(series: np.ndarray, cfg: ServeConfig, normalize: bool):
+    """The host index a tiered service quantizes."""
+    return build_index(series, FastSAXConfig(
+        n_segments=tuple(cfg.levels), alphabet=cfg.alphabet,
+        stack=tuple(cfg.stack)), normalize=normalize)
+
+
+def _failover_kw(cfg: ServeConfig) -> dict:
+    """The ``FailoverShards`` knobs a ServeConfig sets."""
+    return dict(timeout_s=cfg.shard_timeout_s, retries=cfg.shard_retries,
+                backoff_s=cfg.shard_backoff_s, n_iters=cfg.n_iters,
+                normalize_queries=cfg.normalize_queries, backend=cfg.backend)
+
+
+class _ShardedBackend:
+    """The database sharded over a mesh (``dist_search.ShardedDeviceIndex``),
+    ``distributed_mixed_query`` per micro-batch: on the ``cuda`` backend
+    every shard runs kernels 1-2 and compacts its dense answers into a
+    per-shard buffer.  Capacity escalation (×4 up to the shard size) is
+    sticky: the learned per-shard capacity stays for later batches, as in
+    the reference."""
+
+    def __init__(self, index, mesh, n_valid: int, cfg: ServeConfig,
+                 axis: str = "data"):
+        self.index = index
+        self.mesh = mesh
+        self.axis = axis
+        self.n_valid = int(n_valid)
+        self.cfg = cfg
+        self.backend = resolve_backend(cfg.backend, index.device)
+        self._cap: Optional[int] = None   # learned per-shard capacity
+        self.stats: Optional[StatsTracker] = None   # set by SearchService
+        self.last_d2h_bytes = 0
+        self.last_trace = None
+
+    @property
+    def n(self) -> int:
+        return self.index.n
+
+    @property
+    def device(self) -> torch.device:
+        return self.index.device
+
+    @property
+    def size(self) -> int:
+        return self.n_valid
+
+    def trace_bytes(self, trace) -> dict:
+        rb = screen_row_bytes(self.index.levels, self.index.alphabet)
+        return tier_bytes(trace, self.n_valid, rb, self.n)
+
+    def cost_estimate(self, Q: int, k: int) -> dict:
+        # Per-shard figure: each shard screens its own rows.
+        return fused_pass_estimate(Q, self.index.b_loc, self.n,
+                                   self.index.levels, self.index.alphabet,
+                                   k=int(k))
+
+    def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
+                 k: int, want_trace: bool = False):
+        from ..core.dist_search import (distributed_cascade_trace,
+                                        distributed_mixed_query)
+
+        b_loc = self.index.b_loc
+        cap = self._cap or self.cfg.capacity0 or max(4 * k, 64)
+        cap = min(int(cap), b_loc)
+        while True:
+            gidx, answer, d2, overflow = distributed_mixed_query(
+                self.index, q, eps, is_knn, k, self.mesh, axis=self.axis,
+                options=SearchOptions(
+                    backend=self.cfg.backend, capacity=cap,
+                    n_iters=self.cfg.n_iters,
+                    normalize_queries=self.cfg.normalize_queries),
+                n_valid=self.n_valid)
+            if cap >= b_loc or not bool(overflow.any()):
+                break
+            if self.stats is not None:
+                self.stats.on_escalation()
+            cap = min(b_loc, cap * 4)
+        self._cap = max(cap, self._cap or 0)
+        gidx, answer, d2 = _to_host(self, (gidx, answer, d2, overflow))
+        self.last_trace = None
+        if want_trace:
+            # Each row's final radius from the merged buffers (as
+            # engine.mixed_trace), then the counting pass on every shard,
+            # summed.
+            d2a = np.where(answer, d2, np.inf)
+            k_eff = max(1, min(int(k), d2a.shape[-1]))
+            kth = np.partition(d2a, k_eff - 1, axis=-1)[:, k_eff - 1]
+            eps_knn = np.sqrt(np.maximum(kth, 0.0))
+            eps_knn = np.where(np.isfinite(eps_knn), eps_knn,
+                               _SEED_EPS_MAX)
+            eps_f = np.where(is_knn, eps_knn, eps).astype(np.float32)
+            trace = distributed_cascade_trace(
+                self.index, q, eps_f, self.mesh, axis=self.axis,
+                normalize_queries=self.cfg.normalize_queries,
+                n_valid=self.n_valid)
+            n_ans = np.isfinite(d2a).sum(axis=-1).astype(np.int32)
+            answers = np.where(is_knn, np.minimum(n_ans, k_eff), n_ans)
+            self.last_trace = dataclasses.replace(
+                to_host(trace), answers=answers.astype(np.int32))
+        return gidx, answer, d2
+
+
+class _DistQuantizedBackend:
+    """Distributed tiered serving: each mesh device holds its shard's
+    quantized screen columns and screens them with kernel 5 on ``cuda``;
+    only the survivors' global ids cross shards, and the exact verify
+    gathers just those rows from the host raw tier (double-buffered with
+    ``cfg.verify_prefetch``).  Escalation lives in
+    ``dist_search.distributed_quantized_mixed_query``, so every answer is
+    certified exact."""
+
+    def __init__(self, dti, mesh, cfg: ServeConfig, axis: str = "data"):
+        self.dti = dti
+        self.mesh = mesh
+        self.axis = axis
+        self.cfg = cfg
+        self.backend = resolve_backend(cfg.backend, dti.device)
+        self._cap: Optional[int] = None
+        self.stats: Optional[StatsTracker] = None   # set by SearchService
+        self.last_d2h_bytes = 0
+        self.last_trace = None
+
+    @property
+    def n(self) -> int:
+        return self.dti.n
+
+    @property
+    def device(self) -> torch.device:
+        return self.dti.device
+
+    @property
+    def size(self) -> int:
+        return int(self.dti.n_valid)
+
+    def cost_estimate(self, Q: int, k: int) -> dict:
+        return fused_pass_estimate(Q, self.dti.b_loc, self.n,
+                                   self.dti.levels, self.dti.alphabet,
+                                   k=int(k))
+
+    def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
+                 k: int, want_trace: bool = False):
+        from ..core.dist_search import distributed_quantized_mixed_query
+
+        cap = self._cap or self.cfg.capacity0 or max(4 * k, 64)
+        out = distributed_quantized_mixed_query(
+            self.dti, q, eps, is_knn, k, self.mesh, axis=self.axis,
+            options=SearchOptions(
+                backend=self.cfg.backend, capacity=cap,
+                normalize_queries=self.cfg.normalize_queries,
+                verify_prefetch=self.cfg.verify_prefetch))
+        self._cap = max(cap, self._cap or 0)
+        return _to_host(self, out)
+
+
+class _FailoverBackend:
+    """Fault-tolerant sharded serving: ``core.dist_search.FailoverShards``
+    (per-shard timeouts, retries, down-marking and probes) behind the
+    backend interface.  A dispatch may succeed partially: the merged
+    answer covers only the surviving shards, and ``last_coverage`` holds
+    the ShardCoverage certificate the service attaches to every request
+    of the batch."""
+
+    def __init__(self, engine, cfg: ServeConfig):
+        self.engine = engine
+        self.cfg = cfg
+        self.backend = resolve_backend(cfg.backend, engine.devices[0])
+        self._stats: Optional[StatsTracker] = None
+        self.last_coverage = None
+        self.last_d2h_bytes = 0
+        self.last_trace = None
+
+    @property
+    def stats(self):
+        return self._stats
+
+    @stats.setter
+    def stats(self, tracker):
+        self._stats = tracker
+        if tracker is not None:
+            def _on_event(kind, n=1):
+                if kind == "retries":
+                    tracker.on_retry(n)
+                elif kind == "hedges":
+                    tracker.on_hedge(n)
+            self.engine.on_event = _on_event
+
+    @property
+    def n(self) -> int:
+        return self.engine.n
+
+    @property
+    def device(self) -> torch.device:
+        return self.engine.devices[0]
+
+    @property
+    def size(self) -> int:
+        return self.engine.size
+
+    def cost_estimate(self, Q: int, k: int) -> dict:
+        from ..core.dist_search import _screen_of
+
+        b_max = max(int(_screen_of(s).size) for s in self.engine.shards)
+        return fused_pass_estimate(Q, b_max, self.n, self.engine.levels,
+                                   self.engine.alphabet, k=int(k))
+
+    def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
+                 k: int, want_trace: bool = False):
+        gidx, answer, d2, overflow, cov = self.engine.query(
+            q, eps, np.asarray(is_knn), k)
+        self.last_coverage = cov
+        self.last_d2h_bytes = gidx.nbytes + answer.nbytes + d2.nbytes
+        if self._stats is not None:
+            # Capacity covers each full shard, so overflow is structurally
+            # False: a query is exact iff every shard answered.
+            bad = int(overflow.sum()) if cov.exact else gidx.shape[0]
+            self._stats.on_certificates(gidx.shape[0] - bad, gidx.shape[0])
+        return gidx, answer, d2
+
+
 class SearchService:
     """Online range / k-NN service with dynamic micro-batching.
 
@@ -441,21 +651,51 @@ class SearchService:
                     mesh=None, normalize: bool = True,
                     device=None) -> "SearchService":
         """Cold start: build the device index from raw (B, n) series on
-        ``device`` (default: CUDA; raises without one).  With
-        ``cfg.quantization`` the index is built on the host, quantized
-        into the resident tier on the device and served tiered."""
+        ``device`` (default: CUDA; raises without one).
+
+        * ``mesh`` (``dist_search.ShardMesh``): the database padded and
+          sharded over the mesh's devices (``distributed_build``, which
+          z-normalises as the reference's does), or with
+          ``cfg.quantization`` the tier resharded onto the mesh
+          (``distributed_tiered_index``);
+        * ``cfg.failover_shards``: that many independent failover shards
+          (full precision only), placed by ``make_data_mesh`` on
+          ``device``;
+        * ``cfg.quantization``: built on the host, quantized into the
+          resident tier on the device and served tiered;
+        * else one ``DeviceIndex``."""
+        series = np.asarray(series)
         if mesh is not None:
-            raise _not_ported("mesh")
+            from ..core.dist_search import (distributed_build,
+                                            distributed_tiered_index,
+                                            pad_database)
+            if cfg.quantization != "none":
+                tiered = TieredIndex.from_host(
+                    _host_index(series, cfg, normalize), cfg.quantization,
+                    device=mesh.devices[0])
+                dti = distributed_tiered_index(tiered, mesh)
+                return cls(_DistQuantizedBackend(dti, mesh, cfg), cfg)
+            padded, n_valid = pad_database(series, mesh.shape["data"])
+            index = distributed_build(padded, tuple(cfg.levels), cfg.alphabet,
+                                      mesh, n_valid=n_valid,
+                                      stack=tuple(cfg.stack))
+            return cls(_ShardedBackend(index, mesh, n_valid, cfg), cfg)
+        if cfg.failover_shards:
+            if cfg.quantization != "none":
+                raise ValueError("failover serving is full-precision — "
+                                 "set quantization='none'")
+            from ..core.dist_search import FailoverShards
+            engine = FailoverShards.from_series(
+                series, cfg.failover_shards, tuple(cfg.levels), cfg.alphabet,
+                normalize=normalize, stack=tuple(cfg.stack),
+                device=device, **_failover_kw(cfg))
+            return cls(_FailoverBackend(engine, cfg), cfg)
         if cfg.quantization != "none":
-            host = build_index(
-                np.asarray(series),
-                FastSAXConfig(n_segments=tuple(cfg.levels),
-                              alphabet=cfg.alphabet, stack=tuple(cfg.stack)),
-                normalize=normalize)
-            tiered = TieredIndex.from_host(host, cfg.quantization,
+            tiered = TieredIndex.from_host(_host_index(series, cfg, normalize),
+                                           cfg.quantization,
                                            device=resolve_device(device))
             return cls(_QuantizedBackend(tiered, cfg), cfg)
-        index = build_device_index(np.asarray(series), tuple(cfg.levels),
+        index = build_device_index(series, tuple(cfg.levels),
                                    cfg.alphabet, normalize=normalize,
                                    stack=tuple(cfg.stack),
                                    device=resolve_device(device))
@@ -469,24 +709,29 @@ class SearchService:
 
         * a ``MutableIndex`` root (``CURRENT`` present): its live view,
           answers mapped to external ids, live ingest on;
+        * a sharded store (``index/sharded.py``): through
+          ``FailoverShards`` with ``cfg.failover_shards``, else mapped
+          onto ``mesh`` (default: the store's shard count over the
+          visible cards, or every shard on ``device``);
+        * a tiered sharded store: served quantized (it holds no
+          full-precision screen columns) — failover tier shards, the
+          distributed screen on a ``mesh``, else one tiered index;
         * a plain store: mmap-opened and uploaded once;
         * with ``cfg.quantization``, served tiered: a plain store with a
           stored tier of that mode serves it as it is, anything else is
           quantized in memory from the live view.
 
         ``levels`` / ``alphabet`` / ``stack`` come from the store, not
-        ``cfg``.  The reference's sharded stores, and ``mesh``, need the
-        multi-device slice of the port.
+        ``cfg``.
         """
         from ..index import mutable as _mutable
+        from ..index import sharded as _sharded
         from ..index import store as _store
 
-        if mesh is not None:
-            raise _not_ported("mesh")
         path = pathlib.Path(path)
-        dev = resolve_device(device)
         quant = cfg.quantization != "none"
         if (path / _mutable.CURRENT).exists():
+            dev = resolve_device(device)
             mi = _mutable.MutableIndex.open(path)
             host, ids = mi.live_index()
             if quant:
@@ -496,8 +741,31 @@ class SearchService:
                 backend = _SingleBackend(device_index_from_host(host, dev),
                                          cfg)
             return cls(backend, cfg, ids=np.asarray(ids), mutable=mi)
-        if _store.read_manifest(path).get("kind") in _SHARDED_KINDS:
-            raise _not_ported("sharded_store")
+        manifest = _store.read_manifest(path)
+        kind = manifest.get("kind")
+        if kind in (_sharded._KIND, _sharded._TIERED_KIND):
+            from ..core import dist_search as _dist
+            if kind == _sharded._KIND and quant:
+                raise ValueError(
+                    "quantized serving of a full-precision sharded store "
+                    "is not supported — restore it with "
+                    "store_sharded_quantized, or set quantization='none'")
+            if cfg.failover_shards:
+                engine = _dist.FailoverShards.from_store(
+                    path, device=device, **_failover_kw(cfg))
+                return cls(_FailoverBackend(engine, cfg), cfg)
+            if kind == _sharded._TIERED_KIND:
+                if mesh is not None:
+                    dti = _dist.load_sharded_tiered(path, mesh)
+                    return cls(_DistQuantizedBackend(dti, mesh, cfg), cfg)
+                tiered, _n_valid = _sharded.load_sharded_quantized(
+                    path, device=resolve_device(device))
+                return cls(_QuantizedBackend(tiered, cfg), cfg)
+            mesh = mesh or _dist.make_data_mesh(int(manifest["shards"]),
+                                                device=device)
+            index, n_valid = _dist.load_sharded(path, mesh)
+            return cls(_ShardedBackend(index, mesh, n_valid, cfg), cfg)
+        dev = resolve_device(device)
         if quant:
             return cls(_QuantizedBackend(TieredIndex.from_store(
                 path, quantization=cfg.quantization, device=dev), cfg), cfg)
@@ -522,6 +790,25 @@ class SearchService:
         self._unsubscribe_commits()
         return drained
 
+    def health(self):
+        """Readiness probe body for ``/healthz``: ``(ready, detail)``.
+        Not ready while the dispatcher is down, a drain is in progress,
+        or the circuit breaker is open; a failover backend adds the last
+        dispatch's shard coverage."""
+        detail = {
+            "running": self._batcher.running,
+            "draining": self._batcher.draining,
+            "breaker": self.breaker.state,
+            "generation": self._loaded_gen,
+            "stale": self._stale,
+        }
+        cov = getattr(self.backend, "last_coverage", None)
+        if cov is not None:
+            detail["coverage"] = cov.as_dict()
+        ready = (self._batcher.running and not self._batcher.draining
+                 and self.breaker.state != BREAKER_OPEN)
+        return ready, detail
+
     def _unsubscribe_commits(self):
         if self._unsubscribe is not None:
             self._unsubscribe()
@@ -536,7 +823,13 @@ class SearchService:
     def warmup(self, qs: Optional[Sequence[int]] = None,
                ks: Optional[Sequence[int]] = None):
         """Run one batch of every (Q bucket ≤ max_batch) × (k bucket), so
-        the first requests pay no one-time costs (kernel build, caches)."""
+        the first requests pay no one-time costs (kernel build, caches).
+        On a CUDA device the kernel library is built and loaded first,
+        outside any dispatch: a failover shard's first attempt must not
+        spend its timeout in ``nvcc``."""
+        if self.backend.device.type == "cuda":
+            from ..kernels import build
+            build.load("fused_query")
         q_buckets = list(qs) if qs is not None else []
         if not q_buckets:
             b = 1
@@ -646,6 +939,7 @@ class SearchService:
             try:
                 gen, host, ids = mi.live_snapshot()
                 t1 = time.perf_counter()
+                chaos.maybe_fire("device_upload", key=str(gen))
                 prepared = self.backend.prepare_from_host(host)
             except BaseException:
                 self.stats.on_refresh_failure()
@@ -668,13 +962,13 @@ class SearchService:
         upload run with no lock held (serving goes on); only the install
         takes the device lock.  A failed upload keeps the old generation
         serving and re-flags staleness, so the next batch boundary tries
-        again.  The reference's ``device_upload`` fault-injection site
-        comes with the fault-tolerance slice (ROADMAP.md queue 1 item 8)."""
+        again (an injected ``device_upload`` fault takes this path)."""
         mi = self.mutable
         t0 = time.perf_counter()
         try:
             gen, host, ids = mi.live_snapshot()
             t1 = time.perf_counter()
+            chaos.maybe_fire("device_upload", key=str(gen))
             prepared = self.backend.prepare_from_host(host)
         except BaseException:   # noqa: BLE001 — serving must survive
             self.stats.on_refresh_failure()
@@ -754,6 +1048,7 @@ class SearchService:
         try:
             with self._device_lock:
                 t0 = time.perf_counter()
+                chaos.maybe_fire("serve_dispatch")
                 with profiler_capture(self.cfg.profile_dir,
                                       self.backend.device):
                     idx, answer, d2 = self.backend.dispatch(
@@ -761,6 +1056,7 @@ class SearchService:
                 t1 = time.perf_counter()
                 trace = self.backend.last_trace
                 ids = self._ids
+                coverage = getattr(self.backend, "last_coverage", None)
         except BaseException:
             # The batcher resolves the batch FAILED; feed the breaker.
             self.breaker.on_failure()
@@ -771,7 +1067,7 @@ class SearchService:
         self.stats.set_breaker(self.breaker.state, self.breaker.state_code)
         if not tracing:
             for i, req in live:
-                self._finish(req, idx[i], answer[i], d2[i], ids)
+                self._finish(req, idx[i], answer[i], d2[i], ids, coverage)
             return
         # The dispatch's outputs are on the host already (the backend
         # copies them), so t1 − t0 covers the whole device pass with no
@@ -782,16 +1078,19 @@ class SearchService:
             batch=len(live), k=k_bucket, backend=type(self.backend).__name__,
             measured_s=t1 - t0, estimate=self.backend.cost_estimate(
                 qb, k_bucket))
-        with self.tracer.span("verify", batch=len(live)):
-            live_trace = select_queries(trace, [i for i, _ in live])
-            totals = trace_totals(live_trace, self.backend.size)
-            totals.update(self.backend.trace_bytes(live_trace))
-            self.stats.on_cascade(totals)
+        if trace is not None:
+            # The distributed tier and the failover shards count no trace.
+            with self.tracer.span("verify", batch=len(live)):
+                live_trace = select_queries(trace, [i for i, _ in live])
+                totals = trace_totals(live_trace, self.backend.size)
+                totals.update(self.backend.trace_bytes(live_trace))
+                self.stats.on_cascade(totals)
         with self.tracer.span("reply", batch=len(live)):
             for i, req in live:
-                self._finish(req, idx[i], answer[i], d2[i], ids)
+                self._finish(req, idx[i], answer[i], d2[i], ids, coverage)
 
-    def _finish(self, req: Request, idx_row, answer_row, d2_row, ids_map):
+    def _finish(self, req: Request, idx_row, answer_row, d2_row, ids_map,
+                coverage=None):
         if req.kind == KIND_KNN:
             finite = np.isfinite(d2_row)
             # Ascending (d², slot); slots are in row order, so ties go to
@@ -807,6 +1106,13 @@ class SearchService:
         rows, dist = self._postprocess(req, rows, dist)
         if ids_map is not None:
             rows = ids_map[rows]
+        if coverage is not None:
+            # Certified-partial answer: exact over the surviving shards
+            # only; the caller sees the gap instead of a wrong "exact".
+            req.exact = bool(coverage.exact)
+            req.coverage = coverage.as_dict()
+            if not req.exact:
+                self.stats.on_degraded()
         req._resolve(OK, ids=np.asarray(rows, dtype=np.int64),
                      distances=dist.astype(np.float64))
 
@@ -849,9 +1155,10 @@ class SearchService:
         with self._device_lock:
             idx, answer, d2 = self.backend.dispatch(q, eps, is_knn, kk)
             ids = self._ids
+            coverage = getattr(self.backend, "last_coverage", None)
         req = Request(kind=kind, query=q[0], epsilon=epsilon,
                       k=max(int(k), 1), meta=meta)
-        self._finish(req, idx[0], answer[0], d2[0], ids)
+        self._finish(req, idx[0], answer[0], d2[0], ids, coverage)
         return req.ids, req.distances
 
 

@@ -1625,3 +1625,152 @@ def test_dense_switch_replays_exactly_at_2_20_rows(cuda, Q):
             assert torch.equal(torch.sort(got).values,
                                torch.nonzero(dans[qi]).flatten())
             assert torch.equal(d2[qi][ans[qi]], dd2[qi][got])
+
+
+# ---------------------------------------------------------------------------
+# The sharded paths: P shards on the card, each through the kernels.
+# ---------------------------------------------------------------------------
+
+
+def _launches():
+    return {k.__name__: k.launches for k in fq.KERNELS}
+
+
+@pytest.mark.parametrize("P", [3, 4])
+def test_sharded_engines_launch_kernels_1_2_and_match_one_index(cuda, P):
+    from repro_torch.core import dist_search as ds
+
+    db = make_wafer_like(4001, 128, seed=5)
+    qs = make_queries(db, 8, seed=6)
+    mesh = ds.make_data_mesh(P)
+    padded, nv = ds.pad_database(db, P)
+    index = ds.distributed_build(padded, (8, 16), 10, mesh, n_valid=nv)
+    single = engine.build_device_index(db, (8, 16), 10, device=cuda)
+    qr = engine.represent_queries(torch.as_tensor(qs, device=cuda), (8, 16),
+                                  10)
+    fq.reset_launch_counts()
+    gidx, ans, d2, _ = ds.distributed_range_query_auto(index, qs, 2.0, mesh)
+    nn_idx, nn_d2, exact = ds.distributed_knn_query(index, qs, 5, mesh)
+    mixed = ds.distributed_mixed_query_auto(
+        index, qs, np.full(8, 2.0, np.float32), np.arange(8) % 2 == 0, 5,
+        mesh)
+    got = _launches()
+    assert got["fused_range"] >= 2 * P and got["fused_topk"] >= 2 * P
+    want_ans, want_d2 = engine.range_query_fused(single, qr, 2.0)
+    for i in range(8):
+        g = gidx[i][ans[i]].cpu()
+        assert set(g.tolist()) == set(
+            torch.nonzero(want_ans[i]).flatten().cpu().tolist())
+        # Each (query, row) is summed in a fixed order: bit for bit.
+        assert torch.equal(d2[i][ans[i]].cpu(), want_d2[i][g.long()].cpu())
+    w_idx, w_d2, _ = engine.knn_query_fused(single, qr, 5)
+    assert bool(exact.all())
+    assert torch.equal(nn_idx[:, :5].cpu(), w_idx.long().cpu())
+    assert torch.equal(nn_d2[:, :5].cpu(), w_d2.cpu())
+    assert not bool(mixed[3].any())
+
+
+def test_sharded_service_and_store_warm_start(cuda, tmp_path):
+    from repro_torch.core import dist_search as ds
+
+    db = make_wafer_like(4096, 128, seed=7)
+    mesh = ds.make_data_mesh(4)
+    svc = SearchService.from_series(db, ServeConfig(max_batch=8), mesh=mesh)
+    assert svc.backend.backend == "cuda"
+    workload = make_workload(make_queries(db, 8, seed=8),
+                             WorkloadSpec(n_requests=24, k=5, epsilon=2.0))
+    fq.reset_launch_counts()
+    with svc:
+        result = run_closed_loop(svc, workload, clients=4)
+        assert check_exactness(svc, workload, result) == 0
+    got = _launches()
+    assert got["fused_range"] > 0 and got["fused_topk"] > 0
+    path = ds.store_sharded(svc.backend.index, tmp_path / "sh")
+    warm = SearchService.from_store(path, ServeConfig(max_batch=8))
+    assert warm.backend.index.shards[0].device.type == "cuda"
+    for (kind, q, eps, k), req in zip(workload, result.requests):
+        ids, _ = warm.direct_query(kind, q, epsilon=eps, k=k)
+        np.testing.assert_array_equal(ids, req.ids)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_sharded_tier_screens_with_kernel_5(cuda, mode):
+    from repro_torch.core import dist_search as ds
+    from repro_torch.core.fastsax import FastSAXConfig, build_index
+
+    db = make_wafer_like(3000, 128, seed=9)
+    qs = make_queries(db, 6, seed=10)
+    tiered = engine.TieredIndex.from_host(
+        build_index(db, FastSAXConfig(n_segments=(8, 16))), mode)
+    mesh = ds.make_data_mesh(4)
+    dti = ds.distributed_tiered_index(tiered, mesh)
+    fq.reset_launch_counts()
+    gidx, ans, _, exact = ds.distributed_quantized_range_query(dti, qs, 2.0,
+                                                               mesh)
+    nn_idx, _, _ = ds.distributed_quantized_knn_query(dti, qs, 5, mesh)
+    assert _launches()["fused_quant_range"] >= 8 and bool(exact.all())
+    qr = engine.represent_queries(torch.as_tensor(qs, device=cuda), (8, 16),
+                                  10)
+    w_idx, w_ans, _, _ = engine.quantized_range_query(tiered, qr, 2.0)
+    for i in range(6):
+        assert set(gidx[i][ans[i]].cpu().tolist()) == set(
+            w_idx[i][w_ans[i]].cpu().tolist())
+    k_idx, _, _ = engine.quantized_knn_query(tiered, qr, 5)
+    assert torch.equal(nn_idx.cpu(), k_idx.long().cpu())
+
+
+def test_stream_sharded_subseq_launches_kernels_3_4(cuda):
+    from repro_torch.core import dist_search as ds
+    from repro_torch.core import subseq as ss
+    from repro_torch.core.fastsax import FastSAXConfig
+    from repro_torch.data.timeseries import make_subseq_queries
+
+    streams = make_wafer_like(6, 3000, seed=11, normalize=False)
+    hidx = ss.build_subseq_index(streams, FastSAXConfig(n_segments=(8, 16)),
+                                 128, 4)
+    qs = make_subseq_queries(streams, 5, 128, seed=12)
+    mesh = ds.make_data_mesh(4)
+    dsx = ds.distributed_subseq_index(hidx, mesh)
+    fq.reset_launch_counts()
+    gidx, ans, _, _ = ds.distributed_subseq_range_query(dsx, qs, 2.0, mesh)
+    sel, _, exact = ds.distributed_subseq_knn_query(dsx, qs, 3, mesh,
+                                                    excl=64)
+    got = _launches()
+    assert got["fused_subseq_range"] >= 4 and got["fused_subseq_topk"] >= 4
+    assert got["fused_range"] == 0 and exact.all()
+    sidx = ss.subseq_device_index(hidx)
+    qr = ss.represent_subseq_queries(sidx, qs)
+    w_ans, _ = ss.subseq_range_query(sidx, qr, 2.0)
+    for i in range(5):
+        assert set(gidx[i][ans[i]].cpu().tolist()) == set(
+            torch.nonzero(w_ans[i]).flatten().cpu().tolist())
+    w_sel, _, _ = ss.subseq_knn_query(sidx, qr, 3, excl=64)
+    np.testing.assert_array_equal(sel, w_sel)
+
+
+def test_failover_shards_on_card_degrade_and_recover(cuda):
+    from repro_torch.core import dist_search as ds
+    from repro_torch.runtime import chaos
+
+    db = make_wafer_like(2048, 128, seed=13)
+    q = make_queries(db, 1, seed=14)[0]
+    svc = SearchService.from_series(
+        db, ServeConfig(max_batch=4, failover_shards=4, shard_retries=1,
+                        shard_backoff_s=0.001))
+    svc.warmup(qs=(1,), ks=(8,))
+    fq.reset_launch_counts()
+    with svc:
+        ids, _ = svc.knn(q, 5)
+        plan = chaos.FaultPlan(seed=1, specs=[
+            chaos.FaultSpec(site="shard_query", key="2")])
+        with chaos.injected(plan):
+            req = svc.submit_knn(q, 5)
+            req.wait(60)
+        assert not req.exact and req.coverage["shards_ok"] == 3
+        again, _ = svc.knn(q, 5)
+    assert _launches()["fused_range"] > 0 and _launches()["fused_topk"] > 0
+    np.testing.assert_array_equal(again, ids)
+    eng = svc.backend.engine
+    assert all(d.type == "cuda" for d in eng.devices)
+    assert isinstance(eng, ds.FailoverShards)
+    eng.close()

@@ -125,20 +125,51 @@ def test_warm_start_matches_reference(stores, workload, reference, kind,
         assert svc.backend.size == B + 32 - 3
 
 
-def test_warm_start_refusals(stores, tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        SearchService.from_store(stores["plain"], mesh=object(),
-                                 device="cpu")
-    manifest = jstore.read_manifest(stores["plain"])
+def test_warm_start_refusals(stores, db, tmp_path):
+    # Both sharded store kinds warm-start now (with or without a mesh,
+    # through failover shards too), with the plain store's answers; the
+    # refusals left are the reference's own.
+    from repro_torch.core import dist_search as ds
+    from repro_torch.core import engine as teng
+
+    mesh = ds.make_data_mesh(3, device="cpu")
+    padded, nv = ds.pad_database(db[:B], 3)
+    ds.store_sharded(ds.distributed_build(padded, LEVELS, 10, mesh,
+                                          n_valid=nv),
+                     tmp_path / "fastsax-index-sharded", n_valid=nv)
+    ds.store_sharded_tiered(ds.distributed_tiered_index(
+        teng.TieredIndex.from_host(host_index(db[:B]), "int8",
+                                   device="cpu"), mesh),
+        tmp_path / "fastsax-tiered-sharded")
+    plain = SearchService.from_store(stores["plain"], device="cpu")
+    q = make_queries(db, 1, seed=8)[0]
+    want = plain.direct_query("knn", q, k=5)[0]
     for kind in ("fastsax-index-sharded", "fastsax-tiered-sharded"):
-        (tmp_path / kind).mkdir()
-        (tmp_path / kind / "manifest.json").write_text(
-            json.dumps(dict(manifest, kind=kind)))
-        with pytest.raises(NotImplementedError, match="item 8"):
-            SearchService.from_store(tmp_path / kind, device="cpu")
-    svc = SearchService.from_store(stores["plain"], device="cpu")
+        manifest = jstore.read_manifest(tmp_path / kind)
+        assert manifest["kind"] == kind
+        for kw in ({}, {"mesh": mesh}):
+            svc = SearchService.from_store(tmp_path / kind, device="cpu",
+                                           **kw)
+            np.testing.assert_array_equal(
+                svc.direct_query("knn", q, k=5)[0], want)
+        svc = SearchService.from_store(
+            tmp_path / kind, ServeConfig(failover_shards=3), device="cpu")
+        np.testing.assert_array_equal(svc.direct_query("knn", q, k=5)[0],
+                                      want)
+        svc.backend.engine.close()
+    with pytest.raises(ValueError, match="quantized serving"):
+        SearchService.from_store(tmp_path / "fastsax-index-sharded",
+                                 ServeConfig(quantization="int8"),
+                                 device="cpu")
+    svc = SearchService.from_store(stores["plain"], mesh=mesh, device="cpu")
     with pytest.raises(RuntimeError, match="MutableIndex"):
         svc.insert(np.zeros((1, N)))
+
+
+def host_index(rows):
+    from repro_torch.core.fastsax import build_index
+
+    return build_index(rows, FastSAXConfig(n_segments=LEVELS, alphabet=10))
 
 
 def _mutable_service(tmp_path, db, rows=256, **kw):

@@ -47,7 +47,12 @@ def test_port_files_import_neither_jax_nor_reference():
             "src/repro_torch/obs/spans.py",
             "src/repro_torch/obs/calibration.py",
             "src/repro_torch/obs/metrics.py",
-            "src/repro_torch/data/curation.py"} <= names
+            "src/repro_torch/data/curation.py",
+            "src/repro_torch/runtime/__init__.py",
+            "src/repro_torch/runtime/chaos.py",
+            "src/repro_torch/runtime/fault_tolerance.py",
+            "src/repro_torch/core/dist_search.py",
+            "src/repro_torch/index/sharded.py"} <= names
     offenders = {str(p.relative_to(ROOT)): sorted(
                      imported_modules(p) & set(FORBIDDEN))
                  for p in PORT_FILES}
@@ -67,6 +72,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.level_ops\n"
             "import repro_torch.obs, repro_torch.obs.metrics\n"
             "import repro_torch.data.curation\n"
+            "import repro_torch.core.dist_search, repro_torch.index.sharded\n"
+            "import repro_torch.runtime.chaos\n"
+            "import repro_torch.runtime.fault_tolerance\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
             "assert not bad, bad\n")
@@ -120,3 +128,22 @@ def test_tiered_entry_points_without_a_device_raise_when_cuda_is_absent(
     svc = SearchService.from_series(db, cfg, device="cpu")
     assert svc.backend.backend == "torch"
     assert svc.backend.tindex.dev.device.type == "cpu"
+
+
+def test_sharded_entry_points_without_a_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    from repro_torch.core import dist_search
+    from repro_torch.serve import SearchService, ServeConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    db = np.random.default_rng(0).standard_normal((64, 128))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist_search.make_data_mesh(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist_search.FailoverShards.from_series(db, 2, (8,), 10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SearchService.from_series(db, ServeConfig(failover_shards=2))
+    svc = SearchService.from_series(db, ServeConfig(failover_shards=2),
+                                    device="cpu")
+    assert svc.backend.backend == "torch"
+    svc.backend.engine.close()

@@ -547,8 +547,11 @@ def test_launcher_serves_the_tier_on_cpu(capsys):
 def test_unported_settings_raise():
     with pytest.raises(tq.QuantizationError, match="must be one of"):
         ServeConfig(quantization="int4")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ServeConfig(quantization="int8", failover_shards=2)
+    # The reference's own refusal: failover serving from series is
+    # full-precision (the config is accepted, the build refuses).
+    cfg = ServeConfig(quantization="int8", failover_shards=2)
+    with pytest.raises(ValueError, match="full-precision"):
+        SearchService.from_series(np.zeros((8, 128)), cfg, device="cpu")
     _, jhost, _ = host_indexes(300)
     qhost = jq.quantize_host_index(jhost, "int8")
     # A column the stack does not name is refused, not dropped; under a

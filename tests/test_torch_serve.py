@@ -100,12 +100,23 @@ def test_deadline_expired_rejected_not_served(db):
     assert ids.size == 3 and np.all(np.diff(dist) >= 0)
 
 
-def test_later_slices_raise_not_implemented(db):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ServeConfig(failover_shards=2)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        SearchService.from_series(db, ServeConfig(), mesh=object(),
-                                  device="cpu")
+def test_later_slices_raise_not_implemented(db, workload, reference):
+    # Every slice is ported: failover shards and a mesh serve, and their
+    # answers are the reference service's.
+    from repro_torch.core.dist_search import make_data_mesh
+
+    base = dict(max_batch=16, max_wait_ms=1.0, normalize_queries=False)
+    for svc in (
+            SearchService.from_series(db, ServeConfig(failover_shards=2,
+                                                      **base),
+                                      normalize=False, device="cpu"),
+            SearchService.from_series(db, ServeConfig(**base),
+                                      mesh=make_data_mesh(3, device="cpu"),
+                                      normalize=False)):
+        result = serve(svc, workload)
+        for got, want in zip(result.requests, reference.requests):
+            np.testing.assert_array_equal(got.ids, want.ids)
+    assert svc.backend.index.n_valid == B and len(svc.backend.index.shards) == 3
     # Tracing is ported: the service takes the setting.
     svc = SearchService.from_series(db, ServeConfig(trace=True),
                                     device="cpu")
@@ -113,22 +124,31 @@ def test_later_slices_raise_not_implemented(db):
         and svc.calibration is not None
 
 
-# The reference's ServeConfig settings of slices the port lacks, a value
-# other than the reference's default, and the ROADMAP.md item they wait on.
+# The reference's failover settings, a value other than the reference's
+# default, and the ROADMAP.md item that ported them.
 UNPORTED_SETTINGS = [
     ("shard_timeout_s", 5.0, 8), ("shard_retries", 0, 8),
     ("shard_backoff_s", 0.1, 8)]
 
 
 @pytest.mark.parametrize("name,value,item", UNPORTED_SETTINGS)
-def test_reference_settings_wait_for_their_slice(name, value, item):
-    # Accepted at the reference's default, refused with the item's number
-    # otherwise (not a TypeError for an unknown field).
+def test_reference_settings_wait_for_their_slice(db, name, value, item):
+    # Accepted at the reference's default and at any other value, and they
+    # take effect: the failover engine runs with them.
     ref_default = jserve.ServeConfig.__dataclass_fields__[name].default
     assert getattr(ServeConfig(), name) == ref_default
-    assert getattr(ServeConfig(**{name: ref_default}), name) == ref_default
-    with pytest.raises(NotImplementedError, match=rf"queue 1 item {item}\)"):
-        ServeConfig(**{name: value})
+    assert getattr(ServeConfig(**{name: value}), name) == value
+    assert item == 8
+    svc = SearchService.from_series(
+        db, ServeConfig(failover_shards=2, **{name: value}), device="cpu")
+    eng = svc.backend.engine
+    assert {"shard_timeout_s": eng.timeout_s, "shard_retries": eng.retries,
+            "shard_backoff_s": eng.backoff_s}[name] == value
+    q = make_queries(db, 1, seed=6)[0]
+    with svc:
+        ids, _ = svc.knn(q, 3)
+    assert ids.size == 3
+    eng.close()
 
 
 # The observability slice's settings, at a value other than the

@@ -430,8 +430,22 @@ def test_launcher_serves_subsequences_on_cpu(capsys):
                            "--verify-exact"])
     assert "[subseq-serve]" in capsys.readouterr().out
     assert summary["served"] == 24 and summary["exact_mismatches"] == 0
-    with pytest.raises(NotImplementedError, match="item 8"):
-        launch.main(["--search", "--subseq"])
+    # The stream-sharded one-shot search answers as the single index does.
+    args = ["--search", "--subseq", "--device", "cpu", "--shards", "2",
+            "--streams", "3", "--stream-len", "700", "--queries", "4"]
+    found = launch.main(args + ["--knn", "3"])
+    assert "[subseq-knn] k=3" in capsys.readouterr().out and found["exact"]
+    streams = make_wafer_like(3, 700, seed=0, normalize=False)
+    sidx = tss.subseq_device_index(tss.build_subseq_index(
+        streams, FastSAXConfig(n_segments=(8, 16)), 128, 4), "cpu")
+    qr = tss.represent_subseq_queries(
+        sidx, make_subseq_queries(streams, 4, 128, seed=1))
+    sel, _, _ = tss.subseq_knn_query(sidx, qr, 3, excl=64)
+    np.testing.assert_array_equal(found["sel_idx"], sel)
+    ranged = launch.main(args)
+    ans, _ = tss.subseq_range_query(sidx, qr, 2.0)
+    assert ranged["answers"] == [np.flatnonzero(a).tolist()
+                                 for a in ans.numpy()]
 
 
 def test_later_slices_raise_naming_their_items():
