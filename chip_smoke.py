@@ -243,6 +243,32 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    force over the other shards' rows; revived by a probe, exact again; a
    slowed shard hedged.  The kernels line adds the phase's counted
    launches.
+18. The LM serving path, report key ``lm``, ``[lm]`` lines (no kernel of
+   the port lies on it: every kernel's launch count is the same before
+   and after the phase).  (a) granite-3-2b at its full published config
+   (40 layers, d 2048, 32 heads, GQA kv 8, d_ff 8192, vocab 49155;
+   2,634,201,088 parameters, the reference's count) through the
+   launcher's LM mode, ``--no-smoke --batch 4 --prompt-len 32 --gen 16``,
+   in bf16: one ``forward_hidden`` over the prompt and the generated
+   tokens holds the prefill's and every decode step's logits to max |Δ|
+   / max |logit| <= ``LM_BF16_TOL`` (0.05 for granite, stated per
+   architecture from a measured run), the greedy tokens equal its argmax
+   wherever its top-2 gap exceeds that tolerance, and every logit is
+   finite; the warm prefill and decode times, aggregate tok/s, peak
+   memory and a decode step's bound (the bytes it must read over the HBM
+   rate) with the share reached.  (b) The same in f32, held to the
+   reference's 2e-3 rtol/atol.  (c) mamba2-2.7b, zamba2-1.2b,
+   whisper-medium (1500 stub frames) and llama-3.2-vision-11b (1601 stub
+   patches) at their full published configs, and mixtral-8x22b and
+   qwen3-moe-235b-a22b at their published widths with 4 layers each
+   (281 GB and 470 GB of bf16 at full depth fit no one card), in bf16,
+   one at a time, memory freed between: batch 2, prompt 32, prefill and
+   4 decode steps, the same check; the MoE configs also in f32, held to
+   2e-3 (in bf16 a router near a tie may pick another expert).  (d) All
+   ten smoke configs in f32 and in bf16 on the CPU and on the card, with
+   the same weights and tokens: the largest |Δ| of the logits, within
+   2e-3 rtol/atol in f32 and, in bf16, within twice the CPU's own gap
+   between its steps and its full forward.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -258,6 +284,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -265,6 +292,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 N_SERVE = 1_048_576
 # The engine's no-information radius: ε² is +inf in f32, so C10 is open
 # and C9 kills only the 1e30 sentinel; every valid row is a candidate.
@@ -4702,6 +4730,10 @@ def shard_failover(torch, fq, db, series, workload, smi) -> tuple:
             check(eng.events["hedges"] > hedges0 and t_slow < 2.0,
                   f"the slowed shard was not hedged: {dict(eng.events)}, "
                   f"{t_slow:.2f}s")
+            # The hedged-away first attempt sleeps out its delay in the
+            # pool, then queries: wait for it, so that its launches count
+            # here and none falls into a later phase.
+            eng.close(wait=True)
             torch.cuda.synchronize()
             launches = {k.__name__: k.launches for k in fq.KERNELS}
     finally:
@@ -4739,7 +4771,6 @@ def shard_failover(torch, fq, db, series, workload, smi) -> tuple:
             bf["wrong"] += bad
     del s64
     check(bf["wrong"] == 0, f"failover answers vs the f64 brute force: {bf}")
-    eng.close()
     out = {"build_s": t_build, "warmup_s": t_warm, "steps": steps,
            "partial_coverage": partial[0].coverage,
            "healthz": health, "revived_after": len(revived),
@@ -4792,6 +4823,404 @@ def shard_phase(torch, engine, fq, db, index, tier8, sub, queries,
     log(f"[shard] phase 17 in {report['shard']['seconds']:.1f}s on {smi}; "
         f"launches of its counted runs {launches}")
     return launches
+
+
+# ---- Phase 18: the LM serving path.
+LM_ARCH = "granite-3-2b"
+LM_ARGV = ["--arch", LM_ARCH, "--no-smoke", "--batch", "4",
+           "--prompt-len", "32", "--gen", "16"]
+LM_PARAMS = 2_634_201_088      # the reference's ModelConfig.param_count()
+LM_F32_TOL = 2e-3              # the reference's serving rtol and atol
+# bf16: max |Δ| over max |logit| between a step's logits and the full
+# forward's, per architecture at the width it runs at here, about twice
+# what an H100 80GB HBM3 at 700 W measured (granite 0.0207, mamba2
+# 0.0819, zamba2 0.0516, whisper 0.0104, the VLM 0.00291, mixtral 0.198
+# and qwen3-moe 0.0548 at 4 layers).  The SSM kinds round their chunked
+# prefill at the reference's bf16 points (the decay-weighted B, the chunk
+# states) where decode's recurrence keeps f32 state.  In the MoE configs
+# a router near a tie picks another expert for a token when its bf16
+# input moves by one rounding, and that token's logits move by a tenth
+# of their size: the reference does the same (its two XLA compiles of
+# qwen3-moe's smoke config differ by 0.2 on the CPU), so their bf16
+# ratio admits it and their f32 run is held to the reference's 2e-3.
+# Turning ``allow_bf16_reduced_precision_reduction`` off moved granite's
+# ratio by nothing (0.02108 both ways, PERF.md), so the port leaves
+# PyTorch's default.  Where the port's bf16 stands against the reference
+# is ``tests/test_torch_lm.py``'s (the CPU) and step (d)'s (the card).
+LM_BF16_TOL = {"granite-3-2b": 0.05, "mamba2-2.7b": 0.15,
+               "zamba2-1.2b": 0.1, "whisper-medium": 0.02,
+               "llama-3.2-vision-11b": 0.006, "mixtral-8x22b": 0.4,
+               "qwen3-moe-235b-a22b": 0.11}
+# One of each other kind at its full published config.
+LM_FULL = ("mamba2-2.7b", "zamba2-1.2b", "whisper-medium",
+           "llama-3.2-vision-11b")
+# The MoE configs at their published widths, their depth cut to what one
+# card holds (281 GB and 470 GB of bf16 weights at full depth).
+LM_MOE_LAYERS = {"mixtral-8x22b": 4, "qwen3-moe-235b-a22b": 4}
+LM_BUDGET_S = 90
+
+
+def open_gates(torch, model) -> None:
+    """The VLM's gated cross blocks start closed (tanh 0 = 0); open them
+    so that the cross path shows in the check."""
+    if model.cfg.kind == "vlm":
+        with torch.no_grad():
+            for cp in model["cross_layers"]:
+                cp.gate_attn.fill_(0.5)
+                cp.gate_mlp.fill_(-0.5)
+
+
+def forced_logits(torch, model, tokens, memory, forced):
+    """``prefill`` over the prompt, then a ``decode_step`` on each token of
+    ``forced`` (B, n) in turn: the logits (B, n + 1, V) of every step, so
+    that two devices are held to one token sequence."""
+    from repro_torch.models.transformer import decode_step, prefill
+
+    with torch.inference_mode():
+        logits, cache = prefill(model, tokens, memory=memory,
+                                max_seq=tokens.shape[1] + forced.shape[1])
+        steps = [logits]
+        for j in range(forced.shape[1]):
+            logits, cache = decode_step(model, cache, forced[:, j:j + 1])
+            steps.append(logits)
+    return torch.stack(steps, dim=1)
+
+
+def free_card(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_consistency(torch, model, res, tol: float | None) -> dict:
+    """One ``forward_hidden`` over the prompt and the generated tokens
+    against the prefill's and every decode step's logits; the greedy
+    tokens against its argmax where its top-2 gap exceeds the tolerance.
+    ``tol``: the bf16 ratio bound; None holds f32 to the reference's
+    rtol / atol."""
+    from repro_torch.models.transformer import forward_hidden, logits_of
+
+    P = res["tokens"].shape[1]
+    with torch.inference_mode():
+        seq = torch.cat([res["tokens"], res["generated"]], dim=1)
+        h, _ = forward_hidden(model, seq, res["memory"])
+        full = logits_of(model, h[:, P - 1:])          # (B, gen + 1, V)
+        steps = res["logits"]
+        diff = (steps - full).abs()
+        scale = float(full.abs().max())
+        rel = float(diff.max()) / scale
+        f32 = tol is None
+        tol_abs = LM_F32_TOL * (1 + scale) if f32 else tol * scale
+        within = bool((diff <= LM_F32_TOL + LM_F32_TOL * full.abs()).all()
+                      if f32 else rel <= tol)
+        top2 = full[:, :-1].topk(2, dim=-1).values
+        decisive = (top2[..., 0] - top2[..., 1]) > tol_abs
+        wrong = (full[:, :-1].argmax(-1) != res["generated"]) & decisive
+        finite = bool(torch.isfinite(steps).all()
+                      and torch.isfinite(full).all())
+    return {"max_abs_diff": float(diff.max()), "max_abs_logit": scale,
+            "rel": rel, "tol": tol, "within": within, "finite": finite,
+            "greedy_checked": int(decisive.sum()),
+            "greedy_wrong": int(wrong.sum()), "positions": int(diff.shape[1])}
+
+
+def lm_check(out: dict, label: str) -> None:
+    check(out["finite"], f"{label}: a logit is not finite")
+    check(out["within"], f"{label}: the steps' logits differ from the full "
+          f"forward's beyond the tolerance: {out}")
+    check(out["greedy_wrong"] == 0, f"{label}: greedy tokens differ from the "
+          f"full forward's argmax at decisive positions: {out}")
+
+
+def decode_bound(torch, model, batch: int, max_seq: int) -> dict:
+    """The least time a decode step could take on the card: the bytes it
+    must move (every weight but the embedding table read once, B table
+    rows, the whole cache read once) over the HBM rate; its operations
+    (2 per weight and token) over the bf16 tensor-core peak."""
+    from repro_torch.models.transformer import init_cache
+
+    cfg = model.cfg
+    table = model["embed"]["table"]
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    weights -= table.numel() * table.element_size()
+    def nbytes_of(tree) -> int:
+        if isinstance(tree, torch.Tensor):
+            return tree.numel() * tree.element_size()
+        if isinstance(tree, (tuple, list)):
+            return sum(nbytes_of(t) for t in tree)
+        if isinstance(tree, dict):
+            return sum(nbytes_of(t) for t in tree.values())
+        return 0                                   # the position, an int
+
+    cache_bytes = nbytes_of(init_cache(cfg, batch, max_seq, "meta"))
+    nbytes = weights + batch * cfg.d_model * table.element_size() \
+        + cache_bytes
+    ops = 2 * (model_numel(model) - table.numel()) * batch
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "weight_bytes": weights,
+            "cache_bytes": cache_bytes, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def model_numel(model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def lm_decode_profile(torch, model, tokens, steps: int = 4) -> dict:
+    """Where a decode step's time goes: ``torch.profiler`` around
+    ``steps`` warm decode steps (the prefill outside it), parsed as phase
+    15 parses its traces — the window, the card's busy time, the idle
+    share, device events per step and the top device operations."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import decode_step, prefill
+
+    with torch.inference_mode():
+        logits, cache = prefill(model, tokens,
+                                max_seq=tokens.shape[1] + steps + 1)
+        nxt = logits.argmax(-1)[:, None]
+        logits, cache = decode_step(model, cache, nxt)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    nxt = logits.argmax(-1)[:, None]
+                    logits, cache = decode_step(model, cache, nxt)
+                torch.cuda.synchronize()
+            path = pathlib.Path(d) / "decode.json"
+            prof.export_chrome_trace(str(path))
+            out = profile_dispatches([path])[0]
+    out["steps"] = steps
+    out["device_events_per_step"] = out["device_events"] / steps
+    return out
+
+
+def lm_granite(torch, launcher, dev, smi) -> dict:
+    """(a) granite-3-2b through the launcher in bf16, then the warm
+    readings."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = launcher.main(LM_ARGV)
+    t_launch = time.perf_counter() - t0
+    model = res["model"]
+    n = model_numel(model)
+    check(n == LM_PARAMS == res["cfg"].param_count(),
+          f"granite-3-2b has {n} parameters, not {LM_PARAMS}")
+    check(res["logits"].device.type == "cuda", "the LM did not run on the card")
+    tol = LM_BF16_TOL[LM_ARCH]
+    cons = lm_consistency(torch, model, res, tol)
+    lm_check(cons, "granite-3-2b bf16")
+    warm = launcher.generate(model, res["tokens"], None, 16)
+    same = bool(torch.equal(warm["generated"], res["generated"]))
+    B = res["tokens"].shape[0]
+    bound = decode_bound(torch, model, B, 48)
+    peak = torch.cuda.max_memory_allocated()
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    prof = lm_decode_profile(torch, model, res["tokens"])
+    out = {"launcher_argv": LM_ARGV, "params": n,
+           "weight_gb": n * 2 / 1e9, "launcher_s": t_launch,
+           "cold_prefill_ms": res["prefill_s"] * 1e3,
+           "cold_decode_ms": res["decode_s"] * 1e3,
+           "prefill_ms": warm["prefill_s"] * 1e3,
+           "decode_ms": warm["decode_s"] * 1e3,
+           "tok_s": B / warm["decode_s"], "warm_tokens_equal": same,
+           "max_memory_allocated": peak, "bound": bound,
+           "bound_share": bound["bound_ms"] / (warm["decode_s"] * 1e3),
+           "bf16": cons, "reduced_precision_reduction": flag,
+           "decode_profile": prof}
+    log(f"[lm] granite-3-2b full width ({n:,} params, "
+        f"{out['weight_gb']:.2f} GB bf16) through the launcher "
+        f"({' '.join(LM_ARGV)}) in {t_launch:.1f}s on {smi}")
+    log(f"[lm] granite-3-2b bf16: prefill {out['prefill_ms']:.2f} ms, "
+        f"decode {out['decode_ms']:.3f} ms/token, {out['tok_s']:.1f} tok/s "
+        f"aggregate (warm; the launcher's cold run: "
+        f"{out['cold_prefill_ms']:.1f} and {out['cold_decode_ms']:.2f} ms); "
+        f"max_memory_allocated {peak / 1e9:.2f} GB")
+    log(f"[lm] granite-3-2b decode bound {bound['bound_ms']:.3f} ms "
+        f"({bound['bound_by']}: {bound['bytes'] / 1e9:.3f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; operations "
+        f"{bound['ops_ms']:.4f} ms): {100 * out['bound_share']:.1f}% of it "
+        f"reached")
+    log(f"[lm] granite-3-2b bf16 vs one full forward over {cons['positions']}"
+        f" positions: max |Δ| {cons['max_abs_diff']:.4g}, max |logit| "
+        f"{cons['max_abs_logit']:.4g}, ratio {cons['rel']:.4g} (tolerance "
+        f"{tol}); greedy tokens equal at {cons['greedy_checked']} "
+        f"decisive positions; reduced-precision reductions {flag} "
+        f"(PyTorch's default)")
+    if prof["device_events"]:
+        log(f"[lm] granite-3-2b decode profile ({prof['steps']} warm steps): "
+            f"window {prof['window_ms']:.2f} ms, card busy "
+            f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f};"
+            f" {prof['device_events_per_step']:.0f} device operations a "
+            f"step; top: " + ", ".join(f"{short_name(k)} {v:.2f} ms"
+                                       for k, v in prof["top"][:4]))
+    else:
+        log("[lm] granite-3-2b decode profile: CUPTI gave no device events "
+            "(idle share not measured)")
+    del res, model, warm
+    free_card(torch)
+    return out
+
+
+def lm_run(torch, launcher, arch, cfg, dev, batch: int, prompt: int,
+           gen: int, seed: int = 0) -> tuple:
+    """Init on the card, open the VLM's gates, generate, check."""
+    from repro_torch.models.transformer import init_params
+
+    t0 = time.perf_counter()
+    model = init_params(cfg, dev, seed=seed)
+    open_gates(torch, model)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tokens, memory = launcher.lm_inputs(cfg, batch, prompt, dev, seed)
+    res = launcher.generate(model, tokens, memory, gen)
+    res.update(tokens=tokens, memory=memory)
+    cons = lm_consistency(torch, model, res, None if cfg.dtype == "float32"
+                          else LM_BF16_TOL[arch])
+    out = {"params": model_numel(model), "init_s": t_init,
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "decode_ms": res["decode_s"] * 1e3,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "check": cons}
+    return model, out
+
+
+def lm_phase(torch, report) -> None:
+    """Phase 18; launches none of the port's kernels."""
+    from repro_torch import configs
+    from repro_torch.kernels import fused_query as fq
+    from repro_torch.kernels import level_ops as lo
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.transformer import init_params
+
+    smi = report["env"]["nvidia_smi"]
+    t_phase = time.perf_counter()
+    before = [k.launches for k in fq.KERNELS + lo.KERNELS]
+    dev = torch.device("cuda")
+    free_card(torch)
+    # The LM's steps are host-bound: threads left by earlier phases share
+    # the host with them.
+    threads = sorted(t.name for t in threading.enumerate())
+    log(f"[lm] {len(threads)} threads alive at the phase's start: "
+        f"{threads[:12]}")
+    lm = {"card": smi, "threads_at_start": threads,
+          "granite": lm_granite(torch, launcher, dev, smi)}
+
+    # (b) granite-3-2b in f32
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = dataclasses.replace(configs.get(LM_ARCH), dtype="float32")
+    model, out = lm_run(torch, launcher, LM_ARCH, cfg32, dev, 4, 32, 16)
+    lm_check(out["check"], "granite-3-2b f32")
+    lm["granite_f32"] = out
+    c = out["check"]
+    log(f"[lm] granite-3-2b f32 ({out['params'] * 4 / 1e9:.2f} GB): prefill "
+        f"{out['prefill_ms']:.2f} ms, decode {out['decode_ms']:.3f} ms/token;"
+        f" vs the full forward max |Δ| {c['max_abs_diff']:.3g} (max |logit| "
+        f"{c['max_abs_logit']:.3g}; within {LM_F32_TOL} rtol/atol); greedy "
+        f"equal at {c['greedy_checked']} decisive positions; "
+        f"max_memory_allocated {out['max_memory_allocated'] / 1e9:.2f} GB")
+    del model
+    free_card(torch)
+
+    # (c) the other kinds at full width; the MoE configs at their
+    # published widths with their depth cut
+    lm["kinds"] = {}
+    runs = [(a, configs.get(a)) for a in LM_FULL] + [
+        (a, dataclasses.replace(configs.get(a), n_layers=n, dtype=dt))
+        for a, n in LM_MOE_LAYERS.items() for dt in ("float32", "bfloat16")]
+    for arch, cfg in runs:
+        torch.cuda.reset_peak_memory_stats()
+        model, out = lm_run(torch, launcher, arch, cfg, dev, 2, 32, 4)
+        check(out["params"] == cfg.param_count(),
+              f"{arch}: {out['params']} parameters, the config counts "
+              f"{cfg.param_count()}")
+        depth = configs.get(arch).n_layers
+        label = f"{arch} full width" + (
+            f", {cfg.n_layers} of {depth} layers" if cfg.n_layers < depth
+            else "") + f" {cfg.dtype}"
+        lm_check(out["check"], label)
+        lm["kinds"][label] = out
+        c = out["check"]
+        log(f"[lm] {label} ({cfg.kind}, {out['params']:,} params): init "
+            f"{out['init_s']:.1f}s, prefill {out['prefill_ms']:.1f} ms, "
+            f"decode {out['decode_ms']:.2f} ms/token, max_memory_allocated"
+            f" {out['max_memory_allocated'] / 1e9:.2f} GB; vs the full "
+            f"forward max |Δ| {c['max_abs_diff']:.3g} ratio {c['rel']:.3g} "
+            f"(tolerance {c['tol'] or LM_F32_TOL}); greedy equal at "
+            f"{c['greedy_checked']} "
+            f"decisive positions")
+        del model
+        free_card(torch)
+    lm["depth_cut"] = {
+        a: f"{n} of {configs.get(a).n_layers} layers; at full depth "
+           f"{configs.get(a).param_count():,} params, "
+           f"{configs.get(a).param_count() * 2 / 1e9:.0f} GB in bf16: no one "
+           f"card holds it"
+        for a, n in LM_MOE_LAYERS.items()}
+    log(f"[lm] cut: {lm['depth_cut']}; their full depth waits for the "
+        f"multi-card path")
+
+    # (d) every smoke config in f32 and in bf16, the card against the CPU
+    # on the same weights and tokens.  f32: the reference's 2e-3.  bf16:
+    # twice the CPU's own gap between its steps and its full forward (the
+    # gap tests/test_torch_lm.py holds the port to the reference by): the
+    # card and the CPU may each stand that far from the function.
+    lm["cpu_vs_card"] = {}
+    for arch in configs.list_archs():
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.smoke(arch), dtype=dtype)
+            model = init_params(cfg, "cpu", seed=0)
+            open_gates(torch, model)
+            toks, mem = launcher.lm_inputs(cfg, 2, 16, "cpu", seed=1)
+            want = launcher.generate(model, toks, mem, 4)
+            model.to(dev)
+            g = forced_logits(torch, model, toks.to(dev),
+                              None if mem is None else mem.to(dev),
+                              want["generated"].to(dev)).cpu()
+            w = want["logits"]
+            err = float((g - w).abs().max())
+            if dtype == "float32":
+                tol = LM_F32_TOL
+                ok = bool(((g - w).abs() <= tol + tol * w.abs()).all())
+            else:
+                model.to("cpu")
+                tol = 2 * lm_consistency(torch, model, dict(
+                    want, tokens=toks, memory=mem), 1.0)["rel"]
+                ok = err / float(w.abs().max()) <= tol
+            lm["cpu_vs_card"][f"{arch} {dtype}"] = {
+                "max_abs_diff": err, "rel": err / float(w.abs().max()),
+                "tol": tol}
+            check(ok and bool(torch.isfinite(g).all()),
+                  f"{arch} smoke {dtype}: the card's logits differ from the "
+                  f"CPU's by {err} (tolerance {tol})")
+            del model
+    for dtype in ("float32", "bfloat16"):
+        runs = {k: v for k, v in lm["cpu_vs_card"].items()
+                if k.endswith(dtype)}
+        worst = max(runs, key=lambda k: runs[k]["rel"])
+        log(f"[lm] the ten smoke configs in {dtype}, the card against the "
+            f"CPU (prefill + 4 decode steps, the same weights and tokens): "
+            f"largest |Δ| {runs[worst]['max_abs_diff']:.3g}, ratio "
+            f"{runs[worst]['rel']:.3g} ({worst}, tolerance "
+            f"{runs[worst]['tol']:.3g}); " + ", ".join(
+                f"{k.split()[0]} {v['rel']:.3g}/{v['tol']:.3g}"
+                for k, v in runs.items()))
+    after = [k.launches for k in fq.KERNELS + lo.KERNELS]
+    check(after == before, f"the LM phase launched a kernel: {before} -> "
+          f"{after}")
+    lm["seconds"] = time.perf_counter() - t_phase
+    report["lm"] = lm
+    log(f"[lm] phase 18 in {lm['seconds']:.1f}s; no kernel of the port "
+        f"launched")
+    check(lm["seconds"] <= LM_BUDGET_S,
+          f"phase 18 took {lm['seconds']:.1f}s, over its {LM_BUDGET_S} s")
+    free_card(torch)
 
 
 def main() -> int:
@@ -5079,6 +5508,10 @@ def main() -> int:
     del db, index, tier8, sub
     log(f"[time] phases 1-17 in {time.perf_counter() - t_start:.1f}s")
     add_launches(plaunches, shlaunches)
+
+    # ---- 18. the LM serving path (launches none of the kernels)
+    lm_phase(torch, report)
+    log(f"[time] phases 1-18 in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name in ("fused_range", "fused_topk"):

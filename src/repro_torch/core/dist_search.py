@@ -1248,8 +1248,11 @@ class FailoverShards:
     def shard_states(self) -> list:
         return ["down" if d else "up" for d in self._down]
 
-    def close(self):
-        self._pool.shutdown(wait=False)
+    def close(self, wait: bool = False):
+        """Stop the shard pool.  ``wait``: first let every attempt already
+        dispatched run to its end, a hedged-away straggler included, so
+        that no shard query runs after ``close`` returns."""
+        self._pool.shutdown(wait=wait)
 
     # --- health bookkeeping -------------------------------------------------
 

@@ -1,8 +1,18 @@
-"""The online query service event loop, driven by the closed-loop load
-generator, and the one-shot distributed search.
+"""The LM decode loop, the online query service event loop, driven by
+the closed-loop load generator, and the one-shot distributed search.
 
-Counterpart of the ``--serve`` and ``--search`` paths of
-``repro/launch/serve.py``::
+Counterpart of ``repro/launch/serve.py``.  With neither ``--serve`` nor
+``--search`` it runs the LM decode loop, as the reference does: a
+randomly initialised ``--arch`` (its smoke config unless ``--no-smoke``)
+prefills ``--batch`` random prompts of ``--prompt-len`` tokens and
+decodes ``--gen`` tokens greedily, and prints three ``[serve]`` lines::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+        --no-smoke --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch granite-3-2b --gen 4
+
+The search modes::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --serve \\
         --db-size 1048576 --bench-requests 64 --verify-exact \\
@@ -62,6 +72,85 @@ import threading
 import time
 
 import numpy as np
+
+
+def lm_inputs(cfg, batch: int, prompt_len: int, device, seed: int = 0):
+    """Random prompts (B, prompt_len) and, for the encdec and vlm kinds,
+    stub frame or patch embeddings (B, Sm, d), from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device=device)
+    memory = None
+    if cfg.kind in ("encdec", "vlm"):
+        n = cfg.enc_seq if cfg.kind == "encdec" else cfg.img_tokens
+        memory = torch.randn((batch, n, cfg.d_model), generator=gen,
+                             device=device).to(cfg.torch_dtype)
+    return tokens, memory
+
+
+def generate(model, tokens, memory, gen: int) -> dict:
+    """Greedy decoding: ``prefill`` over the prompt, then ``gen``
+    ``decode_step``s.  Returns every step's logits (B, gen + 1, V) — the
+    prefill's first — the generated tokens (B, gen) and the times (the
+    host clock around work that ends in a synchronise on a card)."""
+    import torch
+
+    from ..models.transformer import decode_step, prefill
+
+    def sync():
+        if tokens.device.type == "cuda":
+            torch.cuda.synchronize(tokens.device)
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, tokens, memory=memory,
+                                max_seq=tokens.shape[1] + gen)
+        sync()
+        t_prefill = time.perf_counter() - t0
+        steps, out = [logits], []
+        nxt = torch.argmax(logits, dim=-1)[:, None]
+        t0 = time.perf_counter()
+        for j in range(gen):
+            out.append(nxt)
+            logits, cache = decode_step(model, cache, nxt)
+            steps.append(logits)
+            nxt = torch.argmax(logits, dim=-1)[:, None]
+        sync()
+        t_decode = (time.perf_counter() - t0) / max(gen, 1)
+    return {"logits": torch.stack(steps, dim=1),
+            "generated": torch.cat(out, dim=1) if out else tokens[:, :0],
+            "prefill_s": t_prefill, "decode_s": t_decode}
+
+
+def serve_lm(args) -> dict:
+    """The LM decode loop (the reference's default mode): init, prefill,
+    greedy decode, three ``[serve]`` lines.  Runs on the card unless
+    ``--device cpu``; raises when there is none."""
+    import torch
+
+    from .. import configs
+    from ..models.transformer import init_params
+
+    if args.device is None and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "to run the LM on the CPU")
+    device = torch.device(args.device or "cuda")
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    model = init_params(cfg, device, seed=args.seed)
+    B = args.batch
+    tokens, memory = lm_inputs(cfg, B, args.prompt_len, device, args.seed)
+    res = generate(model, tokens, memory, args.gen)
+    t_decode = res["decode_s"]
+    print(f"[serve] arch={cfg.name} batch={B} prompt={args.prompt_len}")
+    print(f"[serve] prefill {res['prefill_s'] * 1e3:.1f} ms; "
+          f"decode {t_decode * 1e3:.1f} ms/token "
+          f"({B / t_decode:.1f} tok/s aggregate)")
+    print(f"[serve] sample generation (first row): "
+          f"{res['generated'][0][:16].tolist()}")
+    res.update(cfg=cfg, model=model, tokens=tokens, memory=memory)
+    return res
 
 
 def _mesh(args):
@@ -427,8 +516,10 @@ def serve_subseq_service(args) -> dict:
 
 
 def main(argv=None):
+    from .. import configs
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    mode = ap.add_mutually_exclusive_group(required=True)
+    mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--serve", action="store_true",
                       help="run the online query service event loop")
     mode.add_argument("--search", action="store_true",
@@ -437,6 +528,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run the "
                          "plain versions on the CPU)")
+    # The LM decode loop (neither --serve nor --search)
+    ap.add_argument("--arch", default="granite-3-2b",
+                    choices=configs.list_archs())
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="use the smoke-sized arch config (--no-smoke for "
+                         "the full published config)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--db-size", type=int, default=4096)
     ap.add_argument("--index-dir", default="",
                     help="--serve: warm-start from this committed store, "
@@ -526,6 +628,8 @@ def main(argv=None):
     if args.search:
         return serve_subseq_search(args) if args.subseq else \
             serve_search(args)
+    if not args.serve:
+        return serve_lm(args)
     if args.subseq:
         return serve_subseq_service(args)
     return serve_service(args)

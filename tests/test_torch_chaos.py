@@ -16,6 +16,7 @@ requests, ``device_upload`` faults in both refresh paths, drain and
 held to the reference's behaviour.  Scenarios that count invocations
 take a large ``slow_factor``, so no attempt is hedged on a busy machine.
 """
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -292,6 +293,26 @@ def test_failover_straggler_is_hedged(db, queries):
     assert not out[4].exact and out[4].shards_ok == 3
     assert mine.events["hedges"] >= 1
     assert dt < 2.5, "the dispatch must not wait out a 3 s straggler"
+
+
+def test_failover_close_waits_for_a_hedged_straggler(db, queries):
+    """``close(wait=True)`` returns only after the hedged-away attempt
+    has slept out its delay and run: no shard query outlives it."""
+    earlier = set(threading.enumerate())
+    mine, _ = engines(db, retries=1, timeout_s=0.15)
+    query(mine, queries)
+    plan = chaos.FaultPlan(seed=5, specs=[
+        chaos.FaultSpec(site="shard_query", key="0", mode="slow",
+                        delay_s=1.0, start=0, stop=1)])
+    t0 = time.perf_counter()
+    with chaos.injected(plan):
+        query(mine, queries)
+        assert mine.events["hedges"] >= 1
+        assert time.perf_counter() - t0 < 1.0
+        mine.close(wait=True)
+    assert time.perf_counter() - t0 >= 1.0
+    assert not [t for t in set(threading.enumerate()) - earlier
+                if t.name.startswith("repro-torch-failover")]
 
 
 def test_failover_from_port_store_in_both_packages(tmp_path, db, queries):

@@ -1774,3 +1774,64 @@ def test_failover_shards_on_card_degrade_and_recover(cuda):
     assert all(d.type == "cuda" for d in eng.devices)
     assert isinstance(eng, ds.FailoverShards)
     eng.close()
+
+
+# ---- The LM serving path (models/, configs/, the launcher's LM mode).  It
+# reaches none of the port's kernels: every launch count stays where it was.
+
+LM_ARCHS = ("granite-3-2b", "mixtral-8x22b", "mamba2-2.7b", "zamba2-1.2b",
+            "whisper-medium", "llama-3.2-vision-11b")   # one of each kind
+
+
+def kernel_launches():
+    return [k.launches for k in fq.KERNELS + lo.KERNELS]
+
+
+def test_launcher_lm_mode_on_card(cuda, capsys):
+    from repro_torch.launch import serve as launcher
+
+    before = kernel_launches()
+    res = launcher.main(["--smoke", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] arch=granite-3-2b-smoke batch=4 prompt=32" in out
+    assert res["logits"].device.type == "cuda"
+    assert res["logits"].shape == (4, 5, 256)
+    assert torch.isfinite(res["logits"]).all()
+    assert kernel_launches() == before
+
+
+def chip_smoke_module():
+    """``chip_smoke.py``, for the LM helpers phase 18 uses (it imports
+    only the standard library and numpy when loaded)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_card_matches_cpu_in_f32(cuda, arch):
+    """The same weights and tokens in f32 on the CPU and on the card:
+    prefill and four decode steps within 2e-3 (TF32 off: the products are
+    f32 on both; the sums run in other orders)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import generate, lm_inputs
+    from repro_torch.models.transformer import init_params
+
+    smoke = chip_smoke_module()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    model = init_params(cfg, "cpu", seed=0)
+    smoke.open_gates(torch, model)     # the VLM's cross path (init: 0)
+    toks, mem = lm_inputs(cfg, 2, 16, "cpu", seed=1)
+    want = generate(model, toks, mem, 4)
+    model.to(cuda)
+    got = smoke.forced_logits(torch, model, toks.to(cuda),
+                              None if mem is None else mem.to(cuda),
+                              want["generated"].to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want["logits"].numpy(),
+                               rtol=2e-3, atol=2e-3)

@@ -52,7 +52,17 @@ def test_port_files_import_neither_jax_nor_reference():
             "src/repro_torch/runtime/chaos.py",
             "src/repro_torch/runtime/fault_tolerance.py",
             "src/repro_torch/core/dist_search.py",
-            "src/repro_torch/index/sharded.py"} <= names
+            "src/repro_torch/index/sharded.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/models/__init__.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/configs/__init__.py"} <= names
+    archs = {p.stem for p in (ROOT / "src" / "repro" / "configs").glob(
+        "*.py") if p.stem not in ("__init__", "shapes")}
+    assert {f"src/repro_torch/configs/{a}.py" for a in archs} <= names
     offenders = {str(p.relative_to(ROOT)): sorted(
                      imported_modules(p) & set(FORBIDDEN))
                  for p in PORT_FILES}
@@ -75,6 +85,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core.dist_search, repro_torch.index.sharded\n"
             "import repro_torch.runtime.chaos\n"
             "import repro_torch.runtime.fault_tolerance\n"
+            "import repro_torch.models.transformer, repro_torch.configs\n"
+            "from repro_torch import configs\n"
+            "[configs.get(a) for a in configs.list_archs()]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
             "assert not bad, bad\n")
@@ -147,3 +160,15 @@ def test_sharded_entry_points_without_a_device_raise_when_cuda_is_absent(
                                     device="cpu")
     assert svc.backend.backend == "torch"
     svc.backend.engine.close()
+
+
+def test_lm_entry_point_raises_when_cuda_is_absent(monkeypatch, capsys):
+    from repro_torch.launch import serve as launcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launcher.main(["--gen", "1"])
+    res = launcher.main(["--device", "cpu", "--gen", "1", "--batch", "1",
+                         "--prompt-len", "4"])
+    assert res["logits"].device.type == "cpu"
+    assert "[serve] arch=granite-3-2b-smoke" in capsys.readouterr().out
