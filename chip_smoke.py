@@ -269,6 +269,36 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the same weights and tokens: the largest |Δ| of the logits, within
    2e-3 rtol/atol in f32 and, in bf16, within twice the CPU's own gap
    between its steps and its full forward.
+19. LM training and checkpoints, report key ``train``, ``[train]`` lines
+   (no kernel of the port lies on it: every launch count is the same
+   before and after).  (a) granite-3-2b at its full published config in
+   bf16, random weights (seed 0), through the train launcher with the
+   reference launcher's defaults (``--global-batch 8 --seq-len 128``), 6
+   steps on the port's token pipeline, first with f32 moments, then with
+   ``--int8-opt``, the card's memory freed between: every loss and grad
+   norm finite; step 0's loss within ``TRAIN_LOSS0_RTOL`` of a no_grad
+   ``train_loss`` on the same weights and batch (the int8 run's step 0
+   equal to it); one more step's update of the embedding table, layer
+   0's ``wq`` and ``final_norm``'s scale held to ``apply_updates`` on
+   the CPU on copies of that leaf's parameter, gradient and moments (one
+   bf16 ulp, 1e-6 relative on f32 moments and scales, |Δcode| ≤ 1); the
+   step ms (median of steps 1-5), tokens/s, peak memory and the model
+   FLOPs share (6 · N · tokens a step over the 989 TFLOP/s dense bf16
+   peak, N = 2,533,531,648: the parameters less the 49155 × 2048
+   embedding table, a gather with no products; ``lm_head`` counts, and
+   attention's S² products are left out); with f32 moments one step split on CUDA events into
+   forward, backward and optimizer, and one under ``torch.profiler``
+   (device operations, busy ms, idle share).  (b) One train step of each
+   of the ten smoke configs in f32 on the CPU and on the card from the
+   same weights and tokens, then a second step's update on the card
+   against ``apply_updates`` on the CPU on the card's own gradients and
+   moments, every element (``TRAIN_F32``); ``grad_accum`` 4 against 1 on
+   the card.  (c) Kill and resume at smoke size through the
+   launcher in a subprocess with deterministic algorithms on: 6 steps
+   against 3 + resume 3, the losses bit for bit (an op with no
+   deterministic form is named and the losses held to
+   ``RESUME_NONDET_RTOL``), the card's checkpoints restored on the CPU
+   with sha256 verified.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -5223,6 +5253,503 @@ def lm_phase(torch, report) -> None:
     free_card(torch)
 
 
+# ---- Phase 19: LM training and checkpoints.
+TRAIN_ARGV = ["--arch", LM_ARCH, "--steps", "6", "--global-batch", "8",
+              "--seq-len", "128", "--log-every", "1"]   # no --smoke
+# The leaves whose update on the card is held to the optimizer on the
+# CPU: the embedding table, a layer's weight and a scale without decay.
+TRAIN_LEAVES = ("embed.table", "layers.0.attn.wq", "final_norm.scale")
+# Step 0's loss against a no_grad train_loss on the same weights and
+# batch: the same bf16 forward either way (the checkpointed blocks
+# recompute it only in the backward pass).
+TRAIN_LOSS0_RTOL = 1e-3
+# (b), the smoke configs in f32, card against CPU: the loss, the grad
+# norm, each gradient leaf (max |Δg| / max |g|, the CPU tests' bound
+# against JAX), and the card's update against the CPU's on the card's
+# own gradients and moments: each updated parameter and moment (max |Δ| /
+# max |x| per leaf, see ``train_step_card_vs_cpu``).
+TRAIN_F32 = {"loss": 1e-5, "grad_norm": 1e-4, "grads": 1e-4,
+             "params": 1e-5, "moments": 1e-5}
+TRAIN_BUDGET_S = 90
+# The model-FLOPs count's N: granite-3-2b's parameters less its 49155 ×
+# 2048 embedding table, which is gathered, not multiplied (``lm_head`` is
+# a separate matrix and counts).
+TRAIN_MATMUL_PARAMS = LM_PARAMS - 49155 * 2048
+
+
+def bf16_ulps(torch, a, b) -> float:
+    """The largest |Δ| in bf16 units in the last place of the larger
+    value."""
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def rel_gap(torch, got, want) -> float:
+    scale = float(want.float().abs().max())
+    gap = float((got.float() - want.float()).abs().max())
+    return gap / scale if scale > 0 else gap
+
+
+def leaf_update_check(torch, opt, res, leaves) -> dict:
+    """One more step on the model and state a launcher run returned: the
+    card's update of each of ``leaves`` against ``apply_updates`` on the
+    CPU on copies of that leaf's parameter, (clipped) gradient and
+    moments."""
+    from repro_torch.models.transformer import decayed_names
+    from repro_torch.training.step import loss_and_grads, trainable
+
+    model, state, cfg = res["model"], res["opt_state"], res["opt_cfg"]
+    params = trainable(model)
+    decay = decayed_names(params)
+    batch = res["pipeline"].batch_at(len(res["losses"]) + res["start"])
+    _, grads = loss_and_grads(model, params, batch)
+    grads, _ = opt.clip_by_global_norm(grads, 1.0)
+    cpu = {"step": state["step"].cpu(), "moments": {}}
+    cpu_p, cpu_g = {}, {}
+    for k in leaves:
+        cpu_p[k] = params[k].detach().to("cpu", copy=True)
+        cpu_g[k] = grads[k].to("cpu", copy=True)
+        cpu["moments"][k] = {kk: t.to("cpu", copy=True)
+                             for kk, t in state["moments"][k].items()}
+    opt.apply_updates(cfg, params, grads, state, decay)
+    opt.apply_updates(cfg, cpu_p, cpu_g, cpu, decay)
+    out = {}
+    for k in leaves:
+        card = state["moments"][k]
+        rec = {"param_bf16_ulps": bf16_ulps(torch, params[k].detach().cpu(),
+                                            cpu_p[k]),
+               "decays": k in decay}
+        for kk, t in card.items():
+            want = cpu["moments"][k][kk]
+            if t.dtype == torch.int8:
+                d = (t.cpu().int() - want.int()).abs()
+                rec[kk] = {"max_code_diff": int(d.max()),
+                           "codes_differing": int((d > 0).sum()),
+                           "codes": d.numel()}
+            else:
+                rec[kk] = rel_gap(torch, t.cpu(), want)
+        out[k] = rec
+        check(rec["param_bf16_ulps"] <= 1,
+              f"{k}: the card's update is {rec['param_bf16_ulps']} bf16 "
+              f"ulps from the CPU's")
+        for kk, v in rec.items():
+            if isinstance(v, dict):
+                check(v["max_code_diff"] <= 1, f"{k}/{kk}: {v}")
+            elif kk not in ("param_bf16_ulps", "decays"):
+                check(v <= 1e-6, f"{k}/{kk}: the card's moment is {v} "
+                      f"(relative) from the CPU's")
+    del grads, params
+    return out
+
+
+def train_step_split(torch, opt, res) -> dict:
+    """One more step split into its forward, backward and optimizer on
+    CUDA events, and one under ``torch.profiler``: device operations,
+    the card's busy ms and idle share."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models.transformer import decayed_names, train_loss
+    from repro_torch.training.step import trainable
+
+    model, state, cfg = res["model"], res["opt_state"], res["opt_cfg"]
+    params = trainable(model)
+    decay = decayed_names(params)
+    batch = res["pipeline"].batch_at(0)
+
+    def step(ev=None):
+        with record_function("forward"):
+            loss = train_loss(model, batch)
+        if ev:
+            ev[1].record()
+        with record_function("backward"):
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()), allow_unused=True,
+                materialize_grads=True)))
+        if ev:
+            ev[2].record()
+        with record_function("optimizer"):
+            grads, _ = opt.clip_by_global_norm(grads, 1.0)
+            opt.apply_updates(cfg, params, grads, state, decay)
+
+    def timed() -> dict:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        step(ev)
+        ev[3].record()
+        torch.cuda.synchronize()
+        return {"forward_ms": ev[0].elapsed_time(ev[1]),
+                "backward_ms": ev[1].elapsed_time(ev[2]),
+                "optimizer_ms": ev[2].elapsed_time(ev[3])}
+
+    out = timed()
+    # The same step with the blocks not checkpointed: what "selective"
+    # costs (its recompute, and its policy's call on every operation).
+    remat = model.cfg
+    model.cfg = dataclasses.replace(remat, remat="none")
+    out["remat_none"] = timed()
+    model.cfg = remat
+    out["remat"] = remat.remat
+    with tempfile.TemporaryDirectory() as d:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        path = pathlib.Path(d) / "train_step.json"
+        prof.export_chrome_trace(str(path))
+        out["profile"] = profile_dispatches([path])[0]
+    return out
+
+
+def train_granite(torch, train, opt, int8: bool, smi: str) -> dict:
+    """(a) granite-3-2b at full width through the launcher, 6 steps."""
+    import statistics
+
+    argv = TRAIN_ARGV + (["--int8-opt"] if int8 else [])
+    label = "int8 moments" if int8 else "f32 moments"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.run(train.parse_args(argv))
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = model_numel(res["model"])
+    check(n == LM_PARAMS, f"granite-3-2b has {n} parameters")
+    check(next(res["model"].parameters()).device.type == "cuda",
+          "the training did not run on the card")
+    losses, norms = res["losses"], res["grad_norms"]
+    check(len(losses) == 6 and all(np.isfinite(losses + norms)),
+          f"{label}: a loss or grad norm is not finite: {losses} {norms}")
+    step_s = statistics.median(res["step_s"][1:6])
+    tokens = 8 * 128
+    flops = 6 * TRAIN_MATMUL_PARAMS * tokens
+    out = {"argv": argv, "run_s": t_run, "losses": losses,
+           "grad_norms": norms, "step_s": res["step_s"],
+           "step_ms": step_s * 1e3, "tokens_per_step": tokens,
+           "tok_s": tokens / step_s, "model_flops": flops,
+           "flops_share": flops / step_s / BF16_FLOPS_PER_S,
+           "max_memory_allocated": peak}
+    out["leaf_update"] = leaf_update_check(torch, opt, res, TRAIN_LEAVES)
+    if not int8:
+        out["split"] = train_step_split(torch, opt, res)
+    log(f"[train] granite-3-2b full width, {label} ({n:,} params, bf16): "
+        f"6 steps through the launcher in {t_run:.1f}s on {smi}; losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in norms))
+    log(f"[train] granite-3-2b {label}: step {out['step_ms']:.1f} ms (median "
+        f"of steps 1-5), {out['tok_s']:.0f} tokens/s, model FLOPs "
+        f"6·{TRAIN_MATMUL_PARAMS:,}·{tokens} a step (N without the "
+        f"embedding table; attention's S² left out) = "
+        f"{100 * out['flops_share']:.2f}% of the "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak; "
+        f"max_memory_allocated {peak / 1e9:.2f} GB")
+    log(f"[train] granite-3-2b {label}: a step's update on the card against "
+        f"apply_updates on the CPU on copies of "
+        + "; ".join(f"{k}: {v}" for k, v in out["leaf_update"].items()))
+    if "split" in out:
+        s = out["split"]
+        p = s["profile"]
+        n = s["remat_none"]
+        log(f"[train] granite-3-2b {label} step split (CUDA events, remat "
+            f"{s['remat']}): forward {s['forward_ms']:.1f} ms, backward "
+            f"{s['backward_ms']:.1f} ms, optimizer {s['optimizer_ms']:.1f} "
+            f"ms; with remat none {n['forward_ms']:.1f}, "
+            f"{n['backward_ms']:.1f} and {n['optimizer_ms']:.1f} ms")
+        if p["device_events"]:
+            log(f"[train] granite-3-2b step profile: window "
+                f"{p['window_ms']:.1f} ms, card busy {p['busy_ms']:.1f} ms, "
+                f"idle share {p['idle_share']:.3f}; {p['device_events']} "
+                f"device operations; top: " + ", ".join(
+                    f"{short_name(k)} {v:.2f} ms" for k, v in p["top"][:4]))
+        else:
+            log("[train] granite-3-2b step profile: CUPTI gave no device "
+                "events (idle share not measured)")
+    res.clear()
+    free_card(torch)
+    return out
+
+
+def train_step_card_vs_cpu(torch, arch: str, dev) -> dict:
+    """(b) One train step of ``arch``'s smoke config in f32 on the CPU and
+    on the card, on the same weights and tokens: the loss, the grad norm
+    and every gradient leaf (max |Δg| / max |g|), as gaps relative to the
+    CPU's.  Then a second step's update on the card against
+    ``apply_updates`` on the CPU run on copies of the card's own
+    parameters, clipped gradients and (non-zero) moments: every element
+    of every updated parameter and moment (max |Δ| / max |x| per leaf).
+    The two devices' gradients differ by their summation order, and Adam
+    maps a small gradient to about its sign, so the optimizer is held on
+    the same gradients."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.serve import lm_inputs
+    from repro_torch.models.transformer import decayed_names, init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import (loss_and_grads, make_train_step,
+                                           trainable)
+
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, 4, 32), "cpu")
+    batch = pipe.batch_at(0)
+    memory = lm_inputs(cfg, 4, 32, "cpu", seed=1)[1]
+    if memory is not None:
+        batch["memory"] = memory
+    ocfg = opt.AdamWConfig(warmup_steps=1, decay_steps=10)
+    step = make_train_step(ocfg)
+    out = []
+    for where in ("cpu", dev):
+        model = init_params(cfg, "cpu", seed=0)
+        open_gates(torch, model)
+        model.to(where)
+        params = trainable(model)
+        b = {k: v.to(where) for k, v in batch.items()}
+        _, grads = loss_and_grads(model, params, b)
+        state = opt.init_state(ocfg, params)
+        _, _, m = step(model, state, b)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: g.cpu() for k, g in grads.items()}))
+    (l0, n0, g0), (l1, n1, g1) = out
+    gaps = {"loss": abs(l1 - l0) / abs(l0),
+            "grad_norm": abs(n1 - n0) / abs(n0),
+            "grads": max(rel_gap(torch, g1[k], g0[k]) for k in g0)}
+
+    # The card's second step, and the CPU's optimizer on its inputs.
+    b = {k: v.to(dev) for k, v in pipe.batch_at(1).items()}
+    if memory is not None:
+        b["memory"] = memory.to(dev)
+    _, grads = loss_and_grads(model, params, b)
+    grads, _ = opt.clip_by_global_norm(grads, 1.0)
+    decay = decayed_names(params)
+    cpu_p = {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
+    cpu_g = {k: g.to("cpu", copy=True) for k, g in grads.items()}
+    cpu_s = {"step": state["step"].cpu(),
+             "moments": {k: {kk: t.to("cpu", copy=True) for kk, t in
+                             st.items()} for k, st in
+                         state["moments"].items()}}
+    opt.apply_updates(ocfg, params, grads, state, decay)
+    opt.apply_updates(ocfg, cpu_p, cpu_g, cpu_s, decay)
+    gaps["params"] = max(rel_gap(torch, params[k].detach().cpu(), cpu_p[k])
+                         for k in cpu_p)
+    gaps["moments"] = max(rel_gap(torch, t.cpu(), cpu_s["moments"][k][kk])
+                          for k, st in state["moments"].items()
+                          for kk, t in st.items())
+    return gaps
+
+
+def train_gaps_within(gaps: dict) -> bool:
+    """(b)'s tolerances, ``TRAIN_F32``."""
+    return all(gaps[k] <= tol for k, tol in TRAIN_F32.items())
+
+
+def grad_accum_on_card(torch, dev) -> dict:
+    """grad_accum 4 against 1 on the card (lr 0), granite's smoke config
+    in f32, as ``tests/test_training.py`` holds the reference."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import make_train_step, trainable
+
+    cfg = dataclasses.replace(configs.smoke(LM_ARCH), dtype="float32",
+                              remat="none")
+    ocfg = opt.AdamWConfig(lr=0.0, weight_decay=0.0)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (8, 32), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))}
+    m = {}
+    for accum in (1, 4):
+        model = init_params(cfg, dev, seed=0)
+        state = opt.init_state(ocfg, trainable(model))
+        _, _, m[accum] = make_train_step(ocfg, grad_accum=accum)(
+            model, state, batch)
+    return {"loss": abs(float(m[4]["loss"]) - float(m[1]["loss"]))
+            / abs(float(m[1]["loss"])),
+            "grad_norm": abs(float(m[4]["grad_norm"])
+                             - float(m[1]["grad_norm"]))
+            / abs(float(m[1]["grad_norm"]))}
+
+
+# (c) Kill and resume on the card: three launcher runs in one process
+# with deterministic algorithms on (cuBLAS needs its workspace config set
+# before it starts); warn_only names an op with no deterministic form.
+RESUME_CODE = """
+import json, sys, warnings
+sys.path.insert(0, "src")
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+from repro_torch.launch.train import main
+base = ["--arch", "granite-3-2b", "--smoke", "--global-batch", "4",
+        "--seq-len", "32", "--ckpt-every", "3", "--log-every", "100",
+        "--warmup-steps", "2", "--decay-steps", "6"]
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    a = main(base + ["--steps", "6", "--ckpt-dir", sys.argv[1] + "/full"])
+    main(base + ["--steps", "3", "--ckpt-dir", sys.argv[1] + "/split"])
+    b = main(base + ["--steps", "6", "--ckpt-dir", sys.argv[1] + "/split",
+                     "--resume"])
+nondet = sorted({str(w.message)[:300] for w in caught
+                 if "deterministic" in str(w.message)})
+print("RESUME", json.dumps({"a": a, "b": b, "nondet": nondet,
+                            "device": torch.cuda.get_device_name(0)}))
+"""
+RESUME_NONDET_RTOL = 1e-5   # only if an op has no deterministic form
+
+
+def meta_like(torch, directory: pathlib.Path, step: int) -> dict:
+    """A tree of ``meta`` tensors shaped as a checkpoint's manifest."""
+    man = json.loads((directory / f"step_{step:08d}" / "manifest.json")
+                     .read_text())
+    tree: dict = {}
+    for path, meta in man["leaves"].items():
+        node = tree
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = torch.empty(meta["shape"], device="meta")
+    return tree
+
+
+def train_resume_on_card(torch) -> dict:
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import restore_pytree
+
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                   PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", RESUME_CODE, d],
+                           capture_output=True, text=True, cwd=ROOT,
+                           env=env, timeout=300)
+        check(r.returncode == 0, f"the resume runs failed: {r.stderr[-3000:]}")
+        got = json.loads(r.stdout.split("RESUME", 1)[1])
+        out = {"seconds": time.perf_counter() - t0, **got}
+        check("[train] resumed from step 3" in r.stdout,
+              "the resumed run did not start from step 3")
+        a, b = got["a"], got["b"]
+        out["bitwise"] = a[3:] == b
+        if got["nondet"]:
+            gap = max(abs(x - y) / abs(x) for x, y in zip(a[3:], b))
+            out["rel_gap"] = gap
+            check(gap <= RESUME_NONDET_RTOL, f"resumed losses {b} against "
+                  f"{a[3:]} (ops without a deterministic form: "
+                  f"{got['nondet']})")
+        else:
+            check(out["bitwise"], f"resumed losses {b} differ from the "
+                  f"uninterrupted run's {a[3:]}")
+        # The card's checkpoints restore on the CPU with sha256 verified.
+        like = meta_like(torch, pathlib.Path(d) / "split", 6)
+        full = restore_pytree(like, pathlib.Path(d) / "full", 6,
+                              device="cpu", verify=True)
+        split = restore_pytree(like, pathlib.Path(d) / "split", 6,
+                               device="cpu", verify=True)
+        flat_f, flat_s = flat_tree(full), flat_tree(split)
+        out["leaves"] = len(flat_f)
+        out["checkpoints_equal"] = all(torch.equal(flat_f[k], flat_s[k])
+                                       for k in flat_f)
+        check(out["checkpoints_equal"] or got["nondet"],
+              "the resumed run's last checkpoint differs from the "
+              "uninterrupted run's")
+    return out
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def train_phase(torch, report) -> None:
+    """Phase 19; launches none of the port's kernels."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import fused_query as fq
+    from repro_torch.kernels import level_ops as lo
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_params, train_loss
+    from repro_torch.training import optimizer as opt
+
+    smi = report["env"]["nvidia_smi"]
+    t_phase = time.perf_counter()
+    before = [k.launches for k in fq.KERNELS + lo.KERNELS]
+    dev = torch.device("cuda")
+    free_card(torch)
+    out = {"card": smi, "bf16_peak_flops": BF16_FLOPS_PER_S,
+           "granite": {"f32_moments": train_granite(torch, train, opt, False,
+                                                    smi),
+                       "int8_moments": train_granite(torch, train, opt, True,
+                                                     smi)}}
+    g32, g8 = out["granite"]["f32_moments"], out["granite"]["int8_moments"]
+    # Step 0's loss: the same weights (seed 0) and batch under no_grad.
+    cfg = configs.get(LM_ARCH)
+    model = init_params(cfg, dev, seed=0)
+    batch = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, 8, 128),
+                          dev).batch_at(0)
+    with torch.no_grad():
+        loss0 = float(train_loss(model, batch))
+    del model
+    free_card(torch)
+    gap0 = abs(g32["losses"][0] - loss0) / loss0
+    out["loss0"] = {"no_grad": loss0, "f32_run": g32["losses"][0],
+                    "int8_run": g8["losses"][0], "rel_gap": gap0}
+    check(gap0 <= TRAIN_LOSS0_RTOL, f"step 0's loss {g32['losses'][0]} "
+          f"against a no_grad train_loss {loss0}")
+    check(g8["losses"][0] == g32["losses"][0],
+          "step 0's loss differs between the f32 and int8 runs")
+    log(f"[train] granite-3-2b step 0 loss {g32['losses'][0]:.6f} against a "
+        f"no_grad train_loss {loss0:.6f} on the same weights and batch: "
+        f"{gap0:.3g} relative (tolerance {TRAIN_LOSS0_RTOL}); the int8 run's "
+        f"step 0 equal")
+
+    # (b) the ten smoke configs in f32, card against CPU; grad_accum
+    out["cpu_vs_card"] = {a: train_step_card_vs_cpu(torch, a, dev)
+                          for a in configs.list_archs()}
+    cvc = out["cpu_vs_card"]
+    for key, tol in TRAIN_F32.items():
+        worst = max(cvc, key=lambda a: cvc[a][key])
+        log(f"[train] the ten smoke configs in f32, one train step, card "
+            f"against CPU: {key} largest gap {cvc[worst][key]:.3g} ({worst};"
+            f" tolerance {tol}); " + ", ".join(
+                f"{a} {v[key]:.2g}" for a, v in cvc.items()))
+    bad = {a: v for a, v in cvc.items() if not train_gaps_within(v)}
+    check(not bad, f"the card's train step differs from the CPU's: {bad}")
+    acc = grad_accum_on_card(torch, dev)
+    out["grad_accum"] = acc
+    log(f"[train] grad_accum 4 against 1 on the card (f32, lr 0): loss "
+        f"{acc['loss']:.3g}, grad norm {acc['grad_norm']:.3g} relative "
+        f"(tolerances 1e-5 and 1e-4)")
+    check(acc["loss"] <= 1e-5 and acc["grad_norm"] <= 1e-4,
+          f"grad_accum 4 differs from 1 on the card: {acc}")
+
+    # (c) kill and resume through the launcher on the card
+    res = train_resume_on_card(torch)
+    out["resume"] = res
+    log(f"[train] kill and resume on the card ({res['device']}): 6 steps "
+        f"against 3 + resume 3 in {res['seconds']:.1f}s; losses "
+        f"{'bit for bit equal' if res['bitwise'] else 'not bitwise'} "
+        f"({res['b']}); deterministic algorithms on, ops without a "
+        f"deterministic form: {res['nondet'] or 'none'}; the card's step-6 "
+        f"checkpoints ({res['leaves']} leaves) restore on the CPU with "
+        f"sha256 verified, equal: {res['checkpoints_equal']}")
+
+    after = [k.launches for k in fq.KERNELS + lo.KERNELS]
+    check(after == before, f"the training phase launched a kernel: "
+          f"{before} -> {after}")
+    out["seconds"] = time.perf_counter() - t_phase
+    report["train"] = out
+    log(f"[train] phase 19 in {out['seconds']:.1f}s; no kernel of the port "
+        f"launched")
+    check(out["seconds"] <= TRAIN_BUDGET_S,
+          f"phase 19 took {out['seconds']:.1f}s, over its {TRAIN_BUDGET_S} s")
+    free_card(torch)
+
+
 def main() -> int:
     import torch
 
@@ -5512,6 +6039,10 @@ def main() -> int:
     # ---- 18. the LM serving path (launches none of the kernels)
     lm_phase(torch, report)
     log(f"[time] phases 1-18 in {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 19. LM training and checkpoints (launches none of the kernels)
+    train_phase(torch, report)
+    log(f"[time] phases 1-19 in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name in ("fused_range", "fused_topk"):

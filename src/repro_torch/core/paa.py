@@ -6,6 +6,8 @@ the Euclidean distance, which makes every SAX/MINDIST bound sound.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -42,6 +44,14 @@ def paa_np(x: np.ndarray, n_segments: int) -> np.ndarray:
     n = x.shape[-1]
     _check_segments(n, n_segments)
     return x.reshape(*x.shape[:-1], n_segments, n // n_segments).mean(axis=-1)
+
+
+def paa_dist(px: torch.Tensor, py: torch.Tensor, n: int) -> torch.Tensor:
+    """PAA lower-bound distance (paper eq. 4): sqrt(n/N)·‖px − py‖₂, the
+    sum in :func:`row_sum`'s order."""
+    N = px.shape[-1]
+    d = px - py
+    return math.sqrt(n / N) * torch.sqrt(row_sum(d * d))
 
 
 def znormalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

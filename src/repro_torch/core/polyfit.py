@@ -25,6 +25,33 @@ def _segments(x, n_segments: int):
     return x.reshape(*x.shape[:-1], n_segments, L), L
 
 
+def _centred_abscissa(seg_len: int, dtype, device):
+    """xc = x − (L−1)/2 (half-integers, exact in f32) and Sxx = Σ xc²."""
+    xc = np.arange(seg_len, dtype=np.float64) - (seg_len - 1) / 2.0
+    return (torch.as_tensor(xc, dtype=dtype, device=device),
+            float(np.sum(xc * xc)))
+
+
+def linfit_coeffs(x: torch.Tensor, n_segments: int):
+    """Per-segment least-squares line.  x: (..., n) -> (mean, slope),
+    (..., N) each; the sums in :func:`paa.row_sum`'s order."""
+    segs, L = _segments(x, n_segments)
+    mean = row_sum(segs) / L
+    if L == 1:
+        return mean, torch.zeros_like(mean)
+    xc, sxx = _centred_abscissa(L, x.dtype, x.device)
+    return mean, row_sum(segs * xc) / sxx
+
+
+def linfit_reconstruct(mean: torch.Tensor, slope: torch.Tensor,
+                       seg_len: int) -> torch.Tensor:
+    """(..., N) coefficients -> (..., N·L) piecewise-linear reconstruction
+    ū."""
+    xc, _ = _centred_abscissa(seg_len, mean.dtype, mean.device)
+    rec = mean[..., None] + slope[..., None] * xc
+    return rec.reshape(*mean.shape[:-1], mean.shape[-1] * seg_len)
+
+
 def linfit_residual_sq(x: torch.Tensor, n_segments: int) -> torch.Tensor:
     """Squared residual distance d(u,ū)² = Σ_seg ‖resid‖².  x: (..., n) -> (...).
 
@@ -35,9 +62,7 @@ def linfit_residual_sq(x: torch.Tensor, n_segments: int) -> torch.Tensor:
     segs, L = _segments(x, n_segments)
     if L == 1:
         return torch.zeros(segs.shape[:-2], dtype=x.dtype, device=x.device)
-    xc_np = np.arange(L, dtype=np.float64) - (L - 1) / 2.0
-    sxx = float(np.sum(xc_np * xc_np))
-    xc = torch.as_tensor(xc_np, dtype=x.dtype, device=x.device)
+    xc, sxx = _centred_abscissa(L, x.dtype, x.device)
     sum_y = row_sum(segs)
     sum_y2 = row_sum(segs * segs)
     mean = sum_y / L

@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from .paa import paa, row_sum
+
 MIN_ALPHABET = 3   # smallest size tested for the original SAX (paper §4)
 MAX_ALPHABET = 20  # largest size in the second SAX version (paper §4)
 
@@ -79,6 +81,38 @@ def discretize(paa_values: torch.Tensor, alphabet: int) -> torch.Tensor:
                            device=paa_values.device)
     x = paa_values.to(torch.float32).contiguous()
     return torch.searchsorted(beta, x, right=True).to(torch.int32)
+
+
+def sax_transform(x: torch.Tensor, n_segments: int,
+                  alphabet: int) -> torch.Tensor:
+    """Full SAX: (already z-normalised) series (..., n) -> symbols (..., N)."""
+    return discretize(paa(x, n_segments), alphabet)
+
+
+def _cells(s: torch.Tensor, t: torch.Tensor, alphabet: int) -> torch.Tensor:
+    tab = torch.as_tensor(mindist_table(alphabet), dtype=torch.float32,
+                          device=s.device)
+    return tab[s.long(), t.long()]
+
+
+def mindist(s: torch.Tensor, t: torch.Tensor, n: int,
+            alphabet: int) -> torch.Tensor:
+    """MINDIST(ŝ, t̂) (paper eq. 3).  s, t: (..., N) int symbols; the
+    table in float32 as the reference's, the sum in :func:`row_sum`'s
+    order."""
+    N = s.shape[-1]
+    cell = _cells(s, t, alphabet)
+    return math.sqrt(n / N) * torch.sqrt(row_sum(cell * cell))
+
+
+def mindist_sq_batch(db_symbols: torch.Tensor, query_symbols: torch.Tensor,
+                     n: int, alphabet: int) -> torch.Tensor:
+    """Squared MINDIST of one query word (N,) against a batch (B, N),
+    scaled by n/N: compared with ε², it prunes as MINDIST with ε does and
+    saves one square root per candidate."""
+    N = db_symbols.shape[-1]
+    cell = _cells(db_symbols, query_symbols[None, :], alphabet)
+    return (n / N) * row_sum(cell * cell)
 
 
 # NumPy twins (host float64) -------------------------------------------------

@@ -315,19 +315,60 @@ def init_mlp_gelu(d_model, d_ff, dtype=torch.bfloat16) -> dict:
             "w_out": Leaf((d_ff, d_model), dtype, 1.0 / math.sqrt(d_ff))}
 
 
-def silu(x):
+class _Silu(torch.autograd.Function):
     """``jax.nn.silu``, ``x * logistic(x)``, as XLA compiles it: logistic
-    expands to ``1 / (1 + exp(-x))`` in x's dtype, each op rounded."""
-    return x * (1 / (1 + torch.exp(-x)))
+    expands to ``1 / (1 + exp(-x))`` in x's dtype, each op rounded.  The
+    backward is JAX's transposed JVP, op by op in x's dtype:
+    ``g·s + (g·x)·(s·(1 − s))`` (autograd through the expansion would
+    round a reciprocal's derivative instead)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+class _GeluTanh(torch.autograd.Function):
+    """``jax.nn.gelu(approximate=True)`` op by op; its constants are in
+    x's dtype (JAX casts them), and ``x ** 3`` is two products.  The
+    backward is JAX's, each op rounded in x's dtype: tanh's derivative
+    ``w + w·t`` with ``w = g·(1 − t)``, ``x ** 3``'s ``g·(3·(x·x))``, and
+    x's three cotangents summed in JAX's order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        def c(v):
+            return torch.tensor(v, dtype=x.dtype, device=x.device)
+        inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+        t = torch.tanh(inner)
+        cdf = c(0.5) * (c(1.0) + t)
+        ctx.save_for_backward(x, t, cdf)
+        return x * cdf
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t, cdf = ctx.saved_tensors
+
+        def c(v):
+            return torch.tensor(v, dtype=x.dtype, device=x.device)
+        w = (g * x * c(0.5)) * (1 - t)
+        ct_s = (w + w * t) * c(math.sqrt(2 / math.pi))
+        ct_cube = (ct_s * c(0.044715)) * (c(3.0) * (x * x))
+        return (g * cdf + ct_s) + ct_cube
+
+
+def silu(x):
+    return _Silu.apply(x)
 
 
 def gelu_tanh(x):
-    """``jax.nn.gelu(approximate=True)`` op by op; its constants are in
-    x's dtype (JAX casts them), and ``x ** 3`` is two products."""
-    def c(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
-    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
-    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+    return _GeluTanh.apply(x)
 
 
 def mlp(p, x):

@@ -1,10 +1,11 @@
 """Composable transformer stack covering all ten architectures.
 
-Counterpart of ``repro/models/transformer.py`` (its single-device serving
-path).  One ``ModelConfig`` describes dense GQA (qwen3 / phi3 / granite),
-MoE (mixtral / qwen3-moe), pure SSM (mamba2), hybrid (zamba2: a Mamba2
-backbone and one *shared* attention block applied periodically), enc-dec
-(whisper) and cross-attention VLM (llama-3.2-vision).  Modality frontends
+Counterpart of ``repro/models/transformer.py`` (its single-device path:
+training and serving).  One ``ModelConfig`` describes dense GQA (qwen3 /
+phi3 / granite), MoE (mixtral / qwen3-moe), pure SSM (mamba2), hybrid
+(zamba2: a Mamba2 backbone and one *shared* attention block applied
+periodically), enc-dec (whisper) and cross-attention VLM
+(llama-3.2-vision).  Modality frontends
 are stubs, as in the reference: whisper takes precomputed frame
 embeddings, the VLM precomputed image-patch embeddings.
 
@@ -15,6 +16,13 @@ stacks layers on a leading axis; :func:`params_from_numpy` loads the
 reference's ``init_params`` tree into it, so both packages compute the
 same function.  The reference's ``lax.scan`` over stacked layers is a
 Python loop over the blocks.
+
+Training: :func:`train_loss` is the full forward and the chunked
+next-token cross-entropy (:func:`lm_loss`), plus the MoE's load-balance
+loss; its gradients come from ``torch.autograd``.  Each block of
+:func:`forward_hidden` is checkpointed as ``cfg.remat`` says while
+autograd records (:func:`_remat`).  :func:`params_to_numpy` is the
+inverse of :func:`params_from_numpy`.
 
 Serving: :func:`prefill` (full sequence; fills the KV / SSM caches) and
 :func:`decode_step` (one token against the cache; ring-buffer writes,
@@ -36,6 +44,7 @@ state with bf16 weights run in f32 (``layers.matmul``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -65,10 +74,10 @@ class SSMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's fields and defaults.  ``remat`` and
-    ``unroll_scans`` are kept so that configs carry across; they shape
-    the reference's training and analysis graphs and change nothing on
-    the port's serving path."""
+    """The reference's fields and defaults.  ``remat`` checkpoints the
+    blocks in training (:func:`_remat`); ``unroll_scans`` is kept so that
+    configs carry across (it shapes the reference's analysis graphs, and
+    the port has no scan to unroll)."""
     name: str
     kind: str                       # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
@@ -260,11 +269,12 @@ _STACKED = ("layers", "encoder", "cross_layers")
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Model:
-    """Load the reference's ``init_params`` pytree, as numpy arrays, into
-    a port model on ``device``.  Leaves of ``layers`` / ``encoder`` /
-    ``cross_layers`` are stacked per layer, ``(L, ...)``, and are sliced
-    layer by layer.  bf16 leaves may come as f32 arrays (bf16 → f32 →
-    bf16 is lossless); every leaf is cast to the parameter's dtype."""
+    """Load the reference's ``init_params`` pytree, as numpy arrays (or
+    tensors), into a port model on ``device``.  Leaves of ``layers`` /
+    ``encoder`` / ``cross_layers`` are stacked per layer, ``(L, ...)``,
+    and are sliced layer by layer.  bf16 leaves may come as f32 arrays
+    (bf16 → f32 → bf16 is lossless); every leaf is cast to the
+    parameter's dtype."""
     model = Model(cfg, device="meta")
 
     def load(node, sub: dict, index=None):
@@ -274,7 +284,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Model:
                 continue
             target = node[key]
             arr = value if index is None else value[index]
-            t = torch.tensor(arr).to(device=device, dtype=target.dtype)
+            t = (arr.detach().clone() if isinstance(arr, torch.Tensor)
+                 else torch.tensor(arr)).to(device=device, dtype=target.dtype)
             if t.shape != target.shape:
                 raise ValueError(f"{key}: shape {tuple(t.shape)} where the "
                                  f"model has {tuple(target.shape)}")
@@ -295,6 +306,77 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> Model:
     if left:
         raise ValueError(f"the tree does not set {left[:4]}")
     return model
+
+
+def _layer_split(name: str):
+    """``"layers.3.attn.wq"`` -> (("layers", "attn", "wq"), 3): the path of
+    the reference's stacked leaf and the row; (path, None) for a name
+    with no layer index."""
+    parts = name.split(".")
+    for i, part in enumerate(parts):
+        if part.isdigit():
+            return tuple(parts[:i] + parts[i + 1:]), int(part)
+    return tuple(parts), None
+
+
+def stack_layers(named: dict) -> dict:
+    """``{dotted name: tensor}`` (a module's ``named_parameters`` names,
+    or a tree keyed by them) -> the reference's nested tree, each
+    per-layer tensor stacked into its ``(L, ...)`` leaf."""
+    tree: dict = {}
+    rows: dict = {}
+    for name, t in named.items():
+        path, layer = _layer_split(name)
+        if layer is None:
+            _set_path(tree, path, t)
+        else:
+            rows.setdefault(path, {})[layer] = t
+    for path, by_layer in rows.items():
+        _set_path(tree, path, torch.stack([by_layer[i]
+                                           for i in range(len(by_layer))]))
+    return tree
+
+
+def unstack_layers(tree: dict, names) -> dict:
+    """The inverse of :func:`stack_layers`: ``{name: leaf}`` for each of
+    ``names``, a per-layer name reading its row of the stacked leaf."""
+    out = {}
+    for name in names:
+        path, layer = _layer_split(name)
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        out[name] = leaf if layer is None else leaf[layer]
+    return out
+
+
+def _set_path(tree: dict, path: tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def decayed_names(named: dict) -> set:
+    """Of ``{dotted name: tensor}``, the names the reference's AdamW
+    decays: those whose leaf in the reference's tree has rank ≥ 2.  A
+    per-layer parameter is a row of a stacked ``(L, ...)`` leaf, so a
+    per-layer norm scale decays as the matrices do; ``final_norm``'s
+    ``(d,)`` scale does not."""
+    return {n for n, p in named.items()
+            if p.ndim + (_layer_split(n)[1] is not None) >= 2}
+
+
+def params_to_numpy(model: Model) -> dict:
+    """The inverse of :func:`params_from_numpy`: the reference's pytree
+    as numpy arrays, bf16 widened to f32 (losslessly)."""
+    def to_np(t):
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def walk(node):
+        return ({k: walk(v) for k, v in node.items()}
+                if isinstance(node, dict) else to_np(node))
+    return walk(stack_layers({n: p.detach().cpu()
+                              for n, p in model.named_parameters()}))
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +459,52 @@ def _shared_attn_block_full(cfg, p, x, positions, emit_kv=False):
     return x, kv
 
 
+def _encdec_dec_block(cfg, lp, x, positions, enc, emit_kv=False):
+    x, kv = _self_attn_full(cfg, lp, x, positions, causal=True,
+                            emit_kv=emit_kv)
+    h = L.rms_norm(x, lp["ln2"]["scale"])
+    x = x + _cross_attn_full(cfg, lp["cross"], h, enc).to(x.dtype)
+    x = x + L.mlp_gelu(lp["mlp"], L.rms_norm(x, lp["ln3"]["scale"]))
+    return x, kv
+
+
+def _enc_block(cfg, lp, x, positions):
+    x, _ = _self_attn_full(cfg, lp, x, positions, causal=False, rope=False)
+    return x + L.mlp_gelu(lp["mlp"], L.rms_norm(x, lp["ln2"]["scale"]))
+
+
+# The 2-D weight products that "selective" saves: ``x @ w`` reaches aten
+# as ``mm`` (``addmm`` with a bias); attention's batched products are
+# ``bmm`` and are recomputed, as ``dots_with_no_batch_dims_saveable``
+# saves only the reference's dots without batch dimensions.
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _WEIGHT_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """The reference's ``jax.checkpoint`` of a block, as
+    ``torch.utils.checkpoint``: ``"full"`` recomputes the whole block in
+    the backward pass, ``"selective"`` saves its weight products and
+    recomputes the rest, ``"none"`` saves everything.  Only while
+    autograd records: under ``inference_mode`` or ``no_grad`` the block
+    runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils import checkpoint as ckpt
+
+    context = (ckpt.noop_context_fn if cfg.remat == "full" else
+               functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                 _save_weight_products))
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                             context_fn=context)
+
+
 def _gated(gate, y):
     """``jnp.tanh(gate) * y`` for an f32 0-d ``gate``: JAX promotes the
     product to f32 (torch would keep y's dtype)."""
@@ -393,7 +521,7 @@ def _gated_cross_block(cfg, cp, x, attn_out):
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (prefill)
+# Full-sequence forward (train + prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -440,10 +568,13 @@ def forward_hidden(model: Model, tokens, memory=None, collect_caches=False):
     aux_total = torch.zeros((), dtype=F32, device=dev)
     kvs = []
 
+    dense_block = _remat(cfg, _dense_block_full)
+    ssm_block = _remat(cfg, _ssm_block_full)
+
     if cfg.kind in ("dense", "moe"):
         for lp in model["layers"]:
-            x, kv, aux = _dense_block_full(cfg, lp, x, positions,
-                                           emit_kv=collect_caches)
+            x, kv, aux = dense_block(cfg, lp, x, positions,
+                                     emit_kv=collect_caches)
             aux_total = aux_total + aux
             kvs.append(kv)
         if collect_caches:
@@ -452,7 +583,7 @@ def forward_hidden(model: Model, tokens, memory=None, collect_caches=False):
     elif cfg.kind == "ssm":
         ssm_caches = []
         for lp in model["layers"]:
-            x, c = _ssm_block_full(cfg, lp, x, emit_cache=collect_caches)
+            x, c = ssm_block(cfg, lp, x, emit_cache=collect_caches)
             ssm_caches.append(c)
         if collect_caches:
             caches["ssm"] = _stack_ssm(ssm_caches)
@@ -464,7 +595,7 @@ def forward_hidden(model: Model, tokens, memory=None, collect_caches=False):
                                             positions, emit_kv=collect_caches)
             kvs.append(kv)
             for lp in model["layers"][s0:e0]:
-                x, c = _ssm_block_full(cfg, lp, x, emit_cache=collect_caches)
+                x, c = ssm_block(cfg, lp, x, emit_cache=collect_caches)
                 ssm_caches.append(c)
         if collect_caches:
             caches["shared_kv"] = _stack_kv(kvs)
@@ -481,8 +612,8 @@ def forward_hidden(model: Model, tokens, memory=None, collect_caches=False):
                                    _cross_attn_full(cfg, cp["cross"], h,
                                                     memory))
             for lp in model["layers"][s0:e0]:
-                x, kv, aux = _dense_block_full(cfg, lp, x, positions,
-                                               emit_kv=collect_caches)
+                x, kv, aux = dense_block(cfg, lp, x, positions,
+                                         emit_kv=collect_caches)
                 aux_total = aux_total + aux
                 kvs.append(kv)
         if collect_caches:
@@ -494,13 +625,11 @@ def forward_hidden(model: Model, tokens, memory=None, collect_caches=False):
         if memory is None:
             raise ValueError("encdec needs encoder frame embeddings")
         enc = _encode(cfg, model, memory)
+        dec_block = _remat(cfg, _encdec_dec_block)
         for lp in model["layers"]:
-            x, kv = _self_attn_full(cfg, lp, x, positions, causal=True,
-                                    emit_kv=collect_caches)
+            x, kv = dec_block(cfg, lp, x, positions, enc,
+                              emit_kv=collect_caches)
             kvs.append(kv)
-            h = L.rms_norm(x, lp["ln2"]["scale"])
-            x = x + _cross_attn_full(cfg, lp["cross"], h, enc).to(x.dtype)
-            x = x + L.mlp_gelu(lp["mlp"], L.rms_norm(x, lp["ln3"]["scale"]))
         if collect_caches:
             caches["self_kv"] = _stack_kv(kvs)
             caches["cross_kv"] = _cross_kv(cfg, model["layers"], enc)
@@ -522,10 +651,9 @@ def _encode(cfg, model, frames):
     pe = torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)[None]
     x = frames + pe.to(cfg.torch_dtype)
     positions = torch.arange(Sm, device=dev)
+    block = _remat(cfg, _enc_block)
     for lp in model["encoder"]:
-        x, _ = _self_attn_full(cfg, lp, x, positions, causal=False,
-                               rope=False)
-        x = x + L.mlp_gelu(lp["mlp"], L.rms_norm(x, lp["ln2"]["scale"]))
+        x = block(cfg, lp, x, positions)
     return x
 
 
@@ -545,6 +673,49 @@ def logits_of(model: Model, hidden):
     """(…, d) hidden states -> f32 logits: the product in the model dtype,
     then f32, as the reference."""
     return L.matmul(hidden, model["lm_head"]).to(F32)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(model: Model, hidden, tokens, chunk: int = 512):
+    """Next-token cross-entropy over sequence chunks, so that the
+    (B, tc, V) logits never exceed one chunk: S − 1 positions padded (and
+    masked) up to a chunk multiple, as the reference does.  The logits
+    are f32 from an f32 ``lm_head``; the sum is divided by B·(S − 1)."""
+    B, S, d = hidden.shape
+    h = hidden[:, :-1, :]
+    t = tokens[:, 1:].long()
+    n = S - 1
+    tc = min(chunk, n)
+    n_pad = (n + tc - 1) // tc * tc
+    if n_pad != n:
+        h = torch.nn.functional.pad(h, (0, 0, 0, n_pad - n))
+        t = torch.nn.functional.pad(t, (0, n_pad - n))
+    valid = (torch.arange(n_pad, device=hidden.device) < n).to(F32)
+    head = model["lm_head"].to(F32)
+    total = torch.zeros((), dtype=F32, device=hidden.device)
+    for c in range(0, n_pad, tc):
+        logits = h[:, c:c + tc].to(F32) @ head
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, t[:, c:c + tc, None])[..., 0]
+        total = total + torch.sum((lse - ll) * valid[c:c + tc])
+    return total / (B * n)
+
+
+def train_loss(model: Model, batch: dict):
+    """The full training loss: the LM cross-entropy plus, for the MoE
+    configs, ``aux_loss_coef`` times the load-balance loss.
+    ``batch["memory"]``: the frames (encdec) or patches (vlm)."""
+    cfg = model.cfg
+    hidden, aux = forward_hidden(model, batch["tokens"],
+                                 memory=batch.get("memory"))
+    loss = lm_loss(model, hidden, batch["tokens"])
+    if cfg.moe:
+        loss = loss + cfg.moe.aux_loss_coef * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -1835,3 +1835,55 @@ def test_lm_card_matches_cpu_in_f32(cuda, arch):
                               want["generated"].to(cuda))
     np.testing.assert_allclose(got.cpu().numpy(), want["logits"].numpy(),
                                rtol=2e-3, atol=2e-3)
+
+
+# ---- LM training (models.transformer.train_loss, training/, the train
+# launcher, checkpoints).  It reaches none of the port's kernels.
+
+TRAIN_ARCHS = ("qwen3-32b", "phi3-medium-14b", "granite-3-2b", "granite-8b",
+               "zamba2-1.2b", "mixtral-8x22b", "qwen3-moe-235b-a22b",
+               "llama-3.2-vision-11b", "whisper-medium", "mamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_card_matches_cpu_in_f32(cuda, arch):
+    """One train step of each smoke config in f32 on the CPU and on the
+    card from the same weights and tokens: the loss within 1e-5, the grad
+    norm and every gradient leaf within 1e-4; then a second step's update
+    on the card against the CPU's optimizer on the card's own gradients
+    and moments, every parameter and moment element within 1e-5 (max |Δ|
+    / max |x| per leaf), as ``chip_smoke.py`` phase 19 (b) holds them."""
+    smoke = chip_smoke_module()
+    gaps = smoke.train_step_card_vs_cpu(torch, arch, cuda)
+    assert smoke.train_gaps_within(gaps), gaps
+
+
+def test_grad_accum_on_card(cuda):
+    gaps = chip_smoke_module().grad_accum_on_card(torch, cuda)
+    assert gaps["loss"] <= 1e-5 and gaps["grad_norm"] <= 1e-4, gaps
+
+
+def test_train_launcher_on_card_and_checkpoint_to_cpu(cuda, tmp_path):
+    """The launcher trains on the card by default and launches no kernel;
+    its checkpoint (bf16 parameters, int8 moments) restores on the CPU
+    with sha256 verified and equals the card's final state."""
+    from repro_torch.checkpoint import (params_to_tree, restore_pytree,
+                                        state_to_tree)
+    from repro_torch.launch import train
+
+    before = kernel_launches()
+    res = train.run(train.parse_args([
+        "--arch", "granite-3-2b", "--smoke", "--steps", "3",
+        "--global-batch", "4", "--seq-len", "32", "--int8-opt",
+        "--ckpt-dir", str(tmp_path), "--log-every", "100"]))
+    assert kernel_launches() == before
+    assert next(res["model"].parameters()).device.type == "cuda"
+    assert all(np.isfinite(res["losses"])) and len(res["losses"]) == 3
+    want = {"params": params_to_tree(res["model"]),
+            "opt": state_to_tree(res["opt_state"])}
+    got = restore_pytree(want, tmp_path, 3, device="cpu", verify=True)
+    smoke = chip_smoke_module()
+    fw, fg = smoke.flat_tree(want), smoke.flat_tree(got)
+    assert fw.keys() == fg.keys()
+    assert all(torch.equal(fw[k], fg[k]) for k in fw)
+    assert fg["params/lm_head"].dtype == torch.bfloat16

@@ -12,7 +12,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
@@ -59,7 +59,19 @@ def test_port_files_import_neither_jax_nor_reference():
             "src/repro_torch/models/ssm.py",
             "src/repro_torch/models/moe.py",
             "src/repro_torch/models/transformer.py",
-            "src/repro_torch/configs/__init__.py"} <= names
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/training/__init__.py",
+            "src/repro_torch/training/optimizer.py",
+            "src/repro_torch/training/step.py",
+            "src/repro_torch/training/compress.py",
+            "src/repro_torch/data/tokens.py",
+            "src/repro_torch/checkpoint/__init__.py",
+            "src/repro_torch/checkpoint/manager.py",
+            "src/repro_torch/checkpoint/layout.py",
+            "src/repro_torch/launch/train.py",
+            "examples/torch_quickstart.py", "examples/torch_serve_search.py",
+            "examples/torch_curation_pipeline.py",
+            "examples/torch_train_lm.py"} <= names
     archs = {p.stem for p in (ROOT / "src" / "repro" / "configs").glob(
         "*.py") if p.stem not in ("__init__", "shapes")}
     assert {f"src/repro_torch/configs/{a}.py" for a in archs} <= names
@@ -86,6 +98,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.runtime.chaos\n"
             "import repro_torch.runtime.fault_tolerance\n"
             "import repro_torch.models.transformer, repro_torch.configs\n"
+            "import repro_torch.data.tokens, repro_torch.checkpoint.layout\n"
+            "import repro_torch.training.step, repro_torch.training.compress\n"
+            "import repro_torch.checkpoint, repro_torch.launch.train\n"
             "from repro_torch import configs\n"
             "[configs.get(a) for a in configs.list_archs()]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
