@@ -299,6 +299,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    deterministic form is named and the losses held to
    ``RESUME_NONDET_RTOL``), the card's checkpoints restored on the CPU
    with sha256 verified.
+20. The training mesh on the one card, report key ``mesh``, ``[mesh]``
+   lines (no kernel launched).  (a) granite-3-2b at its full published
+   config through the train launcher with ``--mesh-devices 2,2`` (the
+   four shards on the one card; the launcher's defaults, 3 steps) with
+   f32 and with int8 moments: step 0's loss and grad norm against phase
+   19's one-device step on the same weights and batch
+   (``MESH_LOSS0_RTOL``, ``MESH_GNORM0_RTOL``); one more step's update
+   of phase 19's three leaves, block by block on the card, against
+   ``apply_updates`` on the CPU on gathered copies (as phase 19 holds
+   them); step ms, tokens/s, peak memory, the bytes gathered a step; the
+   mesh step at smoke size card against CPU (``MESH_F32``).  (b) The MoE
+   configs at their published widths with 4 layers in f32 over a (2, 2)
+   mesh (qwen3-moe ``ep``, mixtral ``tp``, model = 2): hidden states
+   within ``MOE_MESH_TOL``·(1 + |h|) of the local path, aux equal to the
+   per-shard estimator.  (c) ``make_compressed_dp_grad_fn`` over 4 data
+   shards on the card, within the reference test's limits.  (d) A
+   checkpoint written from the (2, 2) mesh restored onto (4, 1) and onto
+   the one device, every leaf equal.  (e) In a subprocess beside (a)-(d):
+   the dry run's granite-3-2b train_4k cell on ``meta`` and the roofline
+   bound of phase 19's step shape, printed as a share of phase 19's step.
 
 The line before the last is one JSON object with every kernel's figures;
 the last line is ``{"ok": true, "device": {...}}``.  Longer results go to
@@ -5750,6 +5770,503 @@ def train_phase(torch, report) -> None:
     free_card(torch)
 
 
+# ---- Phase 20: the training mesh on the one card, the analysis tools.
+MESH_DEVICES = "2,2"
+MESH_ARGV = ["--arch", LM_ARCH, "--steps", "3", "--global-batch", "8",
+             "--seq-len", "128", "--log-every", "1",
+             "--mesh-devices", MESH_DEVICES]      # no --smoke
+# Step 0 over the (2, 2) mesh against phase 19's single-device step on
+# the same weights (seed 0) and batch.  Both data rows sit on the one
+# card and run as one pass: the same bf16 forward and backward; the norm
+# sums its squares by blocks (a psum) where one device sums by leaves.
+MESH_LOSS0_RTOL = 1e-5
+MESH_GNORM0_RTOL = 1e-4
+# The mesh step at smoke size in f32, card against CPU (as TRAIN_F32).
+MESH_F32 = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-5}
+MESH_STEP_CASES = (("granite-3-2b", False), ("granite-3-2b", True),
+                   ("qwen3-moe-235b-a22b", False))
+MOE_MESH_MODES = {"qwen3-moe-235b-a22b": "ep", "mixtral-8x22b": "tp"}
+MOE_MESH_TOL = 2e-4            # y against the local path, f32
+MOE_AUX_RTOL = 1e-5            # aux against the per-shard estimator
+MESH_BUDGET_S = 150
+# (e) on the host beside (a)-(d): the dry run's granite-3-2b train_4k cell
+# on the single-pod mesh, and the roofline of phase 19's step shape.
+DRYRUN_CODE = """
+import json, sys
+sys.path.insert(0, "src")
+import torch
+from repro_torch import configs
+from repro_torch.launch import dryrun
+from repro_torch.models.transformer import Model
+from repro_torch.runtime import roofline as rl
+from repro_torch.runtime.op_cost import op_cost
+from repro_torch.training.optimizer import AdamWConfig, init_state
+from repro_torch.training.step import make_train_step, trainable
+status = dryrun.run_cell("granite-3-2b", "train_4k", False,
+                         __import__("pathlib").Path(sys.argv[1]))
+cell = json.loads(open(sys.argv[1] + "/granite-3-2b__train_4k__single.json")
+                  .read())
+cfg = configs.get("granite-3-2b")            # the launcher's: "selective"
+model = Model(cfg, "meta")
+ocfg = AdamWConfig()
+cost = op_cost(make_train_step(ocfg), model,
+               init_state(ocfg, trainable(model)),
+               {"tokens": torch.empty(8, 128, dtype=torch.int64)})
+t = rl.terms_from_analysis({"flops": cost.flops, "bytes accessed":
+                            cost.bytes}, 0.0, 1,
+                           rl.model_flops_train(cfg, 8 * 128))
+print("DRYRUN", json.dumps({"status": status, "cell": cell,
+                            "phase19_shape": {"flops": cost.flops,
+                                              "bytes": cost.bytes,
+                                              "ops": len(cost.ops),
+                                              **t.as_dict(),
+                                              "bound_s": t.bound_s}}))
+"""
+
+
+def sharded_numel(sm) -> int:
+    return sum(int(np.prod(t.shape)) for t in sm.params.values())
+
+
+def mesh_leaf_update_check(torch, opt, res, leaves) -> dict:
+    """One more step over the mesh on the model and state a launcher run
+    returned: each of ``leaves`` updated block by block on the card
+    against ``apply_updates`` on the CPU on copies of the gathered
+    parameter, (clipped) gradient and moments."""
+    from repro_torch.models.transformer import decayed_names
+    from repro_torch.training.step import (apply_sharded_updates,
+                                           clip_sharded, mesh_loss_and_grads)
+
+    sm, state, cfg = res["model"], res["opt_state"], res["opt_cfg"]
+    batch = res["pipeline"].batch_at(len(res["losses"]) + res["start"])
+    _, grads = mesh_loss_and_grads(sm, batch)
+    grads, _ = clip_sharded(grads, 1.0)
+    decay = decayed_names(sm.skeleton())
+    cpu = {"step": state["step"].cpu(), "moments": {}}
+    cpu_p, cpu_g = {}, {}
+    for k in leaves:
+        cpu_p[k] = sm.params[k].full("cpu").clone()
+        cpu_g[k] = grads[k].full("cpu").clone()
+        cpu["moments"][k] = {kk: t.full("cpu").clone()
+                             for kk, t in state["moments"][k].items()}
+    apply_sharded_updates(cfg, sm, grads, state)
+    opt.apply_updates(cfg, cpu_p, cpu_g, cpu, {k for k in leaves
+                                               if k in decay})
+    out = {}
+    for k in leaves:
+        rec = {"param_bf16_ulps": bf16_ulps(torch, sm.params[k].full("cpu"),
+                                            cpu_p[k]),
+               "blocks": len(sm.params[k].shards), "decays": k in decay}
+        for kk, t in state["moments"][k].items():
+            got, want = t.full("cpu"), cpu["moments"][k][kk]
+            if got.dtype == torch.int8:
+                d = (got.int() - want.int()).abs()
+                rec[kk] = {"max_code_diff": int(d.max()),
+                           "codes_differing": int((d > 0).sum()),
+                           "codes": d.numel()}
+            else:
+                rec[kk] = rel_gap(torch, got, want)
+        out[k] = rec
+        check(rec["param_bf16_ulps"] <= 1,
+              f"{k}: the mesh's update is {rec['param_bf16_ulps']} bf16 "
+              f"ulps from the CPU's")
+        for kk, v in rec.items():
+            if isinstance(v, dict):
+                check(v["max_code_diff"] <= 1, f"{k}/{kk}: {v}")
+            elif kk in state["moments"][k]:
+                check(v <= 1e-6, f"{k}/{kk}: the mesh's moment is {v} "
+                      f"(relative) from the CPU's")
+    del grads
+    return out
+
+
+def mesh_granite(torch, train, opt, int8: bool, single: dict,
+                 smi: str) -> dict:
+    """(a) granite-3-2b at full width through the launcher over the
+    (2, 2) mesh on the one card, 3 steps."""
+    import statistics
+
+    from repro_torch.runtime import collectives
+    from repro_torch.training.step import ShardedModel
+
+    argv = MESH_ARGV + (["--int8-opt"] if int8 else [])
+    label = "int8 moments" if int8 else "f32 moments"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with collectives.recording() as stats:
+        res = train.run(train.parse_args(argv))
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    sm = res["model"]
+    check(isinstance(sm, ShardedModel), "the launcher did not shard")
+    n = sharded_numel(sm)
+    check(n == LM_PARAMS, f"granite-3-2b has {n} parameters over the mesh")
+    blocks = [b for t in sm.params.values() for b in t.shards]
+    check(all(b.device.type == "cuda" for b in blocks),
+          "a block of the mesh is not on the card")
+    losses, norms = res["losses"], res["grad_norms"]
+    check(len(losses) == 3 and all(np.isfinite(losses + norms)),
+          f"{label}: a loss or grad norm is not finite: {losses} {norms}")
+    steps = len(losses)
+    gathered = stats.bytes_by_kind.get("all-gather", 0.0) / (4 * steps)
+    step_s = statistics.median(res["step_s"][1:])
+    tokens = 8 * 128
+    out = {"argv": argv, "run_s": t_run, "losses": losses,
+           "grad_norms": norms, "step_s": res["step_s"],
+           "step_ms": step_s * 1e3, "tok_s": tokens / step_s,
+           "max_memory_allocated": peak, "blocks": len(blocks),
+           "gathered_bytes_per_step": gathered,
+           "collectives": stats.summary(),
+           "loss0_rel_gap": abs(losses[0] - single["losses"][0])
+           / single["losses"][0],
+           "grad_norm0_rel_gap": abs(norms[0] - single["grad_norms"][0])
+           / single["grad_norms"][0]}
+    out["leaf_update"] = mesh_leaf_update_check(torch, opt, res,
+                                                TRAIN_LEAVES)
+    log(f"[mesh] granite-3-2b full width over a ({MESH_DEVICES}) mesh on "
+        f"the one card, {label} ({n:,} params in {len(blocks)} blocks, "
+        f"bf16): 3 steps through the launcher in {t_run:.1f}s on {smi}; "
+        f"losses " + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in norms))
+    log(f"[mesh] granite-3-2b {label}: step 0 against phase 19's one-device "
+        f"step on the same weights and batch: loss {losses[0]:.6f} vs "
+        f"{single['losses'][0]:.6f} ({out['loss0_rel_gap']:.3g} relative, "
+        f"tolerance {MESH_LOSS0_RTOL}), grad norm {norms[0]:.4f} vs "
+        f"{single['grad_norms'][0]:.4f} ({out['grad_norm0_rel_gap']:.3g}, "
+        f"tolerance {MESH_GNORM0_RTOL})")
+    log(f"[mesh] granite-3-2b {label}: step {out['step_ms']:.1f} ms (median "
+        f"of steps 1-2; phase 19's one-device step "
+        f"{single['step_ms']:.1f} ms), {out['tok_s']:.0f} tokens/s, "
+        f"max_memory_allocated {peak / 1e9:.2f} GB (phase 19 "
+        f"{single['max_memory_allocated'] / 1e9:.2f} GB); gathered "
+        f"{gathered / 1e9:.3f} GB a step (the whole model once: both rows "
+        f"share the card, one pass); recorded link traffic "
+        f"{stats.total_bytes / steps / 1e9:.2f} GB a step over 4 devices")
+    log(f"[mesh] granite-3-2b {label}: a step's update block by block on "
+        f"the card against apply_updates on the CPU on gathered copies of "
+        + "; ".join(f"{k}: {v}" for k, v in out["leaf_update"].items()))
+    check(out["loss0_rel_gap"] <= MESH_LOSS0_RTOL,
+          f"{label}: step 0's loss over the mesh {losses[0]} against one "
+          f"device's {single['losses'][0]}")
+    check(out["grad_norm0_rel_gap"] <= MESH_GNORM0_RTOL,
+          f"{label}: step 0's grad norm over the mesh {norms[0]} against "
+          f"one device's {single['grad_norms'][0]}")
+    res.clear()
+    free_card(torch)
+    return out
+
+
+def mesh_step_card_vs_cpu(torch, arch: str, int8: bool, dev) -> dict:
+    """One (2, 2) mesh train step of ``arch``'s smoke config in f32 on the
+    CPU and on the card from the same weights and tokens: the loss, the
+    grad norm and every updated parameter (max |Δ| / max |p| per leaf)."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_test_parallelism
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import (init_sharded_state,
+                                           make_train_step, shard_model)
+
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32",
+                              remat="none")
+    ocfg = opt.AdamWConfig(lr=1e-3, int8_moments=int8)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32),
+                                     generator=torch.Generator()
+                                     .manual_seed(0))}
+    out = []
+    for where in ("cpu", dev):
+        par = make_test_parallelism(2, 2, device=where)
+        sm = shard_model(init_params(cfg, "cpu", seed=0), par)
+        state = init_sharded_state(ocfg, sm)
+        _, _, m = make_train_step(ocfg, par=par)(
+            sm, state, {k: v.to(where) for k, v in batch.items()})
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: t.full("cpu") for k, t in sm.params.items()}))
+    (l0, n0, p0), (l1, n1, p1) = out
+    return {"loss": abs(l1 - l0) / abs(l0),
+            "grad_norm": abs(n1 - n0) / abs(n0),
+            "params": max(rel_gap(torch, p1[k], p0[k]) for k in p0)}
+
+
+def moe_mesh_card_vs_cpu(torch, arch: str, dev) -> dict:
+    """The MoE's mesh branch of ``arch``'s smoke config (f32) over a
+    (2, 2) mesh on the CPU and on the card: y and aux."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_test_parallelism
+    from repro_torch.models import moe
+
+    cfg = configs.smoke(arch).moe
+    g = torch.Generator().manual_seed(0)
+    d = 64
+    p = {"router": torch.randn(d, cfg.n_experts, generator=g) / 8,
+         "w_gate": torch.randn(cfg.n_experts, d, cfg.d_ff, generator=g) / 8,
+         "w_up": torch.randn(cfg.n_experts, d, cfg.d_ff, generator=g) / 8,
+         "w_down": torch.randn(cfg.n_experts, cfg.d_ff, d, generator=g) / 11}
+    x = torch.randn(4, 16, d, generator=g)
+    y0, a0 = moe.moe_forward(p, x, cfg, make_test_parallelism(
+        2, 2, device="cpu"))
+    y1, a1 = moe.moe_forward({k: v.to(dev) for k, v in p.items()},
+                             x.to(dev), cfg,
+                             make_test_parallelism(2, 2, device=dev))
+    return {"y": float((y1.cpu() - y0).abs().max()),
+            "aux": abs(float(a1) - float(a0)) / abs(float(a0))}
+
+
+def moe_mesh_full_width(torch, arch: str, dev) -> dict:
+    """(b) The MoE config at its published width with
+    ``LM_MOE_LAYERS`` layers in f32: the forward over a (2, 2) mesh of the
+    one card (``ep`` or ``tp`` over model = 2) against the local path on
+    the same weights and tokens, and its aux against the per-shard
+    estimator (the mean over the two data rows of each row's aux)."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_test_parallelism
+    from repro_torch.launch.serve import lm_inputs
+    from repro_torch.models.transformer import forward_hidden, init_params
+
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32",
+                              n_layers=LM_MOE_LAYERS[arch])
+    check(cfg.moe.mode == MOE_MESH_MODES[arch],
+          f"{arch}: mode {cfg.moe.mode}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, dev, seed=0)
+    toks, _ = lm_inputs(cfg, 2, 64, dev, seed=1)
+    par = make_test_parallelism(2, 2)
+    with torch.no_grad():
+        h0, aux0 = forward_hidden(model, toks)
+        h1, aux1 = forward_hidden(model, toks, par=par)
+        est = torch.stack([forward_hidden(model, toks[i:i + 1])[1]
+                           for i in range(2)]).mean()
+    out = {"layers": cfg.n_layers, "mode": cfg.moe.mode,
+           "experts": cfg.moe.n_experts, "d_ff": cfg.moe.d_ff,
+           "seconds": time.perf_counter() - t0,
+           "max_abs_diff": float((h1 - h0).abs().max()),
+           "max_abs_h": float(h0.abs().max()),
+           "aux_mesh": float(aux1), "aux_local": float(aux0),
+           "aux_estimator": float(est),
+           "aux_rel_gap": abs(float(aux1) - float(est)) / abs(float(est)),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    ok = bool(((h1 - h0).abs() <= MOE_MESH_TOL * (1 + h0.abs())).all())
+    del model, h0, h1
+    free_card(torch)
+    check(ok, f"{arch} over the mesh: hidden states {out['max_abs_diff']} "
+          f"from the local path's")
+    check(out["aux_rel_gap"] <= MOE_AUX_RTOL,
+          f"{arch}: the mesh's aux {out['aux_mesh']} against the per-shard "
+          f"estimator {out['aux_estimator']}")
+    return out
+
+
+def compressed_dp_on_card(torch, dev) -> dict:
+    """(c) ``make_compressed_dp_grad_fn`` over 4 data shards on the card:
+    the reference test's problem and limits (one round within 5 %, the
+    mean of 16 rounds within 1 % of the exact gradient), and the card
+    against the CPU round by round."""
+    from repro_torch.runtime.sharding import make_mesh
+    from repro_torch.training.compress import (init_error_feedback,
+                                               make_compressed_dp_grad_fn)
+
+    g = torch.Generator().manual_seed(0)
+    W = torch.randn(32, 8, generator=g)
+    xs = torch.randn(16, 32, generator=g)
+    ys = xs @ W
+
+    def loss_fn(p, batch):
+        x, y = batch
+        return torch.mean((x @ p["w"] - y) ** 2)
+
+    runs = {}
+    for where in ("cpu", dev):
+        params = {"w": torch.zeros(32, 8, device=where)}
+        fn = make_compressed_dp_grad_fn(
+            loss_fn, make_mesh((4,), ("data",), [where]))
+        w0 = torch.zeros(32, 8, device=where, requires_grad=True)
+        exact = torch.autograd.grad(loss_fn({"w": w0}, (
+            xs.to(where), ys.to(where))), w0)[0].cpu()
+        err = [init_error_feedback(params) for _ in range(4)]
+        rounds = []
+        for _ in range(17):
+            _, gr, err = fn(params, (xs.to(where), ys.to(where)), err)
+            rounds.append(gr["w"].cpu())
+        runs[str(where)] = (exact, rounds)
+    exact, rounds = runs[str(dev)]
+    scale = float(exact.abs().max())
+    out = {"one_round": float((rounds[0] - exact).abs().max()) / scale,
+           "sixteen_rounds": float((torch.stack(rounds[1:]).mean(0)
+                                    - exact).abs().max()) / scale,
+           "card_vs_cpu": max(float((a - b).abs().max()) for a, b in
+                              zip(rounds, runs["cpu"][1])) / scale}
+    check(out["one_round"] < 0.05 and out["sixteen_rounds"] < 0.01,
+          f"compressed DP gradients on the card: {out}")
+    check(out["card_vs_cpu"] <= 1e-5, f"compressed DP, card vs CPU: {out}")
+    return out
+
+
+def mesh_checkpoint_reshard(torch) -> dict:
+    """(d) A checkpoint written from the (2, 2) mesh on the card (the
+    launcher, smoke size, int8 moments) restored onto a (4, 1) mesh and
+    onto the one device: every leaf equal."""
+    import tempfile
+
+    from repro_torch.checkpoint import (params_to_tree, restore_pytree,
+                                        sharded_checkpoint_like)
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_parallelism
+    from repro_torch.runtime.sharding import ShardedTensor
+    from repro_torch.training.step import init_sharded_state, shard_model
+
+    base = ["--arch", LM_ARCH, "--smoke", "--steps", "2", "--global-batch",
+            "4", "--seq-len", "32", "--int8-opt", "--log-every", "100"]
+    with tempfile.TemporaryDirectory() as d:
+        res = train.run(train.parse_args(base + ["--mesh-devices", "2,2",
+                                                 "--ckpt-dir", d]))
+        sm = res["model"]
+        par41 = make_test_parallelism(4, 1)
+        sm41 = shard_model(sm.full("cuda"), par41)
+        like, shardings = sharded_checkpoint_like(
+            sm41, init_sharded_state(res["opt_cfg"], sm41))
+        on41 = restore_pytree(like, d, 2, shardings, device="cuda")
+        on1 = restore_pytree(like, d, 2)
+        a, b = flat_tree(on41), flat_tree(on1)
+        check(a.keys() == b.keys(), "the two restores differ in leaves")
+        equal = all(torch.equal(
+            a[k].full() if isinstance(a[k], ShardedTensor) else a[k], b[k])
+            for k in a)
+        blocks = {k: len(v.shards) for k, v in a.items()
+                  if isinstance(v, ShardedTensor)}
+        devices = {str(x.device) for v in a.values()
+                   if isinstance(v, ShardedTensor) for x in v.shards} | {
+            str(v.device) for v in b.values()}
+        # the restore holds the trained model's values
+        trained = flat_tree({"params": params_to_tree(sm)})
+        same = all(torch.equal(t.full(), b[k]) for k, t in trained.items())
+    out = {"leaves": len(a), "equal": equal,
+           "max_blocks": max(blocks.values()), "devices": sorted(devices),
+           "equals_the_trained_model": same}
+    check(equal and same, f"a (2, 2) checkpoint restores differently: {out}")
+    return out
+
+
+def mesh_phase(torch, report) -> None:
+    """Phase 20; launches none of the port's kernels."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.kernels import fused_query as fq
+    from repro_torch.kernels import level_ops as lo
+    from repro_torch.launch import train
+    from repro_torch.training import optimizer as opt
+
+    smi = report["env"]["nvidia_smi"]
+    t_phase = time.perf_counter()
+    before = [k.launches for k in fq.KERNELS + lo.KERNELS]
+    dev = torch.device("cuda")
+    free_card(torch)
+    # (e) starts first, on the host, and is read at the end
+    tmp = tempfile.TemporaryDirectory()
+    dry = subprocess.Popen([sys.executable, "-c", DRYRUN_CODE, tmp.name],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True, cwd=ROOT)
+    try:
+        single = report["train"]["granite"]
+        out = {"card": smi, "granite": {
+            "f32_moments": mesh_granite(torch, train, opt, False,
+                                        single["f32_moments"], smi),
+            "int8_moments": mesh_granite(torch, train, opt, True,
+                                         single["int8_moments"], smi)}}
+
+        out["step_card_vs_cpu"] = {
+            f"{a} {'int8' if i8 else 'f32'}": mesh_step_card_vs_cpu(
+                torch, a, i8, dev) for a, i8 in MESH_STEP_CASES}
+        worst = {k: max(v[k] for v in out["step_card_vs_cpu"].values())
+                 for k in MESH_F32}
+        log(f"[mesh] the (2, 2) mesh step at smoke size in f32, card against "
+            f"CPU: largest gaps {worst} (tolerances {MESH_F32}); "
+            + "; ".join(f"{k}: loss {v['loss']:.2g} params {v['params']:.2g}"
+                        for k, v in out["step_card_vs_cpu"].items()))
+        check(all(worst[k] <= tol for k, tol in MESH_F32.items()),
+              f"the mesh step differs between card and CPU: "
+              f"{out['step_card_vs_cpu']}")
+
+        # (b) the MoE's mesh branch at published width
+        out["moe"] = {a: moe_mesh_full_width(torch, a, dev)
+                      for a in MOE_MESH_MODES}
+        out["moe_smoke_card_vs_cpu"] = {
+            a: moe_mesh_card_vs_cpu(torch, a, dev) for a in MOE_MESH_MODES}
+        for a, m in out["moe"].items():
+            s = out["moe_smoke_card_vs_cpu"][a]
+            log(f"[mesh] {a} full width, {m['layers']} layers, f32, "
+                f"{m['mode']} over model = 2 ({m['experts']} experts, d_ff "
+                f"{m['d_ff']}) on a (2, 2) mesh of the one card: hidden "
+                f"states against the local path max |Δ| "
+                f"{m['max_abs_diff']:.3g} (max |h| {m['max_abs_h']:.3g}; "
+                f"tolerance {MOE_MESH_TOL}·(1 + |h|)); aux {m['aux_mesh']:.6f}"
+                f" against the per-shard estimator {m['aux_estimator']:.6f} "
+                f"({m['aux_rel_gap']:.3g}, tolerance {MOE_AUX_RTOL}; the "
+                f"local path's {m['aux_local']:.6f}); {m['seconds']:.1f}s, "
+                f"max_memory_allocated {m['max_memory_allocated'] / 1e9:.2f}"
+                f" GB; smoke card vs CPU y {s['y']:.2g}, aux {s['aux']:.2g}")
+            check(s["y"] <= 1e-5 and s["aux"] <= 1e-5,
+                  f"{a}: the MoE's mesh branch differs on the card: {s}")
+
+        # (c) compressed DP gradients over 4 data shards on the card
+        out["compressed_dp"] = compressed_dp_on_card(torch, dev)
+        c = out["compressed_dp"]
+        log(f"[mesh] compressed DP gradients over 4 data shards on the card:"
+            f" one round {c['one_round']:.4f} of max |g| (limit 0.05), the "
+            f"mean of 16 rounds {c['sixteen_rounds']:.5f} (limit 0.01); card"
+            f" against CPU {c['card_vs_cpu']:.2g}")
+
+        # (d) the elastic reshard
+        out["reshard"] = mesh_checkpoint_reshard(torch)
+        r = out["reshard"]
+        log(f"[mesh] a checkpoint from the (2, 2) mesh on the card (smoke, "
+            f"int8 moments, {r['leaves']} leaves, up to {r['max_blocks']} "
+            f"blocks a leaf) restored onto (4, 1) and onto one device: "
+            f"equal {r['equal']}; on {r['devices']}")
+    finally:
+        try:
+            so, se = dry.communicate(timeout=600)
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+            tmp.cleanup()
+
+    # (e) the dry run's cell and phase 19's roofline
+    check(dry.returncode == 0 and "DRYRUN" in so,
+          f"the dry run failed: {se[-3000:]}")
+    got = json.loads(so.split("DRYRUN", 1)[1])
+    cell, p19 = got["cell"], got["phase19_shape"]
+    check(got["status"] == "ok", f"the dry run's cell: {cell}")
+    measured = single["f32_moments"]["step_ms"] / 1e3
+    out["dryrun"] = {"cell": cell, "phase19_shape": p19,
+                     "phase19_measured_s": measured,
+                     "bound_share": p19["bound_s"] / measured}
+    log(f"[mesh] dry run, granite-3-2b train_4k on the 16 x 16 mesh (meta): "
+        f"arguments {cell['memory']['argument_size_in_bytes'] / 1e9:.3f} GB "
+        f"a device of 80, {cell['analysis']['flops_global']:.4g} FLOPs, "
+        f"{cell['analysis']['collective_bytes_global']:.4g} collective bytes,"
+        f" dominant {cell['roofline']['dominant']}, roofline fraction "
+        f"{cell['roofline']['roofline_fraction']:.3f} "
+        f"({cell['analysis']['seconds']}s)")
+    log(f"[mesh] roofline of phase 19's step (granite-3-2b, 8 x 128, one "
+        f"H100): {p19['hlo_flops']:.4g} FLOPs, {p19['hlo_bytes']:.4g} bytes "
+        f"({p19['ops']} operations), bound {p19['bound_s'] * 1e3:.2f} ms "
+        f"({p19['dominant']}); phase 19 measured {measured * 1e3:.1f} ms: "
+        f"{100 * out['dryrun']['bound_share']:.2f} % of it on {smi}")
+
+    after = [k.launches for k in fq.KERNELS + lo.KERNELS]
+    check(after == before, f"the mesh phase launched a kernel: "
+          f"{before} -> {after}")
+    out["seconds"] = time.perf_counter() - t_phase
+    report["mesh"] = out
+    log(f"[mesh] phase 20 in {out['seconds']:.1f}s; no kernel of the port "
+        f"launched")
+    check(out["seconds"] <= MESH_BUDGET_S,
+          f"phase 20 took {out['seconds']:.1f}s, over its {MESH_BUDGET_S} s")
+    free_card(torch)
+
+
 def main() -> int:
     import torch
 
@@ -6043,6 +6560,11 @@ def main() -> int:
     # ---- 19. LM training and checkpoints (launches none of the kernels)
     train_phase(torch, report)
     log(f"[time] phases 1-19 in {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 20. the training mesh on the one card, the analysis tools
+    # (launches none of the kernels)
+    mesh_phase(torch, report)
+    log(f"[time] phases 1-20 in {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for name in ("fused_range", "fused_topk"):

@@ -4,8 +4,10 @@ Counterpart of ``repro/checkpoint/manager.py``.  Layout::
 
     <dir>/step_<N>/
         manifest.json          shapes, dtypes, per-leaf sha256, metadata
-        <leaf-id>.<shard>.npy  one file per leaf (the reference writes one
-                               per addressable shard; both are read)
+        <leaf-id>.<shard>.npy  one file per shard of a sharded leaf, with
+                               its index in the manifest (one file for a
+                               tensor; the reference writes one per
+                               addressable shard; both are read)
 
 A tree is nested dicts of torch tensors or numpy arrays; a
 leaf's path joins its keys with ``/`` (``params/layers/attn/wq``), as the
@@ -19,15 +21,21 @@ parameters and optimizer state in the reference's stacked layout).
   * **async**: ``save_async`` copies the tree to the host before it
     returns (training goes on updating its tensors in place), and the
     file I/O runs on a writer thread;
-  * **integrity**: a sha256 per leaf over its bytes, checked on restore
-    (``verify=True``).
+  * **integrity**: a sha256 per leaf over its global bytes, checked on
+    restore (``verify=True``);
+  * **elastic restore**: the manifest stores global shapes; restore
+    reassembles each leaf from its shard files and, given ``shardings``,
+    shards it onto the current mesh (``runtime.sharding.ShardedTensor``)
+    — a checkpoint written from a (2, 2) mesh restarts on (4, 1) or on
+    one device unchanged.  Without shardings a leaf lands on ``device``,
+    by default the card; there is no quiet fallback to the host
+    (``device="cpu"`` asks for it).
 
 bf16 has no numpy dtype here (the reference's comes with JAX's
 ``ml_dtypes``).  As the reference does, a bf16 leaf is stored widened to
 f32 (lossless) under dtype ``"bfloat16"``, and its hash is over the bf16
 bytes (``t.view(torch.int16)``); restore narrows it back to
-``torch.bfloat16``.  The elastic resharding restore of the reference
-comes with the device mesh (ROADMAP.md, queue 1, item 11c).
+``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -40,6 +48,8 @@ import threading
 
 import numpy as np
 import torch
+
+from ..runtime.sharding import ShardedTensor
 
 _SEP = "."
 _BF16 = "bfloat16"
@@ -74,6 +84,10 @@ def _on_host(leaf) -> torch.Tensor:
     return torch.from_numpy(np.asarray(leaf, order="C"))
 
 
+def _storable(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def _dtype_name(t: torch.Tensor) -> str:
     return _BF16 if t.dtype == torch.bfloat16 else str(t.numpy().dtype)
 
@@ -92,13 +106,24 @@ def save_pytree(tree, directory: str | os.PathLike, step: int,
                 "treedef": f"nested dicts, {len(leaves)} leaves by path",
                 "extra": extra_meta or {}, "leaves": {}}
     for lid, (path, leaf) in enumerate(leaves):
-        t = _on_host(leaf)
-        fname = f"{lid:05d}{_SEP}0000.npy"
-        np.save(tmp / fname, (t.float() if t.dtype == torch.bfloat16
-                              else t).numpy())
+        if isinstance(leaf, ShardedTensor) and leaf.sharding is not None:
+            shards = []
+            for si, (blk, index) in enumerate(zip(leaf.shards,
+                                                  leaf.indices())):
+                fname = f"{lid:05d}{_SEP}{si:04d}.npy"
+                np.save(tmp / fname, _storable(blk.detach().cpu()))
+                shards.append({"file": fname, "index": index})
+            t = leaf.full("cpu").detach()
+        else:
+            if isinstance(leaf, ShardedTensor):
+                leaf = leaf.shards[0]
+            t = _on_host(leaf)
+            fname = f"{lid:05d}{_SEP}0000.npy"
+            np.save(tmp / fname, _storable(t))
+            shards = [{"file": fname, "index": None}]
         manifest["leaves"][path] = {
             "id": lid, "shape": list(t.shape), "dtype": _dtype_name(t),
-            "sha256": _digest(t), "shards": [{"file": fname, "index": None}]}
+            "sha256": _digest(t), "shards": shards}
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     if final.exists():
         shutil.rmtree(final)
@@ -106,13 +131,37 @@ def save_pytree(tree, directory: str | os.PathLike, step: int,
     return final
 
 
+def _default_device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to restore onto the CPU")
+    return torch.device("cuda")
+
+
+def _sharding_at(shardings, path: str):
+    node = shardings
+    for k in path.split("/"):
+        if node is None:
+            return None
+        node = node.get(k) if isinstance(node, dict) else None
+    return node
+
+
 def restore_pytree(tree_like, directory: str | os.PathLike, step: int,
-                   device="cpu", verify: bool = True):
+                   shardings=None, verify: bool = True, device=None):
     """Restore onto the structure of ``tree_like`` (leaves with a
-    ``shape``: tensors, ``meta`` tensors or arrays; shapes checked):
-    a tree of tensors on ``device`` in the checkpoint's dtypes."""
+    ``shape``: tensors, ``meta`` tensors, arrays or ``ShardedTensor``s;
+    shapes checked), in the checkpoint's dtypes.  ``shardings``: a tree
+    of ``NamedSharding`` (or None) leaves keyed as ``tree_like``; a leaf
+    with one comes back as a ``ShardedTensor`` on that mesh, every other
+    leaf as a tensor on ``device`` (default: the card; raises without
+    one)."""
     directory = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = json.loads((directory / "manifest.json").read_text())
+    if shardings is None:
+        device = _default_device(device)
 
     def load(path, like):
         meta = manifest["leaves"].get(path)
@@ -134,7 +183,10 @@ def restore_pytree(tree_like, directory: str | os.PathLike, step: int,
             t = t.to(torch.bfloat16)
         if verify and _digest(t) != meta["sha256"]:
             raise IOError(f"{path}: checksum mismatch")
-        return t.to(device)
+        sh = _sharding_at(shardings, path)
+        if sh is not None:
+            return ShardedTensor.of(t, sh)
+        return t.to(_default_device(device))
 
     return _map_leaves(load, tree_like)
 
@@ -149,6 +201,9 @@ def latest_step(directory: str | os.PathLike) -> int | None:
 
 
 def _host_copy(path, leaf):
+    if isinstance(leaf, ShardedTensor):
+        return ShardedTensor([b.detach().to("cpu", copy=True)
+                              for b in leaf.shards], leaf.sharding)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf, copy=True)
@@ -201,8 +256,9 @@ class CheckpointManager:
             shutil.rmtree(self.directory / f"step_{s:08d}",
                           ignore_errors=True)
 
-    def restore_latest(self, tree_like, device="cpu"):
+    def restore_latest(self, tree_like, shardings=None, device=None):
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return restore_pytree(tree_like, self.directory, step, device), step
+        return restore_pytree(tree_like, self.directory, step, shardings,
+                              device=device), step

@@ -3,8 +3,8 @@
 attention (4096).  [arXiv:2401.04088; hf]
 
 MoE parallelism on a mesh: 8 experts < 16 model shards → ``tp`` mode (every
-expert on every shard, d_ff sharded).  The port runs it on one device
-(``models/moe.py``); the mesh path is the multi-card half, not ported yet."""
+expert on every shard, d_ff sharded; see ``models/moe.py``, which runs it
+on one device or over a mesh's shards)."""
 import dataclasses
 
 from ..models.moe import MoEConfig

@@ -3,8 +3,8 @@ head_dim=128), 128 experts top-8 with expert d_ff=1536, vocab=151936,
 qk_norm.  [hf:Qwen/Qwen3-30B-A3B family; hf]
 
 MoE parallelism on a mesh: 128 experts / 16 model shards = 8 local experts
-→ ``ep`` mode (true expert parallelism).  The port runs it on one device
-(``models/moe.py``); the mesh path is the multi-card half, not ported yet."""
+→ ``ep`` mode (true expert parallelism; see ``models/moe.py``, which runs
+it on one device or over a mesh's shards)."""
 import dataclasses
 
 from ..models.moe import MoEConfig

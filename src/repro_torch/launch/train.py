@@ -9,9 +9,14 @@ Counterpart of ``repro/launch/train.py``, with the same flags::
 
 It trains on the card unless ``--device cpu``, and raises when there is
 no card and no ``--device cpu``.  Without ``--smoke`` it trains the full
-published config.  ``--mesh-devices`` must stay empty: a device mesh is
-not ported yet (ROADMAP.md, queue 1, item 11c).  Checkpoints are the
-reference's format, so a run of either package resumes the other's.
+published config.  ``--mesh-devices d,m`` trains over a (data, model)
+test mesh placed round robin on the cards (all on the CPU with
+``--device cpu``); ``prod`` / ``prod-multipod`` ask for the 256- / 512-
+device production mesh, which raises with fewer devices.  The parameters
+and moments are then sharded (``training.step``), and checkpoints are
+written and restored with their shardings, onto whatever mesh the
+resuming run has.  Checkpoints are the reference's format, so a run of
+either package resumes the other's.
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ def parse_args(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-devices", default="",
-                    help="a device mesh: not ported yet, must be empty")
+                    help="'data,model' counts for a test mesh; 'prod' / "
+                         "'prod-multipod' for the 256/512-device mesh")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to train on "
@@ -58,39 +64,59 @@ def run(args) -> dict:
     import torch
 
     from ..checkpoint import (CheckpointManager, params_to_tree,
-                              state_from_tree, state_to_tree)
+                              sharded_checkpoint_like, state_from_tree,
+                              state_to_tree)
     from ..data.tokens import TokenPipeline, TokenPipelineConfig
     from ..models.transformer import init_params, params_from_numpy
+    from ..runtime.sharding import single_device
     from ..training.optimizer import AdamWConfig, init_state
-    from ..training.step import make_train_step, trainable
+    from ..training.step import (init_sharded_state, make_train_step,
+                                 shard_model, sharded_from_tree, trainable)
+    from .mesh import make_parallelism, make_test_parallelism
 
-    if args.mesh_devices:
-        raise NotImplementedError(
-            "--mesh-devices: a device mesh is not ported yet (ROADMAP.md, "
-            "queue 1, item 11c)")
     if args.device is None and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to train on the CPU")
-    device = torch.device(args.device or "cuda")
+    if args.mesh_devices in ("prod", "prod-multipod"):
+        par = make_parallelism(multi_pod=args.mesh_devices != "prod",
+                               device=args.device)
+    elif args.mesh_devices:
+        d, m = (int(x) for x in args.mesh_devices.split(","))
+        par = make_test_parallelism(d, m, device=args.device)
+    else:
+        par = single_device()
+    device = (par.mesh.devices.flat[0] if par.mesh is not None
+              else torch.device(args.device or "cuda"))
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     opt = AdamWConfig(lr=args.lr, int8_moments=args.int8_opt,
                       warmup_steps=(args.warmup_steps
                                     or min(100, args.steps // 10 + 1)),
                       decay_steps=args.decay_steps or args.steps)
-    step_fn = make_train_step(opt, grad_accum=args.grad_accum)
+    step_fn = make_train_step(opt, grad_accum=args.grad_accum, par=par)
     pipe = TokenPipeline(TokenPipelineConfig(
         vocab_size=cfg.vocab_size, global_batch=args.global_batch,
         seq_len=args.seq_len, seed=args.seed), device)
 
     model = init_params(cfg, device, seed=args.seed)
-    opt_state = init_state(opt, trainable(model))
+    if par.mesh is not None:
+        model = shard_model(model, par)
+        opt_state = init_sharded_state(opt, model)
+    else:
+        opt_state = init_state(opt, trainable(model))
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
     if ckpt and args.resume:
-        restored, step0 = ckpt.restore_latest(
-            {"params": params_to_tree(model), "opt": state_to_tree(opt_state)})
+        if par.mesh is not None:
+            like, shardings = sharded_checkpoint_like(model, opt_state)
+        else:
+            like = {"params": params_to_tree(model),
+                    "opt": state_to_tree(opt_state)}
+            shardings = None
+        restored, step0 = ckpt.restore_latest(like, shardings, device)
         if restored is not None:
-            model = params_from_numpy(cfg, restored["params"], device)
+            model = (sharded_from_tree(cfg, restored["params"], par)
+                     if par.mesh is not None else
+                     params_from_numpy(cfg, restored["params"], device))
             opt_state = state_from_tree(restored["opt"], opt_state)
             start = step0
             print(f"[train] resumed from step {start}")

@@ -1,17 +1,25 @@
 """Mixture-of-Experts with sort-based grouped dispatch, single device.
 
-Counterpart of ``repro/models/moe.py`` (its single-device path).  Each
-(token, expert) assignment is sorted by expert id; each expert multiplies
-its contiguous group of rows (the reference's ``lax.ragged_dot``, here one
-``torch.matmul`` per expert), and the gated rows are summed back to their
-tokens in f32.  No TPU kernel lies under it: the reference's grouped
-GEMMs are XLA's.
+Counterpart of ``repro/models/moe.py``.  Each (token, expert) assignment
+is sorted by expert id; each expert multiplies its contiguous group of
+rows (the reference's ``lax.ragged_dot``, here one ``torch.matmul`` per
+expert), and the gated rows are summed back to their tokens in f32.  No
+TPU kernel lies under it: the reference's grouped GEMMs are XLA's.
 
 The two parameter keys of ``ModelConfig.moe_key`` (``moe_ep``,
-``moe_tp``) compute the same function on one device.  The reference's
-``shard_map`` branch (experts or d_ff over a mesh's ``model`` axis) needs
-a device mesh and is not ported yet: with one, :func:`moe_forward`
-raises.
+``moe_tp``) compute the same function on one device.  Over a mesh
+(``runtime.sharding.Parallelism``) the reference's ``shard_map`` body
+runs once per (data, model) shard, as a loop: ``ep`` gives each model
+shard ``E / model_size`` experts (``e0 = shard · e_local``), ``tp`` its
+slice of ``d_ff``; the batch splits over the data shards when it
+divides.  The weights arrive gathered (the train step's FSDP gather) and
+each shard takes its slab.  ``y`` is the f32 sum over the model shards
+(``psum``), ``aux`` the mean of the per-shard aux over all shards, the
+reference's estimator (not the local path's).
+
+On the ``meta`` device (the dry run) the group sizes are unknown; each
+grouped product is priced as the reference prices ``ragged_dot``: every
+row against one group's weight.
 
 Ties follow the reference: ``lax.top_k`` returns the lower expert id
 first on equal probabilities (a stable descending sort here), and the
@@ -99,8 +107,13 @@ def _expert_chunk(xc, gates, ids, w_gate, w_up, w_down, *, e0, e_local,
     s_gate = torch.where(local[order], flat_gate[order],
                          torch.zeros_like(flat_gate[order]))
     xs = xc[s_tok]                                         # (cap, d)
-    group_sizes = torch.bincount(s_lid, minlength=e_local + 1)[:e_local]
-    sizes = group_sizes.tolist()
+    if xc.device.type == "meta":
+        # no counts on meta: equal groups price the same rows · d · f
+        sizes = [xs.shape[0] // e_local] * e_local
+        sizes[-1] += xs.shape[0] - sum(sizes)
+    else:
+        sizes = torch.bincount(s_lid,
+                               minlength=e_local + 1)[:e_local].tolist()
     h = (F.silu(_grouped_matmul(xs, w_gate, sizes).to(F32)).to(xs.dtype)
          * _grouped_matmul(xs, w_up, sizes))
     y = _grouped_matmul(h, w_down, sizes)                  # (cap, d)
@@ -128,13 +141,49 @@ def _moe_local(x2d, router, w_gate, w_up, w_down, cfg: MoEConfig,
 
 
 def moe_forward(p, x, cfg: MoEConfig, parallel=None):
-    """x: (B, S, d) -> (y (B, S, d), aux_loss).  ``parallel`` must be None
-    (one device)."""
-    if parallel is not None:
-        raise NotImplementedError(
-            "the MoE over a device mesh (the reference's shard_map branch) "
-            "is not ported yet; run it on one device (parallel=None)")
+    """x: (B, S, d) -> (y (B, S, d), aux_loss).
+
+    ``parallel``: a ``runtime.sharding.Parallelism`` (mesh + axis names) or
+    None for the single-device path."""
     B, S, d = x.shape
-    y, aux = _moe_local(x.reshape(B * S, d), p["router"], p["w_gate"],
-                        p["w_up"], p["w_down"], cfg, 0, cfg.n_experts)
-    return y.reshape(B, S, d).to(x.dtype), aux
+    if parallel is None or parallel.mesh is None:
+        y, aux = _moe_local(x.reshape(B * S, d), p["router"], p["w_gate"],
+                            p["w_up"], p["w_down"], cfg, 0, cfg.n_experts)
+        return y.reshape(B, S, d).to(x.dtype), aux
+    from ..runtime.sharding import psum
+
+    # Batch over the data shards when it divides (decode with B = 1
+    # replicates over data; the model-axis sum is unaffected).
+    n_data = parallel.data_size if B % parallel.data_size == 0 else 1
+    n_model = parallel.model_size
+    devs = parallel.devices_by_data()
+    if cfg.mode == "ep":
+        assert cfg.n_experts % n_model == 0, (cfg.n_experts, n_model)
+        e_local = cfg.n_experts // n_model
+    else:                            # "tp": d_ff sharded
+        assert cfg.d_ff % n_model == 0
+        e_local = cfg.n_experts
+        f_local = cfg.d_ff // n_model
+    bl = B // n_data
+    ys, auxs = [], []
+    for i in range(n_data):
+        parts = []
+        for m in range(n_model):
+            dev = devs[i, m]
+            if cfg.mode == "ep":
+                e0, sl = m * e_local, slice(m * e_local, (m + 1) * e_local)
+                w = (p["w_gate"][sl], p["w_up"][sl], p["w_down"][sl])
+            else:
+                e0, sl = 0, slice(m * f_local, (m + 1) * f_local)
+                w = (p["w_gate"][..., sl], p["w_up"][..., sl],
+                     p["w_down"][:, sl])
+            xl = x[i * bl:(i + 1) * bl].reshape(bl * S, d).to(dev)
+            y, aux = _moe_local(xl, p["router"].to(dev),
+                                *(t.to(dev) for t in w), cfg, e0, e_local)
+            parts.append(y)
+            auxs.append(aux.to(devs[0, 0]))
+        ys.append(psum(parts, n_model).reshape(bl, S, d)
+                  .to(x.device, x.dtype))
+    # pmean over all axes; with the batch replicated over data every data
+    # row holds the same aux, so the mean over one row is the same.
+    return torch.cat(ys), torch.stack(auxs).mean().to(x.device)

@@ -1,7 +1,7 @@
 """Composable transformer stack covering all ten architectures.
 
-Counterpart of ``repro/models/transformer.py`` (its single-device path:
-training and serving).  One ``ModelConfig`` describes dense GQA (qwen3 /
+Counterpart of ``repro/models/transformer.py`` (training and serving).
+One ``ModelConfig`` describes dense GQA (qwen3 /
 phi3 / granite), MoE (mixtral / qwen3-moe), pure SSM (mamba2), hybrid
 (zamba2: a Mamba2 backbone and one *shared* attention block applied
 periodically), enc-dec (whisper) and cross-attention VLM
@@ -23,6 +23,12 @@ loss; its gradients come from ``torch.autograd``.  Each block of
 :func:`forward_hidden` is checkpointed as ``cfg.remat`` says while
 autograd records (:func:`_remat`).  :func:`params_to_numpy` is the
 inverse of :func:`params_from_numpy`.
+
+Over a mesh, ``par`` (a ``runtime.sharding.Parallelism``) reaches the
+MoE layers only, as the reference's ``_mlp_or_moe(cfg, par, p, x)``
+carries it: the other layers compute on gathered leaves (the reference's
+``par.constrain`` calls are layout hints to GSPMD, which computes the
+single-device function).
 
 Serving: :func:`prefill` (full sequence; fills the KV / SSM caches) and
 :func:`decode_step` (one token against the cache; ring-buffer writes,
@@ -322,7 +328,8 @@ def _layer_split(name: str):
 def stack_layers(named: dict) -> dict:
     """``{dotted name: tensor}`` (a module's ``named_parameters`` names,
     or a tree keyed by them) -> the reference's nested tree, each
-    per-layer tensor stacked into its ``(L, ...)`` leaf."""
+    per-layer tensor stacked into its ``(L, ...)`` leaf.  A
+    ``runtime.sharding.ShardedTensor`` stacks block by block."""
     tree: dict = {}
     rows: dict = {}
     for name, t in named.items():
@@ -332,8 +339,9 @@ def stack_layers(named: dict) -> dict:
         else:
             rows.setdefault(path, {})[layer] = t
     for path, by_layer in rows.items():
-        _set_path(tree, path, torch.stack([by_layer[i]
-                                           for i in range(len(by_layer))]))
+        layers = [by_layer[i] for i in range(len(by_layer))]
+        _set_path(tree, path, layers[0].stack(layers)
+                  if hasattr(layers[0], "shards") else torch.stack(layers))
     return tree
 
 
@@ -419,20 +427,21 @@ def _cross_attn_full(cfg, p_cross, x, memory):
     return L.attention_out(p_cross, o)
 
 
-def _mlp_or_moe(cfg, p, x):
-    """Second half of a dense block.  Returns (x, aux_loss)."""
+def _mlp_or_moe(cfg, p, x, par=None):
+    """Second half of a dense block.  Returns (x, aux_loss).  ``par``: the
+    mesh the MoE runs over (None: one device)."""
     h = L.rms_norm(x, p["ln2"]["scale"])
     if cfg.moe:
-        y, aux = moe_lib.moe_forward(p[cfg.moe_key], h, cfg.moe)
+        y, aux = moe_lib.moe_forward(p[cfg.moe_key], h, cfg.moe, par)
         return x + y.to(x.dtype), aux
     return x + L.mlp(p["mlp"], h), 0.0
 
 
-def _dense_block_full(cfg, p, x, positions, emit_kv=False):
+def _dense_block_full(cfg, p, x, positions, emit_kv=False, par=None):
     x, kv = _self_attn_full(cfg, p, x, positions, causal=True,
                             sliding_window=cfg.sliding_window,
                             emit_kv=emit_kv)
-    x, aux = _mlp_or_moe(cfg, p, x)
+    x, aux = _mlp_or_moe(cfg, p, x, par)
     return x, kv, aux
 
 
@@ -553,11 +562,13 @@ def _stack_ssm(caches):
             for key in ("ssm", "conv")}
 
 
-def forward_hidden(model: Model, tokens, memory=None, collect_caches=False):
+def forward_hidden(model: Model, tokens, memory=None, collect_caches=False,
+                   par=None):
     """tokens (B, S) -> (final hidden states (B, S, d), aux loss).
 
     ``memory``: (B, Sm, d) encoder frames (encdec) or image patches (vlm).
     ``collect_caches``: also return the prefill caches (see ``prefill``).
+    ``par``: the mesh the MoE layers run over (None: one device).
     """
     cfg = model.cfg
     B, S = tokens.shape
@@ -574,7 +585,7 @@ def forward_hidden(model: Model, tokens, memory=None, collect_caches=False):
     if cfg.kind in ("dense", "moe"):
         for lp in model["layers"]:
             x, kv, aux = dense_block(cfg, lp, x, positions,
-                                     emit_kv=collect_caches)
+                                     emit_kv=collect_caches, par=par)
             aux_total = aux_total + aux
             kvs.append(kv)
         if collect_caches:
@@ -613,7 +624,7 @@ def forward_hidden(model: Model, tokens, memory=None, collect_caches=False):
                                                     memory))
             for lp in model["layers"][s0:e0]:
                 x, kv, aux = dense_block(cfg, lp, x, positions,
-                                         emit_kv=collect_caches)
+                                         emit_kv=collect_caches, par=par)
                 aux_total = aux_total + aux
                 kvs.append(kv)
         if collect_caches:
@@ -705,13 +716,14 @@ def lm_loss(model: Model, hidden, tokens, chunk: int = 512):
     return total / (B * n)
 
 
-def train_loss(model: Model, batch: dict):
+def train_loss(model: Model, batch: dict, par=None):
     """The full training loss: the LM cross-entropy plus, for the MoE
     configs, ``aux_loss_coef`` times the load-balance loss.
-    ``batch["memory"]``: the frames (encdec) or patches (vlm)."""
+    ``batch["memory"]``: the frames (encdec) or patches (vlm); ``par``:
+    the mesh the MoE layers run over."""
     cfg = model.cfg
     hidden, aux = forward_hidden(model, batch["tokens"],
-                                 memory=batch.get("memory"))
+                                 memory=batch.get("memory"), par=par)
     loss = lm_loss(model, hidden, batch["tokens"])
     if cfg.moe:
         loss = loss + cfg.moe.aux_loss_coef * aux
@@ -840,9 +852,10 @@ def _cross_decode(cfg, p_cross, h, ck, cv):
     return L.attention_out(p_cross, o)
 
 
-def decode_step(model: Model, cache: dict, tokens):
+def decode_step(model: Model, cache: dict, tokens, par=None):
     """One decode step.  tokens (B, 1) -> (logits (B, V) f32, cache); the
-    cache is updated in place and returned."""
+    cache is updated in place and returned.  ``par``: the mesh the MoE
+    layers run over."""
     cfg = model.cfg
     B = tokens.shape[0]
     pos = cache["pos"]
@@ -858,7 +871,7 @@ def decode_step(model: Model, cache: dict, tokens):
         for i, lp in enumerate(model["layers"]):
             x = _self_attn_decode(cfg, lp, x, kcs[i], vcs[i], kv_positions,
                                   slot, pos, sliding_window=sw)
-            x, _ = _mlp_or_moe(cfg, lp, x)
+            x, _ = _mlp_or_moe(cfg, lp, x, par)
 
     elif cfg.kind == "ssm":
         for i, lp in enumerate(model["layers"]):
@@ -887,7 +900,7 @@ def decode_step(model: Model, cache: dict, tokens):
                 lp = model["layers"][i]
                 x = _self_attn_decode(cfg, lp, x, kcs[i], vcs[i],
                                       kv_positions, slot, pos)
-                x, _ = _mlp_or_moe(cfg, lp, x)
+                x, _ = _mlp_or_moe(cfg, lp, x, par)
 
     elif cfg.kind == "encdec":
         ck, cv = cache["cross_kv"]
@@ -907,14 +920,16 @@ def decode_step(model: Model, cache: dict, tokens):
     return logits_of(model, x[:, 0, :]), cache
 
 
-def prefill(model: Model, tokens, memory=None, max_seq: int | None = None):
+def prefill(model: Model, tokens, memory=None, max_seq: int | None = None,
+            par=None):
     """Full-sequence prefill: returns (last-token logits (B, V) f32, the
-    populated cache for ``max_seq`` positions)."""
+    populated cache for ``max_seq`` positions).  ``par``: the mesh the
+    MoE layers run over."""
     cfg = model.cfg
     B, S = tokens.shape
     dev = tokens.device
     hidden, _aux, caches = forward_hidden(model, tokens, memory=memory,
-                                          collect_caches=True)
+                                          collect_caches=True, par=par)
     logits = logits_of(model, hidden[:, -1, :])
     max_seq = max_seq or S
     window = min(max_seq, cfg.sliding_window or max_seq)

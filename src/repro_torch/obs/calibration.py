@@ -23,7 +23,7 @@ import dataclasses
 import json
 import threading
 
-from ..core.cost_model import F32_TFLOPS, HBM_GBPS
+from ..core.cost_model import F32_TFLOPS
 
 
 @dataclasses.dataclass
@@ -46,12 +46,19 @@ class DispatchRecord:
 
 
 def h100_bound_s(flops: float, bytes_hbm: float) -> float:
-    """The least time one H100 SXM could take for the work: FLOPs over
-    its float32 peak outside the tensor cores (67 TFLOP/s) or bytes over
-    its HBM3 rate (3.35 TB/s), whichever is larger (the peaks of
-    ``core/cost_model.py``)."""
-    return max(float(flops) / (F32_TFLOPS * 1e12),
-               float(bytes_hbm) / (HBM_GBPS * 1e9))
+    """The least time one H100 SXM could take for the work, priced
+    through the three-term roofline (``runtime.roofline.
+    terms_from_analysis``, one card, no collectives on the single-card
+    dispatch path) as the reference's ``_roofline_bound_s`` does: FLOPs
+    over the float32 peak outside the tensor cores (67 TFLOP/s, the
+    search's f32 work) or bytes over HBM3's 3.35 TB/s, whichever is
+    larger (the peaks of ``core/cost_model.py``)."""
+    from ..runtime.roofline import terms_from_analysis
+
+    return terms_from_analysis(
+        {"flops": float(flops), "bytes accessed": float(bytes_hbm)},
+        collective_bytes=0.0, chips=1, model_flops=float(flops),
+        peak_flops=F32_TFLOPS * 1e12).bound_s
 
 
 class CalibrationLog:

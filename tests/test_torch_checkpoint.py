@@ -68,7 +68,7 @@ def test_save_restore_roundtrip(tmp_path):
     like = {"a": torch.empty((16, 8), device="meta"),
             "nested": {"b": np.zeros(10), "c": torch.empty(3)},
             "step": torch.empty(())}
-    assert_trees_equal(restore_pytree(like, tmp_path, 7), t)
+    assert_trees_equal(restore_pytree(like, tmp_path, 7, device="cpu"), t)
     man = json.loads((tmp_path / "step_00000007" / "manifest.json")
                      .read_text())
     assert man["leaves"]["nested/c"]["dtype"] == "bfloat16"
@@ -83,11 +83,12 @@ def test_integrity_check(tmp_path):
     arr.reshape(-1)[0] += 1
     np.save(victim, arr)
     with pytest.raises(IOError, match="checksum"):
-        restore_pytree(t, tmp_path, 1)
+        restore_pytree(t, tmp_path, 1, device="cpu")
     with pytest.raises(KeyError, match="missing leaf"):
-        restore_pytree({"zz": torch.empty(1)}, tmp_path, 1)
+        restore_pytree({"zz": torch.empty(1)}, tmp_path, 1, device="cpu")
     with pytest.raises(ValueError, match="shape"):
-        restore_pytree({**t, "a": torch.empty(2)}, tmp_path, 1, verify=False)
+        restore_pytree({**t, "a": torch.empty(2)}, tmp_path, 1, verify=False,
+                       device="cpu")
 
 
 def test_manager_async_and_retention(tmp_path):
@@ -100,7 +101,7 @@ def test_manager_async_and_retention(tmp_path):
     steps = sorted(int(p.name.split("_")[1])
                    for p in pathlib.Path(tmp_path).glob("step_*"))
     assert steps == [3, 4], "retention must keep the newest 2"
-    restored, step = mgr.restore_latest(_tree(0))
+    restored, step = mgr.restore_latest(_tree(0), device="cpu")
     assert step == 4
     assert_trees_equal(restored, _tree(4))
 
@@ -152,8 +153,10 @@ def test_kill_resume_bitwise_identical(tmp_path):
     assert a[3:] == b, (a, b)
     # the resumed run's final checkpoint equals the uninterrupted one's
     like = _flat_like(tmp_path / "full", 6)
-    assert_trees_equal(restore_pytree(like, tmp_path / "full", 6),
-                       restore_pytree(like, tmp_path / "split", 6))
+    assert_trees_equal(restore_pytree(like, tmp_path / "full", 6,
+                                      device="cpu"),
+                       restore_pytree(like, tmp_path / "split", 6,
+                                      device="cpu"))
 
 
 def _flat_like(directory, step):
@@ -212,7 +215,7 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path, int8):
     pstate = opt.init_state(ocfg, trainable(model))
     like = {"params": params_to_tree(model),
             "opt": state_to_tree(pstate)}
-    restored = restore_pytree(like, tmp_path, 1, verify=True)
+    restored = restore_pytree(like, tmp_path, 1, verify=True, device="cpu")
     model = tf.params_from_numpy(cfg, restored["params"], "cpu")
     pstate = state_from_tree(restored["opt"],
                              opt.init_state(ocfg, trainable(model)))

@@ -1887,3 +1887,45 @@ def test_train_launcher_on_card_and_checkpoint_to_cpu(cuda, tmp_path):
     assert fw.keys() == fg.keys()
     assert all(torch.equal(fw[k], fg[k]) for k in fw)
     assert fg["params/lm_head"].dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# The training mesh on the card (chip_smoke.py phase 20's helpers)
+# ---------------------------------------------------------------------------
+
+MESH_STEP_CASES = (("granite-3-2b", False), ("granite-3-2b", True),
+                   ("qwen3-moe-235b-a22b", False))
+
+
+@pytest.mark.parametrize("arch,int8", MESH_STEP_CASES)
+def test_mesh_step_card_matches_cpu(cuda, arch, int8):
+    """One (2, 2) mesh train step at smoke size in f32 on the card and on
+    the CPU from the same weights and tokens: the loss, the grad norm and
+    every updated parameter (``MESH_F32``); no kernel launched."""
+    smoke = chip_smoke_module()
+    before = kernel_launches()
+    gaps = smoke.mesh_step_card_vs_cpu(torch, arch, int8, cuda)
+    assert kernel_launches() == before
+    assert all(gaps[k] <= tol for k, tol in smoke.MESH_F32.items()), gaps
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "mixtral-8x22b"])
+def test_moe_mesh_branch_card_matches_cpu(cuda, arch):
+    """The MoE's ep (qwen3-moe) and tp (mixtral) branches over a (2, 2)
+    mesh on the card against the same on the CPU."""
+    gaps = chip_smoke_module().moe_mesh_card_vs_cpu(torch, arch, cuda)
+    assert gaps["y"] <= 1e-5 and gaps["aux"] <= 1e-5, gaps
+
+
+def test_compressed_dp_gradients_on_card(cuda):
+    out = chip_smoke_module().compressed_dp_on_card(torch, cuda)
+    assert out["one_round"] < 0.05 and out["sixteen_rounds"] < 0.01, out
+    assert out["card_vs_cpu"] <= 1e-5, out
+
+
+def test_mesh_checkpoint_reshards_on_card(cuda):
+    """A checkpoint written by the launcher from a (2, 2) mesh on the card
+    restores onto (4, 1) and onto the one device, every leaf equal."""
+    out = chip_smoke_module().mesh_checkpoint_reshard(torch)
+    assert out["equal"] and out["equals_the_trained_model"], out
+    assert out["devices"] == ["cuda:0"]

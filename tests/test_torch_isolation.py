@@ -69,11 +69,18 @@ def test_port_files_import_neither_jax_nor_reference():
             "src/repro_torch/checkpoint/manager.py",
             "src/repro_torch/checkpoint/layout.py",
             "src/repro_torch/launch/train.py",
+            "src/repro_torch/runtime/sharding.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/runtime/roofline.py",
+            "src/repro_torch/runtime/collectives.py",
+            "src/repro_torch/runtime/op_cost.py",
+            "src/repro_torch/configs/shapes.py",
+            "src/repro_torch/launch/dryrun.py",
             "examples/torch_quickstart.py", "examples/torch_serve_search.py",
             "examples/torch_curation_pipeline.py",
             "examples/torch_train_lm.py"} <= names
     archs = {p.stem for p in (ROOT / "src" / "repro" / "configs").glob(
-        "*.py") if p.stem not in ("__init__", "shapes")}
+        "*.py") if p.stem != "__init__"}
     assert {f"src/repro_torch/configs/{a}.py" for a in archs} <= names
     offenders = {str(p.relative_to(ROOT)): sorted(
                      imported_modules(p) & set(FORBIDDEN))
@@ -101,6 +108,11 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.data.tokens, repro_torch.checkpoint.layout\n"
             "import repro_torch.training.step, repro_torch.training.compress\n"
             "import repro_torch.checkpoint, repro_torch.launch.train\n"
+            "import repro_torch.runtime.sharding, repro_torch.launch.mesh\n"
+            "import repro_torch.runtime.roofline\n"
+            "import repro_torch.runtime.collectives\n"
+            "import repro_torch.runtime.op_cost, repro_torch.configs.shapes\n"
+            "import repro_torch.launch.dryrun\n"
             "from repro_torch import configs\n"
             "[configs.get(a) for a in configs.list_archs()]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -134,6 +146,26 @@ def test_entry_points_without_a_device_raise_when_cuda_is_absent(monkeypatch):
     # Asking for the CPU works, and then the torch engine serves.
     svc = SearchService.from_series(db, ServeConfig(), device="cpu")
     assert svc.backend.backend == "torch"
+
+
+def test_mesh_entry_points_without_a_device_raise_when_cuda_is_absent(
+        monkeypatch, tmp_path):
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.launch.mesh import (make_parallelism,
+                                         make_test_parallelism)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_test_parallelism(2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_parallelism()
+    save_pytree({"a": torch.ones(3)}, tmp_path, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_pytree({"a": torch.empty(3)}, tmp_path, 1)
+    got = restore_pytree({"a": torch.empty(3)}, tmp_path, 1, device="cpu")
+    assert got["a"].device.type == "cpu"
+    assert make_test_parallelism(2, 2, device="cpu").mesh.size == 4
+    assert make_parallelism(device="meta").mesh.size == 256
 
 
 def test_tiered_entry_points_without_a_device_raise_when_cuda_is_absent(

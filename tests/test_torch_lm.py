@@ -30,6 +30,7 @@ from repro.models import transformer as ref_tf
 from repro.runtime.sharding import single_device
 from repro_torch import configs
 from repro_torch.launch import serve as launcher
+from repro_torch.launch.mesh import make_test_parallelism
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models import transformer as tf
 
@@ -294,8 +295,15 @@ def test_moe_matches_reference(mode, router):
     np.testing.assert_array_equal(moe.moe_forward(tp, torch.as_tensor(x),
                                                   other)[0].numpy(),
                                   got.numpy())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        moe.moe_forward(tp, torch.as_tensor(x), cfg, parallel=object())
+    # Over a (1, 2) mesh: the shard_map branch, each model shard with half
+    # the experts (ep) or half of d_ff (tp), summed.  Its capacity is per
+    # shard (the reference's too), so ep past capacity drops other rows.
+    par = make_test_parallelism(1, 2, device="cpu")
+    y2, aux2 = moe.moe_forward(tp, torch.as_tensor(x), cfg, par)
+    if mode == "tp" or router != "capacity":
+        np.testing.assert_allclose(y2.numpy(), got.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    np.testing.assert_allclose(float(aux2), float(aux), rtol=1e-6)
 
 
 def test_ssd_chunk_invariance_and_reference():

@@ -478,13 +478,39 @@ def test_launcher_trains_and_loss_decreases(capsys):
     assert "[train] step 0 loss" in out and "[train] done: first loss" in out
 
 
-def test_launcher_refuses_a_mesh_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="11c"):
-        launcher.main(["--arch", "granite-3-2b", "--smoke", "--steps", "1",
-                       "--mesh-devices", "2,2", "--device", "cpu"])
+def test_launcher_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         launcher.main(["--arch", "granite-3-2b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launcher.main(["--arch", "granite-3-2b", "--smoke", "--steps", "1",
+                       "--mesh-devices", "2,2"])
+
+
+def test_launcher_mesh_matches_its_single_device_run(tmp_path, capsys):
+    """--mesh-devices 2,2 against the launcher's own single-device run on
+    the same tokens (the smoke config in bf16, f32 moments): every loss and
+    grad norm; a checkpoint written from the mesh resumes on (4, 1) and on
+    one device."""
+    import shutil
+
+    base = ["--arch", "granite-3-2b", "--smoke", "--steps", "3",
+            "--seq-len", "32", "--device", "cpu", "--log-every", "1"]
+    one = launcher.run(launcher.parse_args(base))
+    mesh = launcher.run(launcher.parse_args(
+        base + ["--mesh-devices", "2,2", "--ckpt-dir", str(tmp_path)]))
+    assert type(mesh["model"]).__name__ == "ShardedModel"
+    np.testing.assert_allclose(mesh["losses"], one["losses"], rtol=1e-6)
+    np.testing.assert_allclose(mesh["grad_norms"], one["grad_norms"],
+                               rtol=1e-5)
+    for i, extra in enumerate((["--mesh-devices", "4,1"], [])):
+        d = tmp_path.parent / f"{tmp_path.name}_{i}"
+        shutil.copytree(tmp_path, d)
+        res = launcher.run(launcher.parse_args(
+            base[:4] + ["4"] + base[5:] + ["--ckpt-dir", str(d),
+                                           "--resume"] + extra))
+        assert res["start"] == 3 and len(res["losses"]) == 1
+    assert capsys.readouterr().out.count("[train] resumed from step 3") == 2
 
 
 if __name__ == "__main__":
