@@ -3223,8 +3223,10 @@ def obs_phase(torch, engine, fq, ref, ops, index, host, queries, workload,
         f"model's {cs['mean_predicted_s'] * 1e3:.4f} ms: rel_err "
         f"{cs['mean_rel_err']:.4f}, roofline share "
         f"{cs['mean_roofline_frac']:.5f} (H100 peaks; the measured time is "
-        f"the dispatch's wall time: representation, kernels, the dense "
-        f"(Q, B) copy to the host, the counting pass, the sync)")
+        f"the dispatch's engine stage on the card's clock, CUDA events: the "
+        f"engine's kernels, torch ops and the gaps between their launches, "
+        f"without the representation, the counting pass, the dense (Q, B) "
+        f"copy to the host or the sync)")
 
     # ---- 5. the metrics text of that service, scraped once
     server = start_metrics_server(svc.metrics_text, 0)

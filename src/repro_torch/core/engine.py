@@ -1790,6 +1790,16 @@ def mixed_query_dense_and_trace(index: DeviceIndex, qr: QueryReprDev,
     compacting twin counts k-NN rows at their k-th radius, because it
     runs another strategy.)"""
     out = mixed_query_dense(index, qr, epsilon, is_knn, k, valid_mask)
+    return (*out, mixed_dense_trace(index, qr, epsilon, is_knn, k, out[1],
+                                    valid_mask))
+
+
+def mixed_dense_trace(index: DeviceIndex, qr: QueryReprDev, epsilon,
+                      is_knn, k: int, answer,
+                      valid_mask: torch.Tensor | None = None) -> QueryTrace:
+    """The trace of a :func:`mixed_query_dense` pass from its dense
+    ``answer`` mask (the counters of
+    :func:`mixed_query_dense_and_trace`), counted after the pass."""
     Q, B, dev = qr.q.shape[0], index.size, index.device
     knn_col = torch.as_tensor(is_knn, dtype=torch.bool,
                               device=dev).reshape(Q, 1)
@@ -1799,8 +1809,8 @@ def mixed_query_dense_and_trace(index: DeviceIndex, qr: QueryReprDev,
     a9 = torch.where(knn_col, n_valid, a9)
     a10 = torch.where(knn_col, n_valid, a10)
     answers = _mixed_answers(knn_col, max(1, min(int(k), B)),
-                             _count_alive(out[1]))
-    return (*out, _trace_of(a9, a10, answers=answers))
+                             _count_alive(answer))
+    return _trace_of(a9, a10, answers=answers)
 
 
 def _quant_cascade_counting(qindex: QuantizedDeviceIndex, qr: QueryReprDev,

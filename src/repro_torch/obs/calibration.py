@@ -11,10 +11,14 @@ wall time of the dispatch, and the log derives
   * the roofline share: the estimate's bytes and FLOPs priced at the
     H100's peaks (:func:`h100_bound_s`) over the measured time.
 
-The measured time is the whole dispatch as the service sees it: query
-representation, the kernels, the device-to-host copy of the answers and
-the sync.  Memory is bounded (a fixed-capacity ring); recording is host
-arithmetic only.
+The measured time is the dispatch's ``engine`` stage (``serve.stats``):
+on a card its device time from CUDA events, the stream's time from the
+engine's first launch to the copy (its kernels, its torch ops and the
+gaps between their launches), without the query representation, a
+traced dispatch's counting pass, the device-to-host copy of the answers
+or the sync; a backend without stages hands over its whole dispatch's
+wall time.  Memory is bounded (a
+fixed-capacity ring); recording is host arithmetic only.
 """
 from __future__ import annotations
 

@@ -14,6 +14,9 @@ The registry is rebuilt per scrape from the snapshot, so it adds no work
 to the request path; every family exists (with clean zeros) from the
 first scrape because the snapshot has every key from construction.
 ``REQUIRED_FAMILIES`` is the contract a scrape is checked against.
+:func:`build_stage_registry` adds the port's serving-path stage and
+device-to-host byte counters (``STAGE_FAMILIES``), which the service
+renders after the reference's families, at full precision.
 ``/healthz`` answers when a ``health_fn`` is given (the launcher passes
 ``SearchService.health``): 200 when ready, 503 when not, the detail as
 JSON; without one it answers 404.
@@ -46,14 +49,25 @@ REQUIRED_FAMILIES = (
     "repro_refresh_swaps_total",
 )
 
+# The serving path's stage counters (``serve.stats``: the snapshot's
+# ``stages`` and ``d2h_bytes``).
+STAGE_FAMILIES = (
+    "repro_stage_seconds_total",
+    "repro_stage_events_total",
+    "repro_d2h_bytes_total",
+)
+
 _LABEL_ESC = str.maketrans({"\\": r"\\", '"': r"\"", "\n": r"\n"})
 
 
 class MetricsRegistry:
-    """Ordered metric families -> Prometheus text exposition."""
+    """Ordered metric families -> Prometheus text exposition.  Values
+    render with ``value_format`` (the reference's ``g``: six significant
+    digits)."""
 
-    def __init__(self):
+    def __init__(self, value_format: str = "g"):
         self._families: dict = {}    # name -> (type, help, [(labels, value)])
+        self._fmt = value_format
 
     def add(self, name: str, value, *, kind: str = "gauge",
             help_text: str = "", labels: dict | None = None) -> None:
@@ -74,9 +88,10 @@ class MetricsRegistry:
                     inner = ",".join(
                         f'{k}="{str(v).translate(_LABEL_ESC)}"'
                         for k, v in sorted(labels.items()))
-                    lines.append(f"{name}{{{inner}}} {value:g}")
+                    lines.append(f"{name}{{{inner}}} "
+                                 f"{format(value, self._fmt)}")
                 else:
-                    lines.append(f"{name} {value:g}")
+                    lines.append(f"{name} {format(value, self._fmt)}")
         return "\n".join(lines) + "\n"
 
 
@@ -167,6 +182,31 @@ def build_registry(snapshot: dict, calibration: dict | None = None,
     for name, count in sorted((span_counts or {}).items()):
         reg.add("repro_spans", count, labels={"name": name},
                 help_text="Spans currently resident in the trace ring")
+    return reg
+
+
+def build_stage_registry(snapshot: dict) -> MetricsRegistry:
+    """The stage families of a stats snapshot: seconds per stage and clock
+    (``host``, ``device``), events per stage, and the bytes the device
+    passes copied to the host; counters, rendered with 17 significant
+    digits so that a rate over them is not rounded away.  Every stage of
+    the snapshot renders, with zeros before traffic."""
+    reg = MetricsRegistry(value_format=".17g")
+    stages = snapshot.get("stages", {}) or {}
+    for stage, acc in stages.items():
+        for clock in ("host", "device"):
+            reg.add("repro_stage_seconds_total", acc.get(f"{clock}_s", 0.0),
+                    kind="counter", labels={"stage": stage, "clock": clock},
+                    help_text="Seconds in each serving stage, on the host's "
+                              "clock and on the device's (CUDA events)")
+    for stage, acc in stages.items():
+        reg.add("repro_stage_events_total", acc.get("count", 0),
+                kind="counter", labels={"stage": stage},
+                help_text="Device passes or served requests through each "
+                          "serving stage")
+    reg.add("repro_d2h_bytes_total", snapshot.get("d2h_bytes", 0),
+            kind="counter",
+            help_text="Bytes of answers copied from the device to the host")
     return reg
 
 

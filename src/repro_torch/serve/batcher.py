@@ -28,6 +28,7 @@ The batcher closes that gap:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import time
 from typing import Callable, Optional
@@ -110,7 +111,7 @@ class CircuitBreaker:
             self._shed_batches = 0
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(slots=True)
 class Request:
     """One in-flight query.  ``wait()`` blocks the submitting thread until
     the dispatcher (or admission control) resolves it."""
@@ -138,7 +139,22 @@ class Request:
     _done: threading.Event = dataclasses.field(
         default_factory=threading.Event, repr=False)
 
+    # Ids for spans: the request's (the batcher's counter at submit) and
+    # its batch's (at formation).  Stage stamps on time.perf_counter (0.0:
+    # not reached), read by StatsTracker.on_served_batch: the batch formed,
+    # the device pass's answers on the host, this request's reply started,
+    # its select step done, its answer shaped, the request resolved.
+    rid: int = 0
+    batch_id: int = 0
+    t_formed: float = 0.0
+    t_ready: float = 0.0
+    t_reply: float = 0.0
+    t_selected: float = 0.0
+    t_post: float = 0.0
+    t_done: float = 0.0
+
     def _resolve(self, status: str, ids=None, distances=None, error=None):
+        self.t_done = time.perf_counter()
         self.status = status
         self.ids = ids
         self.distances = distances
@@ -180,9 +196,12 @@ class MicroBatcher:
         self.stats = stats or StatsTracker()
         # Optional obs.spans.SpanRecorder: when set, every formed batch
         # records a "batch_form" span plus one "enqueue" span per member
-        # (t_submit -> formation — queueing + coalescing time).  None (the
-        # default) keeps the hot path span-free.
+        # (t_submit -> formation — queueing + coalescing time: the span of
+        # the "queue" stage).  None (the default) keeps the hot path
+        # span-free.
         self.tracer = tracer
+        self._rids = itertools.count(1)
+        self._batch_ids = itertools.count(1)
         self._queue: list = []
         self._cond = threading.Condition()
         self._stopping = False
@@ -266,6 +285,7 @@ class MicroBatcher:
     def submit(self, req: Request) -> Request:
         """Admission control: enqueue or reject immediately (never blocks)."""
         req.t_submit = time.perf_counter()
+        req.rid = next(self._rids)
         self.stats.on_submit()
         if req.deadline is not None and req.t_submit >= req.deadline:
             self.stats.on_reject_deadline()
@@ -313,20 +333,23 @@ class MicroBatcher:
             # between formation and dispatch.
             self._in_flight = len(batch)
         now = time.perf_counter()
+        bid = next(self._batch_ids)
         live = []
         for req in batch:
             if req.deadline is not None and now >= req.deadline:
                 self.stats.on_reject_deadline()
                 req._resolve(REJECTED_DEADLINE)
             else:
+                req.t_formed, req.batch_id = now, bid
                 live.append(req)
         if self.tracer is not None and batch:
             t_first = min(r.t_submit for r in batch)
             self.tracer.record("batch_form", t_first, now,
-                               batch=len(live), expired=len(batch) - len(live))
+                               batch=len(live), expired=len(batch) - len(live),
+                               batch_id=bid)
             for req in live:
                 self.tracer.record("enqueue", req.t_submit, now,
-                                   kind=req.kind)
+                                   kind=req.kind, rid=req.rid, batch_id=bid)
         return live
 
     def _loop(self):
@@ -354,10 +377,10 @@ class MicroBatcher:
                     # until timeout.
                     self._fail_batch(batch, RuntimeError(
                         "dispatch_fn returned without resolving request"))
-                for req in batch:
-                    if req.status == OK:
-                        self.stats.on_served(
-                            time.perf_counter() - req.t_submit)
+                # Latency to each request's own resolution, not to the
+                # batch's end, and its stages: one lock a batch.
+                self.stats.on_served_batch(
+                    [req for req in batch if req.status == OK])
             finally:
                 with self._cond:
                     self._in_flight = 0

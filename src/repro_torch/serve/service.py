@@ -38,14 +38,30 @@ once per ``refresh_min_interval_s``.  One lock covers the swap, every
 device pass and the ids snapshot that maps its row positions, so no
 batch maps one generation's positions through another's ids.
 
+Stages (always on, ``stats.snapshot()["stages"]`` and ``["d2h_bytes"]``):
+every device pass of ``_SingleBackend`` and ``_QuantizedBackend`` times
+``represent`` (the queries' upload and representation), ``engine`` (the
+engine, up to the copy) and ``copy`` (the answers to the host) on the host
+clock and, on a card, with CUDA events on the current stream read after
+the copy's own sync (a traced dispatch's counting pass falls between
+them, in no stage).  The service records every pass of every backend,
+with its bytes, certificates and requests, before it replies to any of
+them; every served request adds ``queue``, ``reply_wait``, ``reply.knn`` /
+``reply.range`` (the select step of :meth:`_finish`) and
+``postprocess``.  While a ``torch.profiler`` records, each stage that is
+work on the dispatcher thread (all but the two waits) is also a
+``repro.<stage>`` range on the profiler's timeline.
+
 Tracing (``ServeConfig(trace=True)``): the cascade counters of every
 batch (``obs.trace.QueryTrace``, counted on the device and copied as
 (Q, L) and (Q,) counters only) into ``stats``, a bounded span ring
-(``tracer``: enqueue, batch form, dispatch, verify, reply), the
-cost-model calibration of every dispatch (``calibration``) and the
-Prometheus text (:meth:`SearchService.metrics_text`); ``profile_dir``
-wraps every batch's dispatch in a ``torch.profiler`` capture.  All off by
-default: the untraced service keeps none of that state.
+(``tracer``: enqueue, batch form, dispatch and its stages, the cascade
+count, reply and each request's stages, with request and batch ids), the
+cost-model calibration of every dispatch against its ``engine`` stage's
+device time (``calibration``) and the Prometheus text
+(:meth:`SearchService.metrics_text`); ``profile_dir`` wraps every
+batch's dispatch in a ``torch.profiler`` capture.  All off by default:
+the untraced service keeps none of that state.
 """
 from __future__ import annotations
 
@@ -63,7 +79,7 @@ from ..core.engine import (_SEED_EPS_MAX, DeviceIndex, TieredIndex,
                            build_device_index,
                            device_index_from_host,
                            device_trace_bytes, mixed_query,
-                           mixed_query_dense, mixed_query_dense_and_trace,
+                           mixed_dense_trace, mixed_query_dense,
                            mixed_query_fused, mixed_trace,
                            quantized_mixed_query, quantized_mixed_trace,
                            represent_queries, resolve_backend,
@@ -80,7 +96,7 @@ from ..obs.trace import (screen_row_bytes, select_queries, tier_bytes,
 from ..runtime import chaos
 from .batcher import (BREAKER_OPEN, FAILED, KIND_KNN, KIND_RANGE, OK,
                       REJECTED_SHED, CircuitBreaker, MicroBatcher, Request)
-from .stats import StatsTracker
+from .stats import StatsTracker, reply_stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,22 +182,115 @@ def _prepare_on_side_stream(device, build):
     return out
 
 
+# Its _is_profiler_enabled flag: one global read, so no profiler range
+# object is made while none records.
+_PROFILER = torch.autograd.profiler
+
+
+def _staged(name: str, fn, *args):
+    """``fn(*args)``, inside a ``name`` range while a profiler records."""
+    if _PROFILER._is_profiler_enabled:
+        with torch.profiler.record_function(name):
+            return fn(*args)
+    return fn(*args)
+
+
+def _select(req: Request, idx_row, answer_row, d2_row):
+    """A reply's select step: a k-NN request's k nearest rows, ascending
+    (d², slot) (slots are in row order, so ties go to the lowest database
+    row), or a range request's answer rows; their rows and distances."""
+    if req.kind == KIND_KNN:
+        finite = np.isfinite(d2_row)
+        order = np.lexsort((np.arange(d2_row.size), d2_row))
+        order = order[finite[order]][: req.k]
+        return idx_row[order], np.sqrt(d2_row[order])
+    mask = answer_row & np.isfinite(d2_row)
+    return idx_row[mask], np.sqrt(d2_row[mask])
+
+
+class _PassClock:
+    """The stages of one device pass, opened in order with :meth:`next`
+    (``represent`` first) and closed by :meth:`close` after the copy.
+
+    Each boundary is a ``time.perf_counter`` stamp and, on a CUDA device, a
+    timing event recorded on the device's current stream; the events are
+    the backend's, reused pass after pass (no device memory is allocated),
+    and read once at the close, after the copy has synchronised the stream,
+    so the timing adds no sync inside the pass.  On a CPU device a stage's
+    device seconds are its host seconds."""
+
+    def __init__(self, device: torch.device, events: list):
+        self._stream = (torch.cuda.current_stream(device)
+                        if device.type == "cuda" else None)
+        self._events = events
+        self._times: list = []
+        self._names: list = []     # the stage each later boundary closes
+        self._stamp()
+        self._open("represent")
+
+    def _stamp(self) -> None:
+        if self._stream is not None:
+            i = len(self._times)
+            if i == len(self._events):
+                self._events.append(torch.cuda.Event(enable_timing=True))
+            self._events[i].record(self._stream)
+        self._times.append(time.perf_counter())
+
+    def _open(self, name) -> None:
+        self._name = name
+        self._range = None
+        if name and _PROFILER._is_profiler_enabled:
+            self._range = torch.profiler.record_function("repro." + name)
+            self._range.__enter__()
+
+    def _shut(self) -> None:
+        self.abort()
+        self._stamp()
+        self._names.append(self._name)
+
+    def next(self, name) -> None:
+        """Close the open stage and open ``name`` (None: a step that is no
+        stage, such as a traced dispatch's counting pass)."""
+        self._shut()
+        self._open(name)
+
+    def abort(self) -> None:
+        """Close the open stage's profiler range (a pass that raised
+        calls it too)."""
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+
+    def close(self) -> tuple:
+        """Close the last stage; ``((name, t0, t1, device_s), ...)``."""
+        self._shut()
+        t, ev = self._times, self._events
+        if self._stream is not None:
+            ev[len(t) - 1].synchronize()
+        return tuple(
+            (name, t[i], t[i + 1],
+             ev[i].elapsed_time(ev[i + 1]) / 1e3 if self._stream is not None
+             else t[i + 1] - t[i])
+            for i, name in enumerate(self._names) if name is not None)
+
+
 def _trace_to_host(backend, trace) -> None:
     """Keep a dispatch's trace as host counters (None when untraced)."""
     backend.last_trace = None if trace is None else to_host(trace)
 
 
-def _to_host(backend, out: tuple) -> tuple:
-    """Copy a dispatch's ``(idx, answer, d2, overflow)`` to the host,
-    note the bytes and the per-query certificates (a query is exact when
-    no buffer of it overflowed: ``overflow`` is (Q,), or (Q, P) over
-    shards), return ``(idx, answer, d2)``."""
+def _to_host(backend, out: tuple, clock: Optional[_PassClock] = None):
+    """Copy a dispatch's ``(idx, answer, d2, overflow)`` to the host, close
+    the pass's ``clock`` (its ``copy`` stage open) into ``last_stages``,
+    note the bytes in ``last_d2h_bytes`` and the per-query certificates in
+    ``last_certified`` (a query is exact when no buffer of it overflowed:
+    ``overflow`` is (Q,), or (Q, P) over shards), return ``(idx, answer,
+    d2)``.  The service records the pass in its stats."""
     out = tuple(t.cpu().numpy() for t in out)
+    backend.last_stages = clock.close() if clock is not None else ()
     backend.last_d2h_bytes = sum(a.nbytes for a in out)
-    if backend.stats is not None:
-        bad = out[3].reshape(out[3].shape[0], -1).any(axis=-1)
-        backend.stats.on_certificates(int(bad.size - bad.sum()),
-                                      int(bad.size))
+    bad = out[3].reshape(out[3].shape[0], -1).any(axis=-1)
+    backend.last_certified = (int(bad.size - bad.sum()), int(bad.size))
     return out[:3]
 
 
@@ -205,10 +314,15 @@ class _SingleBackend:
         self.backend = resolve_backend(cfg.backend, index.device)
         self._cap: Optional[int] = None   # learned capacity or _DENSE
         self.stats: Optional[StatsTracker] = None   # set by SearchService
-        # Bytes the last dispatch copied from the device to the host, and
-        # its trace (host counters) when it was asked for one.
+        # Bytes the last dispatch copied from the device to the host, its
+        # stages ((name, t0, t1, device_s), _PassClock), its certificates
+        # (exact, total) and its trace (host counters) when it was asked
+        # for one.
         self.last_d2h_bytes = 0
+        self.last_stages = ()
+        self.last_certified = None
         self.last_trace = None
+        self._events: list = []    # the pass clock's CUDA events
 
     @property
     def n(self) -> int:
@@ -235,6 +349,7 @@ class _SingleBackend:
         learned capacity stays: B changed, the policy did not."""
         self.index = prepared
         self.backend = resolve_backend(self.cfg.backend, prepared.device)
+        self._events = []
 
     def trace_bytes(self, trace) -> dict:
         return device_trace_bytes(self.index, trace)
@@ -245,9 +360,18 @@ class _SingleBackend:
 
     def dispatch(self, q: np.ndarray, eps: np.ndarray, is_knn: np.ndarray,
                  k: int, want_trace: bool = False):
-        """One device pass: ``(idx, answer, d2)`` on the host.  With
-        ``want_trace`` the batch's trace is counted on the device before
-        the copy and kept in ``last_trace`` as host counters."""
+        """One device pass: ``(idx, answer, d2)`` on the host, its stages
+        in ``last_stages``.  With ``want_trace`` the batch's
+        trace is counted on the device before the copy (outside the
+        stages) and kept in ``last_trace`` as host counters."""
+        clock = _PassClock(self.index.device, self._events)
+        try:
+            return self._pass(q, eps, is_knn, k, want_trace, clock)
+        except BaseException:
+            clock.abort()
+            raise
+
+    def _pass(self, q, eps, is_knn, k, want_trace, clock):
         B, dev = self.size, self.index.device
         qr = represent_queries(torch.as_tensor(q, dtype=torch.float32,
                                                device=dev),
@@ -256,13 +380,14 @@ class _SingleBackend:
                                stack=self.index.stack)
         eps_t = torch.as_tensor(eps, dtype=torch.float32, device=dev)
         knn_t = torch.as_tensor(is_knn, dtype=torch.bool, device=dev)
+        clock.next("engine")
         # Large k buckets demote the fused path to torch; the decision is
         # a function of (backend, k bucket) only, so every batch and every
         # direct replay of a bucket takes the same float path.
         fused = resolve_knn_backend(self.backend, k, dev) == "cuda"
         if self.stats is not None and self.backend == "cuda" and not fused:
             self.stats.on_demotion()
-        trace = None
+        dense = False
         if fused:
             idx, answer, d2, overflow = mixed_query_fused(
                 self.index, qr, eps_t, knn_t, k, n_iters=self.cfg.n_iters)
@@ -284,17 +409,19 @@ class _SingleBackend:
                 cap = cap * 4 if cap * 4 <= cap_limit else _DENSE
             else:
                 self._cap = _DENSE
-                if want_trace:
-                    idx, answer, d2, overflow, trace = \
-                        mixed_query_dense_and_trace(self.index, qr, eps_t,
-                                                    knn_t, k)
-                else:
-                    idx, answer, d2, overflow = mixed_query_dense(
-                        self.index, qr, eps_t, knn_t, k)
-        if want_trace and trace is None:
-            trace = mixed_trace(self.index, qr, eps_t, knn_t, k, answer, d2)
+                dense = True
+                idx, answer, d2, overflow = mixed_query_dense(
+                    self.index, qr, eps_t, knn_t, k)
+        trace = None
+        if want_trace:
+            # The counting pass, outside the engine stage.
+            clock.next(None)
+            trace = (mixed_dense_trace(self.index, qr, eps_t, knn_t, k,
+                                       answer) if dense else
+                     mixed_trace(self.index, qr, eps_t, knn_t, k, answer, d2))
         _trace_to_host(self, trace)
-        return _to_host(self, (idx, answer, d2, overflow))
+        clock.next("copy")
+        return _to_host(self, (idx, answer, d2, overflow), clock)
 
 
 class _QuantizedBackend:
@@ -315,10 +442,14 @@ class _QuantizedBackend:
         self.backend = resolve_backend(cfg.backend, tindex.dev.device)
         self.stats: Optional[StatsTracker] = None   # set by SearchService
         # Bytes the last dispatch copied from the device to the host, the
-        # compaction capacity it reached, and its trace when asked for.
+        # compaction capacity it reached, its stages, its certificates and
+        # its trace when asked for.
         self.last_d2h_bytes = 0
         self.last_capacity = 0
+        self.last_stages = ()
+        self.last_certified = None
         self.last_trace = None
+        self._events: list = []
 
     @property
     def n(self) -> int:
@@ -341,6 +472,7 @@ class _QuantizedBackend:
 
     def install(self, prepared):
         self.tindex = prepared
+        self._events = []
 
     def trace_bytes(self, trace) -> dict:
         return tiered_trace_bytes(self.tindex, trace)
@@ -355,6 +487,14 @@ class _QuantizedBackend:
         """One tiered pass; ``want_trace`` as in
         :meth:`_SingleBackend.dispatch` (its series-screen count is
         ``fused_quant_range``'s keep count at the trace radius)."""
+        clock = _PassClock(self.tindex.dev.device, self._events)
+        try:
+            return self._pass(q, eps, is_knn, k, want_trace, clock)
+        except BaseException:
+            clock.abort()
+            raise
+
+    def _pass(self, q, eps, is_knn, k, want_trace, clock):
         qdev = self.tindex.dev
         dev = qdev.device
         qr = represent_queries(torch.as_tensor(q, dtype=torch.float32,
@@ -365,14 +505,18 @@ class _QuantizedBackend:
         cap = self.cfg.capacity0 or max(4 * k, 64)
         eps_t = torch.as_tensor(eps, dtype=torch.float32, device=dev)
         knn_t = torch.as_tensor(is_knn, dtype=torch.bool, device=dev)
+        clock.next("engine")
         idx, answer, d2, overflow = quantized_mixed_query(
             self.tindex, qr, eps_t, knn_t, k,
             options=SearchOptions(backend=self.cfg.backend, capacity=cap,
                                   verify_prefetch=self.cfg.verify_prefetch))
         self.last_capacity = int(idx.shape[-1])
+        if want_trace:
+            clock.next(None)
         _trace_to_host(self, quantized_mixed_trace(
             qdev, qr, eps_t, knn_t, k, answer, d2) if want_trace else None)
-        return _to_host(self, (idx, answer, d2, overflow))
+        clock.next("copy")
+        return _to_host(self, (idx, answer, d2, overflow), clock)
 
 
 def _host_index(series: np.ndarray, cfg: ServeConfig, normalize: bool):
@@ -408,6 +552,8 @@ class _ShardedBackend:
         self._cap: Optional[int] = None   # learned per-shard capacity
         self.stats: Optional[StatsTracker] = None   # set by SearchService
         self.last_d2h_bytes = 0
+        self.last_stages = ()          # no stages timed
+        self.last_certified = None
         self.last_trace = None
 
     @property
@@ -496,6 +642,8 @@ class _DistQuantizedBackend:
         self._cap: Optional[int] = None
         self.stats: Optional[StatsTracker] = None   # set by SearchService
         self.last_d2h_bytes = 0
+        self.last_stages = ()          # no stages timed
+        self.last_certified = None
         self.last_trace = None
 
     @property
@@ -545,6 +693,8 @@ class _FailoverBackend:
         self._stats: Optional[StatsTracker] = None
         self.last_coverage = None
         self.last_d2h_bytes = 0
+        self.last_stages = ()          # no stages timed
+        self.last_certified = None
         self.last_trace = None
 
     @property
@@ -587,11 +737,10 @@ class _FailoverBackend:
             q, eps, np.asarray(is_knn), k)
         self.last_coverage = cov
         self.last_d2h_bytes = gidx.nbytes + answer.nbytes + d2.nbytes
-        if self._stats is not None:
-            # Capacity covers each full shard, so overflow is structurally
-            # False: a query is exact iff every shard answered.
-            bad = int(overflow.sum()) if cov.exact else gidx.shape[0]
-            self._stats.on_certificates(gidx.shape[0] - bad, gidx.shape[0])
+        # Capacity covers each full shard, so overflow is structurally
+        # False: a query is exact iff every shard answered.
+        bad = int(overflow.sum()) if cov.exact else gidx.shape[0]
+        self.last_certified = (gidx.shape[0] - bad, gidx.shape[0])
         return gidx, answer, d2
 
 
@@ -848,7 +997,20 @@ class SearchService:
                 with self._device_lock:
                     self.backend.dispatch(q, eps, is_knn, kb,
                                           want_trace=self.cfg.trace)
+                    self._record_pass(qb)
         return self
+
+    def _record_pass(self, requests: int) -> tuple:
+        """Record the backend's last device pass in the stats, under one
+        lock: its stages, the bytes it copied to the host, its
+        certificates and the ``requests`` it answered; return its stages
+        ``((name, t0, t1, device_s), ...)``."""
+        b = self.backend
+        stages = b.last_stages
+        self.stats.on_pass(
+            [(name, t1 - t0, dev) for name, t0, t1, dev in stages],
+            b.last_d2h_bytes, b.last_certified, requests)
+        return stages
 
     # --- submission ---------------------------------------------------------
 
@@ -1055,6 +1217,9 @@ class SearchService:
                         q, eps, is_knn, k_bucket, want_trace=tracing)
                 t1 = time.perf_counter()
                 trace = self.backend.last_trace
+                # Before any reply: a pass's bytes and its requests land
+                # in the stats together.
+                stages = self._record_pass(len(live))
                 ids = self._ids
                 coverage = getattr(self.backend, "last_coverage", None)
         except BaseException:
@@ -1065,6 +1230,12 @@ class SearchService:
             raise
         self.breaker.on_success()
         self.stats.set_breaker(self.breaker.state, self.breaker.state_code)
+        # The answers are on the host from the end of the copy stage (the
+        # end of the call for a backend without stages): each request's
+        # reply_wait starts there.
+        t_ready = stages[-1][2] if stages else t1
+        for _, req in live:
+            req.t_ready = t_ready
         if not tracing:
             for i, req in live:
                 self._finish(req, idx[i], answer[i], d2[i], ids, coverage)
@@ -1072,38 +1243,59 @@ class SearchService:
         # The dispatch's outputs are on the host already (the backend
         # copies them), so t1 − t0 covers the whole device pass with no
         # sync added to measure it.
+        bid = live[0][1].batch_id
         self.tracer.record("dispatch", t0, t1, batch=len(live), bucket=qb,
-                           k=k_bucket)
+                           k=k_bucket, batch_id=bid)
+        engine_s = t1 - t0
+        for name, s0, s1, dev_s in stages:
+            self.tracer.record(name, s0, s1, device_s=dev_s, batch_id=bid,
+                               parent="dispatch")
+            if name == "engine":
+                engine_s = dev_s
+        # The engine stage's device time (its kernels, torch ops and the
+        # gaps between their launches), without the representation, the
+        # counting pass, the copy and the sync (the whole call for a
+        # backend without stages).
         self.calibration.record(
             batch=len(live), k=k_bucket, backend=type(self.backend).__name__,
-            measured_s=t1 - t0, estimate=self.backend.cost_estimate(
+            measured_s=engine_s, estimate=self.backend.cost_estimate(
                 qb, k_bucket))
         if trace is not None:
             # The distributed tier and the failover shards count no trace.
-            with self.tracer.span("verify", batch=len(live)):
+            with self.tracer.span("cascade_count", batch=len(live),
+                                  batch_id=bid):
                 live_trace = select_queries(trace, [i for i, _ in live])
                 totals = trace_totals(live_trace, self.backend.size)
                 totals.update(self.backend.trace_bytes(live_trace))
                 self.stats.on_cascade(totals)
-        with self.tracer.span("reply", batch=len(live)):
+        with self.tracer.span("reply", batch=len(live), batch_id=bid):
             for i, req in live:
                 self._finish(req, idx[i], answer[i], d2[i], ids, coverage)
+        for _, req in live:
+            self._request_spans(req)
+
+    def _request_spans(self, req: Request) -> None:
+        """A replied request's stages as spans: ``reply_wait``, its
+        ``reply.<kind>`` select step and ``postprocess`` (its ``queue``
+        stage is the batcher's ``enqueue`` span)."""
+        attrs = {"rid": req.rid, "batch_id": req.batch_id, "parent": "reply"}
+        rec = self.tracer.record
+        rec("reply_wait", req.t_ready, req.t_reply, **attrs)
+        rec(reply_stage(req.kind), req.t_reply, req.t_selected, **attrs)
+        rec("postprocess", req.t_selected, req.t_post, **attrs)
 
     def _finish(self, req: Request, idx_row, answer_row, d2_row, ids_map,
                 coverage=None):
-        if req.kind == KIND_KNN:
-            finite = np.isfinite(d2_row)
-            # Ascending (d², slot); slots are in row order, so ties go to
-            # the lowest database row.
-            order = np.lexsort((np.arange(d2_row.size), d2_row))
-            order = order[finite[order]][: req.k]
-            rows = idx_row[order]
-            dist = np.sqrt(d2_row[order])
-        else:
-            mask = answer_row & np.isfinite(d2_row)
-            rows = idx_row[mask]
-            dist = np.sqrt(d2_row[mask])
-        rows, dist = self._postprocess(req, rows, dist)
+        """One request's reply from its row of the pass's answers; its
+        stages stamped on ``req`` (``t_reply``, ``t_selected``,
+        ``t_post``)."""
+        req.t_reply = time.perf_counter()
+        rows, dist = _staged("repro." + reply_stage(req.kind), _select, req,
+                             idx_row, answer_row, d2_row)
+        req.t_selected = time.perf_counter()
+        rows, dist = _staged("repro.postprocess", self._postprocess, req,
+                             rows, dist)
+        req.t_post = time.perf_counter()
         if ids_map is not None:
             rows = ids_map[rows]
         if coverage is not None:
@@ -1130,12 +1322,15 @@ class SearchService:
         """The Prometheus text exposition of this service (what
         ``launch/serve.py --metrics`` serves), rebuilt per call from the
         stats snapshot and, when tracing, the calibration and span
-        aggregates: no work on the request path."""
-        from ..obs.metrics import build_registry
+        aggregates: no work on the request path.  The reference's
+        families, then the stage and D2H byte counters."""
+        from ..obs.metrics import build_registry, build_stage_registry
 
         cal = self.calibration.summary() if self.calibration else None
         spans = self.tracer.counts() if self.tracer else None
-        return build_registry(self.stats.snapshot(), cal, spans).render()
+        snap = self.stats.snapshot()
+        return (build_registry(snap, cal, spans).render()
+                + build_stage_registry(snap).render())
 
     # --- unbatched reference path -------------------------------------------
 
@@ -1154,6 +1349,7 @@ class SearchService:
         kk = _pow2_at_least(max(int(k), 1, self._k_floor), self.backend.size)
         with self._device_lock:
             idx, answer, d2 = self.backend.dispatch(q, eps, is_knn, kk)
+            self._record_pass(1)
             ids = self._ids
             coverage = getattr(self.backend, "last_coverage", None)
         req = Request(kind=kind, query=q[0], epsilon=epsilon,

@@ -21,6 +21,18 @@ counters of DESIGN.md §10: backend events (capacity escalations, fused→
 torch demotions, exactness-certificate outcomes) and — when the service
 runs with tracing enabled — the accumulated cascade pruning totals and
 per-tier bytes from the engines' ``QueryTrace`` counters.
+
+Always on, beside the request counters: the serving path's **stages**
+(``snapshot()["stages"]``: per stage ``count``, ``host_s``, ``device_s``,
+unrounded seconds) and the bytes the device passes copied to the host
+(``d2h_bytes``) with the requests those passes answered
+(``d2h_requests``, padding rows left out).  A device pass adds its stages
+(:data:`PASS_STAGES`, ``device_s`` from CUDA events on a card, the host's
+seconds on a CPU), bytes, requests and certificates under one lock
+(:meth:`StatsTracker.on_pass`), before any of its requests is replied to;
+a batch adds its served requests' latencies and stages
+(:data:`REQUEST_STAGES`, host work and waits, ``device_s`` 0) under one
+lock (:meth:`StatsTracker.on_served_batch`).
 """
 from __future__ import annotations
 
@@ -38,6 +50,23 @@ _RING = 8192   # latency / occupancy samples kept for percentile estimation
 CASCADE_KEYS = ("queries", "rows_screened", "after_c9", "after_c10",
                 "excluded_c9", "excluded_c10", "screen_survivors",
                 "verified", "answers", "bytes_screen", "bytes_verify")
+
+# The serving path's stages.  Per device pass: the queries' upload and
+# representation, the engine up to the copy, the copy of the answers to the
+# host.  Per served request: the wait in the queue to its batch's
+# formation, the wait from the end of the device pass to the start of its
+# own reply, the reply's select step by request kind, and the
+# answer-shaping hook (the subsequence exclusion zone).
+PASS_STAGES = ("represent", "engine", "copy")
+REQUEST_STAGES = ("queue", "reply_wait", "reply.knn", "reply.range",
+                  "postprocess")
+STAGE_KEYS = PASS_STAGES + REQUEST_STAGES
+
+
+def reply_stage(kind: str) -> str:
+    """The select stage of a request of ``kind`` (``serve.batcher``'s
+    ``KIND_KNN``, ``"knn"``; any other kind replies as a range request)."""
+    return "reply.knn" if kind == "knn" else "reply.range"
 
 
 class StatsTracker:
@@ -80,6 +109,10 @@ class StatsTracker:
         self.breaker_state = "closed"
         self.breaker_state_code = 0
         self.cascade = collections.Counter({k: 0 for k in CASCADE_KEYS})
+        # Per stage [count, host seconds, device seconds].
+        self._stages = {k: [0, 0.0, 0.0] for k in STAGE_KEYS}
+        self.d2h_bytes = 0
+        self.d2h_requests = 0
         self._latency = collections.deque(maxlen=_RING)
         self._occupancy = collections.deque(maxlen=_RING)
         self._queue_depth = collections.deque(maxlen=_RING)
@@ -108,10 +141,50 @@ class StatsTracker:
             self._occupancy.append(n_requests / max(1, bucket_slots))
             self._queue_depth.append(queue_depth)
 
-    def on_served(self, latency_s: float):
+    def on_served_batch(self, requests) -> None:
+        """The served requests of one batch (``serve.batcher.Request``),
+        under one lock: each one's latency, ``t_submit`` to ``t_done``,
+        and the stages its stamps close (a zero stamp: not reached).
+        ``queue``: ``t_submit`` to ``t_formed``; ``reply_wait``:
+        ``t_ready`` to ``t_reply``; ``reply.knn`` (a k-NN request) or
+        ``reply.range``: ``t_reply`` to ``t_selected``; ``postprocess``:
+        ``t_selected`` to ``t_post``."""
+        st = self._stages
+        queue, wait, post = st["queue"], st["reply_wait"], st["postprocess"]
         with self._lock:
-            self.served += 1
-            self._latency.append(latency_s)
+            for r in requests:
+                self.served += 1
+                self._latency.append(r.t_done - r.t_submit)
+                if r.t_formed:
+                    queue[0] += 1
+                    queue[1] += r.t_formed - r.t_submit
+                if r.t_reply:
+                    if r.t_ready:
+                        wait[0] += 1
+                        wait[1] += r.t_reply - r.t_ready
+                    sel = st[reply_stage(r.kind)]
+                    sel[0] += 1
+                    sel[1] += r.t_selected - r.t_reply
+                    post[0] += 1
+                    post[1] += r.t_post - r.t_selected
+
+    def on_pass(self, stages=(), d2h_bytes: int = 0,
+                certified: tuple | None = None, requests: int = 0) -> None:
+        """One device pass, under one lock: its stages as ``(name,
+        host_s, device_s)``, the bytes of its answers copied to the host,
+        its certificate outcomes ``(exact, total)`` and the requests it
+        answered (the bytes' denominator, kept in the same record)."""
+        with self._lock:
+            for name, host_s, device_s in stages:
+                acc = self._stages[name]
+                acc[0] += 1
+                acc[1] += host_s
+                acc[2] += device_s
+            self.d2h_bytes += int(d2h_bytes)
+            self.d2h_requests += int(requests)
+            if certified is not None:
+                self.certified_exact += int(certified[0])
+                self.certified_total += int(certified[1])
 
     def on_escalation(self, n: int = 1):
         with self._lock:
@@ -120,11 +193,6 @@ class StatsTracker:
     def on_demotion(self, n: int = 1):
         with self._lock:
             self.demotions += n
-
-    def on_certificates(self, exact: int, total: int):
-        with self._lock:
-            self.certified_exact += int(exact)
-            self.certified_total += int(total)
 
     def on_shed(self, n: int = 1):
         with self._lock:
@@ -205,6 +273,10 @@ class StatsTracker:
                     "refresh_failures": self.refresh_failures,
                 },
                 "cascade": dict(self.cascade),
+                "stages": {k: {"count": c, "host_s": h, "device_s": d}
+                           for k, (c, h, d) in self._stages.items()},
+                "d2h_bytes": self.d2h_bytes,
+                "d2h_requests": self.d2h_requests,
             }
         out["latency_ms"] = {
             "p50": round(float(np.percentile(lat, 50)), 3) if lat.size else 0.0,

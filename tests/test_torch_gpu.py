@@ -12,6 +12,7 @@ product in another f32 order than the library's matrix-vector product,
 and the matmul form cancels terms of size ~n = 128.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -214,6 +215,45 @@ def test_service_on_card_is_exact_and_uses_the_kernels(cuda):
         assert fq.fused_range.launches > 0 and fq.fused_topk.launches > 0
         assert check_exactness(svc, wl, result) == 0
     assert result.served == len(wl)
+
+
+def test_service_stages_on_card_from_cuda_events(cuda, tmp_path):
+    db = make_wafer_like(1 << 16, 128, seed=2)
+    svc = SearchService.from_series(
+        db, ServeConfig(trace=True, profile_dir=str(tmp_path / "prof")))
+    svc.warmup(qs=(8,))
+    before = svc.stats.snapshot()
+    wl = make_workload(make_queries(db, 16, seed=3),
+                       WorkloadSpec(n_requests=32, k=5, epsilon=2.0))
+    with svc:
+        result = run_closed_loop(svc, wl, clients=8)
+    assert result.served == len(wl)
+    snap = svc.stats.snapshot()
+    st = {k: {f: v[f] - before["stages"][k][f] for f in v}
+          for k, v in snap["stages"].items()}
+    passes = snap["batches"]
+    for name in ("represent", "engine", "copy"):
+        assert st[name]["count"] == passes, name
+        assert 0 < st[name]["device_s"], name
+    # The copy's device time is the dense answers' D2H; it cannot outlast
+    # its stage on the host, which waits for it.
+    assert st["copy"]["device_s"] <= st["copy"]["host_s"] * 1.05
+    spans = svc.tracer.snapshot()
+    disp = [s for s in spans if s.name == "dispatch"]
+    dev = sum(s.attrs["device_s"] for s in spans
+              if s.attrs.get("parent") == "dispatch")
+    assert dev <= sum(s.t1 - s.t0 for s in disp)
+    cal = svc.calibration.snapshot()
+    eng = [s.attrs["device_s"] for s in spans if s.name == "engine"]
+    assert [c.measured_s for c in cal] == eng
+    assert snap["d2h_bytes"] - before["d2h_bytes"] == sum(
+        s.attrs["bucket"] * (len(db) * 9 + 1) for s in disp)
+    assert snap["d2h_requests"] - before["d2h_requests"] == len(wl)
+    names = set()
+    for path in (tmp_path / "prof").glob("dispatch_*.json"):
+        names |= {e.get("name") for e in
+                  json.loads(path.read_text())["traceEvents"]}
+    assert {"repro.represent", "repro.engine", "repro.copy"} <= names
 
 
 # ---------------------------------------------------------------------------

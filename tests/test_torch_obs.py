@@ -410,6 +410,9 @@ def test_untraced_service_never_counts(db, monkeypatch, backend):
     assert res.served == len(workload)
     assert svc.stats.snapshot()["cascade"]["queries"] == 0
     assert svc.backend.last_trace is None
+    text = svc.metrics_text()
+    for fam in tmetrics.STAGE_FAMILIES:
+        assert f"# TYPE {fam} counter" in text, fam
 
 
 # ---------------------------------------------------------------------------
@@ -493,14 +496,20 @@ def test_calibration_record_is_the_h100_arithmetic(tmp_path, bound_by):
 
 
 def busy_stats() -> StatsTracker:
+    from repro_torch.serve.batcher import Request
+
     st = StatsTracker()
     for _ in range(5):
         st.on_submit()
     st.on_batch(3, 4, 2)
+    served = []
     for lat in (0.01, 0.02, 0.03):
-        st.on_served(lat)
+        req = Request(kind="knn", query=np.zeros(4, np.float32))
+        req.t_submit, req.t_done = 1.0, 1.0 + lat
+        served.append(req)
+    st.on_served_batch(served)
     st.on_escalation()
-    st.on_certificates(3, 4)
+    st.on_pass(certified=(3, 4))
     st.on_cascade({"queries": 3, "rows_screened": 768, "after_c9": 40,
                    "after_c10": 12, "excluded_c9": 700, "excluded_c10": 30,
                    "screen_survivors": 12, "verified": 12, "answers": 5,
@@ -559,11 +568,13 @@ def test_traced_service_exact_and_surfaces_populated(db, backend):
     assert cascade["verified"] > 0 and cascade["answers"] > 0
     assert cascade["bytes_screen"] > 0 and cascade["bytes_verify"] > 0
     assert svc.tracer.recorded > 0
-    assert {"enqueue", "batch_form", "dispatch", "verify",
+    assert {"enqueue", "batch_form", "dispatch", "cascade_count",
             "reply"} <= set(svc.tracer.counts())
     assert svc.calibration.recorded == snap["batches"]
     for fam in tmetrics.REQUIRED_FAMILIES:
         assert f"# TYPE {fam}" in text, fam
+    for fam in tmetrics.STAGE_FAMILIES:
+        assert f"# TYPE {fam} counter" in text, fam
     assert 'repro_cascade_rows_total{stage="verified"} 0' not in text
 
 
