@@ -14,9 +14,9 @@ The registry is rebuilt per scrape from the snapshot, so it adds no work
 to the request path; every family exists (with clean zeros) from the
 first scrape because the snapshot has every key from construction.
 ``REQUIRED_FAMILIES`` is the contract a scrape is checked against.
-:func:`build_stage_registry` adds the port's serving-path stage and
-device-to-host byte counters (``STAGE_FAMILIES``), which the service
-renders after the reference's families, at full precision.
+:func:`build_stage_registry` adds the port's serving-path stage,
+device-to-host byte and select-slot counters (``STAGE_FAMILIES``), which
+the service renders after the reference's families, at full precision.
 ``/healthz`` answers when a ``health_fn`` is given (the launcher passes
 ``SearchService.health``): 200 when ready, 503 when not, the detail as
 JSON; without one it answers 404.
@@ -50,11 +50,12 @@ REQUIRED_FAMILIES = (
 )
 
 # The serving path's stage counters (``serve.stats``: the snapshot's
-# ``stages`` and ``d2h_bytes``).
+# ``stages``, ``d2h_bytes`` and ``select_slots``).
 STAGE_FAMILIES = (
     "repro_stage_seconds_total",
     "repro_stage_events_total",
     "repro_d2h_bytes_total",
+    "repro_select_slots_total",
 )
 
 _LABEL_ESC = str.maketrans({"\\": r"\\", '"': r"\"", "\n": r"\n"})
@@ -187,10 +188,11 @@ def build_registry(snapshot: dict, calibration: dict | None = None,
 
 def build_stage_registry(snapshot: dict) -> MetricsRegistry:
     """The stage families of a stats snapshot: seconds per stage and clock
-    (``host``, ``device``), events per stage, and the bytes the device
-    passes copied to the host; counters, rendered with 17 significant
-    digits so that a rate over them is not rounded away.  Every stage of
-    the snapshot renders, with zeros before traffic."""
+    (``host``, ``device``), events per stage, the bytes the device
+    passes copied to the host and the slots the select steps read;
+    counters, rendered with 17 significant digits so that a rate over
+    them is not rounded away.  Every stage of the snapshot renders, with
+    zeros before traffic."""
     reg = MetricsRegistry(value_format=".17g")
     stages = snapshot.get("stages", {}) or {}
     for stage, acc in stages.items():
@@ -207,6 +209,9 @@ def build_stage_registry(snapshot: dict) -> MetricsRegistry:
     reg.add("repro_d2h_bytes_total", snapshot.get("d2h_bytes", 0),
             kind="counter",
             help_text="Bytes of answers copied from the device to the host")
+    reg.add("repro_select_slots_total", snapshot.get("select_slots", 0),
+            kind="counter",
+            help_text="Candidate slots the replies' select steps read")
     return reg
 
 

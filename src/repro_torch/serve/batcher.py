@@ -143,7 +143,8 @@ class Request:
     # its batch's (at formation).  Stage stamps on time.perf_counter (0.0:
     # not reached), read by StatsTracker.on_served_batch: the batch formed,
     # the device pass's answers on the host, this request's reply started,
-    # its select step done, its answer shaped, the request resolved.
+    # its select step done, its answer shaped, the request resolved.  And
+    # the candidate slots its select step read.
     rid: int = 0
     batch_id: int = 0
     t_formed: float = 0.0
@@ -152,6 +153,7 @@ class Request:
     t_selected: float = 0.0
     t_post: float = 0.0
     t_done: float = 0.0
+    select_slots: int = 0
 
     def _resolve(self, status: str, ids=None, distances=None, error=None):
         self.t_done = time.perf_counter()

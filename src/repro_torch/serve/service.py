@@ -48,7 +48,8 @@ them, in no stage).  The service records every pass of every backend,
 with its bytes, certificates and requests, before it replies to any of
 them; every served request adds ``queue``, ``reply_wait``, ``reply.knn`` /
 ``reply.range`` (the select step of :meth:`_finish`) and
-``postprocess``.  While a ``torch.profiler`` records, each stage that is
+``postprocess``, and the candidate slots its select step read to
+``select_slots``.  While a ``torch.profiler`` records, each stage that is
 work on the dispatcher thread (all but the two waits) is also a
 ``repro.<stage>`` range on the profiler's timeline.
 
@@ -195,17 +196,40 @@ def _staged(name: str, fn, *args):
     return fn(*args)
 
 
+#: Mask slots a block of :func:`_answer_slots`' first, vectorised read.
+_SCAN_BLOCK = 512
+
+
+def _answer_slots(answer_row) -> np.ndarray:
+    """``np.flatnonzero(answer_row)``, reading most of a sparse row once,
+    as blocks of :data:`_SCAN_BLOCK` slots, with a vectorised ``any``:
+    only the blocks that hold an answer go through ``flatnonzero``, whose
+    loop over a 2^22-slot row takes milliseconds (4-7 ms with numpy 2.3
+    on an H100's host, where the block read takes under one)."""
+    nb = answer_row.size // _SCAN_BLOCK
+    head = answer_row[: nb * _SCAN_BLOCK].reshape(nb, _SCAN_BLOCK)
+    blk = np.flatnonzero(head.any(axis=1))
+    p = np.flatnonzero(head[blk])
+    tail = np.flatnonzero(answer_row[nb * _SCAN_BLOCK:]) + nb * _SCAN_BLOCK
+    return np.concatenate((blk[p // _SCAN_BLOCK] * _SCAN_BLOCK
+                           + p % _SCAN_BLOCK, tail))
+
+
 def _select(req: Request, idx_row, answer_row, d2_row):
     """A reply's select step: a k-NN request's k nearest rows, ascending
     (d², slot) (slots are in row order, so ties go to the lowest database
-    row), or a range request's answer rows; their rows and distances."""
+    row), or a range request's answer rows; their rows and distances.
+
+    Its candidates are the answer mask's slots with a finite d²: every
+    engine sets d² = +inf off its answers, so the rows of a dense (Q, B)
+    pass are never sorted whole.  The slots it read are noted in
+    ``req.select_slots``."""
+    s = _answer_slots(answer_row)
+    req.select_slots = int(s.size)
+    s = s[np.isfinite(d2_row[s])]
     if req.kind == KIND_KNN:
-        finite = np.isfinite(d2_row)
-        order = np.lexsort((np.arange(d2_row.size), d2_row))
-        order = order[finite[order]][: req.k]
-        return idx_row[order], np.sqrt(d2_row[order])
-    mask = answer_row & np.isfinite(d2_row)
-    return idx_row[mask], np.sqrt(d2_row[mask])
+        s = s[np.lexsort((s, d2_row[s]))][: req.k]
+    return idx_row[s], np.sqrt(d2_row[s])
 
 
 class _PassClock:
@@ -1355,6 +1379,7 @@ class SearchService:
         req = Request(kind=kind, query=q[0], epsilon=epsilon,
                       k=max(int(k), 1), meta=meta)
         self._finish(req, idx[0], answer[0], d2[0], ids, coverage)
+        self.stats.on_select(req.select_slots)
         return req.ids, req.distances
 
 

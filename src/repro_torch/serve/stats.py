@@ -31,8 +31,9 @@ unrounded seconds) and the bytes the device passes copied to the host
 seconds on a CPU), bytes, requests and certificates under one lock
 (:meth:`StatsTracker.on_pass`), before any of its requests is replied to;
 a batch adds its served requests' latencies and stages
-(:data:`REQUEST_STAGES`, host work and waits, ``device_s`` 0) under one
-lock (:meth:`StatsTracker.on_served_batch`).
+(:data:`REQUEST_STAGES`, host work and waits, ``device_s`` 0) and the
+candidate slots their select steps read (``select_slots``) under one lock
+(:meth:`StatsTracker.on_served_batch`).
 """
 from __future__ import annotations
 
@@ -113,6 +114,7 @@ class StatsTracker:
         self._stages = {k: [0, 0.0, 0.0] for k in STAGE_KEYS}
         self.d2h_bytes = 0
         self.d2h_requests = 0
+        self.select_slots = 0
         self._latency = collections.deque(maxlen=_RING)
         self._occupancy = collections.deque(maxlen=_RING)
         self._queue_depth = collections.deque(maxlen=_RING)
@@ -148,7 +150,8 @@ class StatsTracker:
         ``queue``: ``t_submit`` to ``t_formed``; ``reply_wait``:
         ``t_ready`` to ``t_reply``; ``reply.knn`` (a k-NN request) or
         ``reply.range``: ``t_reply`` to ``t_selected``; ``postprocess``:
-        ``t_selected`` to ``t_post``."""
+        ``t_selected`` to ``t_post``; and the candidate slots each select
+        step read (``select_slots``)."""
         st = self._stages
         queue, wait, post = st["queue"], st["reply_wait"], st["postprocess"]
         with self._lock:
@@ -165,6 +168,7 @@ class StatsTracker:
                     sel = st[reply_stage(r.kind)]
                     sel[0] += 1
                     sel[1] += r.t_selected - r.t_reply
+                    self.select_slots += r.select_slots
                     post[0] += 1
                     post[1] += r.t_post - r.t_selected
 
@@ -185,6 +189,12 @@ class StatsTracker:
             if certified is not None:
                 self.certified_exact += int(certified[0])
                 self.certified_total += int(certified[1])
+
+    def on_select(self, slots: int) -> None:
+        """The candidate slots of a select step outside a served batch
+        (a direct replay)."""
+        with self._lock:
+            self.select_slots += int(slots)
 
     def on_escalation(self, n: int = 1):
         with self._lock:
@@ -277,6 +287,7 @@ class StatsTracker:
                            for k, (c, h, d) in self._stages.items()},
                 "d2h_bytes": self.d2h_bytes,
                 "d2h_requests": self.d2h_requests,
+                "select_slots": self.select_slots,
             }
         out["latency_ms"] = {
             "p50": round(float(np.percentile(lat, 50)), 3) if lat.size else 0.0,

@@ -196,6 +196,24 @@ def test_masked_rows_and_huge_seed_radius_on_card(cuda):
     assert not got[1][:, ~vmask].any()
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_mixed_fused_d2_finite_only_on_answers(cuda, masked):
+    # The service's select step reads only the answer mask's slots, which
+    # is exact while the fused pass keeps d² = +inf off its answers.
+    index, qr, _ = kernel_args((33, 1000, (8, 16), 10), cuda)
+    vmask = None
+    if masked:
+        vmask = torch.ones(1000, dtype=torch.bool, device=cuda)
+        vmask[::7] = False
+    eps = torch.linspace(1.0, 3.0, 33, device=cuda)
+    knn = torch.arange(33, device=cuda) % 2 == 0
+    _, answer, d2, _ = engine.mixed_query_fused(index, qr, eps, knn, 5,
+                                                valid_mask=vmask)
+    answer, d2 = answer.cpu().numpy(), d2.cpu().numpy()
+    assert answer[::2].sum(axis=-1).min() >= 5
+    assert np.all(answer | ~np.isfinite(d2))
+
+
 def test_wrappers_raise_on_mixed_devices(cuda):
     _, _, args = kernel_args((4, 200, (8, 16), 10), cuda)
     with pytest.raises(ValueError, match="expected cuda"):
