@@ -40,8 +40,8 @@ def control_readings(cell: dict, seed: int, n_requests: int,
     fetch = harness.ref_fetch(config, traffic, excl)
     q = inputs["queries"][rows]
     served = compare.control_answers(db, q, reqs, fetch)
-    ok, checks = harness.check(db, q, reqs, served, fetch, traffic["check"],
-                               0)
+    ok, checks = harness.check(db, inputs["queries"], rows, reqs, served,
+                               fetch, traffic["check"], 0)
     return {"correct": ok, "checks": checks}
 
 

@@ -169,15 +169,23 @@ def judged_requests(loop, inputs: dict, traffic: dict, excl: int) -> tuple:
     return np.asarray(rows, np.int64), reqs, served
 
 
-def check(db, queries: np.ndarray, reqs: list, served: list, fetch: int,
-          limits: dict, unanswered: int) -> tuple:
-    """``(correct, checks)``: the served answers judged by the reference."""
+def check(db, queries: np.ndarray, rows: np.ndarray, reqs: list,
+          served: list, fetch: int, limits: dict, unanswered: int) -> tuple:
+    """``(correct, checks)``: the served answers judged by the reference.
+
+    ``queries``: the traffic's raw queries; ``rows``: the row of them each
+    request of ``reqs`` / ``served`` sent.  Requests of one row ask the
+    same, so the reference scans each distinct row once, and each request
+    is judged against its row's answer."""
     from .reference import brute, compare
 
     tau = float(limits["d2_gap_limit"])
-    ref = brute.scan(db, queries, [r["knn"] for r in reqs],
-                     [r["eps"] for r in reqs], fetch, tau)
-    got = compare.judge(db, queries, reqs, served, ref, tau)
+    distinct, first, of_row = np.unique(rows, return_index=True,
+                                        return_inverse=True)
+    ref = brute.scan(db, queries[distinct], [reqs[j]["knn"] for j in first],
+                     [reqs[j]["eps"] for j in first], fetch, tau)
+    got = compare.judge(db, queries[rows], reqs, served,
+                        [ref[u] for u in of_row], tau)
     checks = {
         "d2_gap": {"value": got["d2_gap"], "limit": tau},
         "set_faults": {"value": got["set_faults"],
@@ -294,7 +302,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
     fetch = ref_fetch(config, traffic, excl)
     limits = traffic["check"]
     rec["correct"], rec["checks"] = check(
-        db, queries[rows], reqs, served, fetch, limits, arith.failed(loop))
+        db, queries, rows, reqs, served, fetch, limits, arith.failed(loop))
     rec["check_s"] = time.perf_counter() - t_check
     return rec
 

@@ -20,6 +20,10 @@ import numpy as np
 import torch
 
 ZNORM_EPS = 1e-8
+# The most queries whose distances to one block of rows are held at once:
+# (QUERY_CHUNK, block) float64 temporaries, ~1 GiB each at the default
+# block, whatever the number of queries.
+QUERY_CHUNK = 512
 
 
 def znorm(x: torch.Tensor) -> torch.Tensor:
@@ -111,7 +115,11 @@ def scan(db, queries: np.ndarray, is_knn, eps, fetch: int, tau: float,
 
     Returns, per query, ``(ids int64, d2 float64)``: for a range query
     the rows with d² ≤ ε² + τ (ε² exactly for the control) in id order;
-    for a k-NN query the ``fetch`` nearest rows, ascending by (d², id)."""
+    for a k-NN query the ``fetch`` nearest rows, ascending by (d², id).
+
+    Each block of rows is loaded and z-normalised once; its distances
+    are taken for at most ``QUERY_CHUNK`` queries of one kind at a time,
+    so the device memory does not grow with the number of queries."""
     dev = db.device
     zq = _prepare(torch.as_tensor(queries).to(dev), precision)
     is_knn = np.asarray(is_knn, bool)
@@ -121,32 +129,29 @@ def scan(db, queries: np.ndarray, is_knn, eps, fetch: int, tau: float,
     rng_rows = np.flatnonzero(~is_knn)
     lim2 = eps[rng_rows] ** 2 + (0.0 if precision == "tf32" else tau)
     lim2 = torch.as_tensor(lim2, device=dev)[:, None]
-    hits = []                                  # (query, row, d2) per block
+    zr = zq[torch.as_tensor(rng_rows, device=dev)]
+    zk = zq[torch.as_tensor(knn_rows, device=dev)]
+    rng_chunks = _chunks(rng_rows.size)
+    knn_chunks = _chunks(knn_rows.size)
+    hits = []                      # (range query, row, d2) per block, chunk
     kf = min(int(fetch), db.n_rows)
-    best_d = best_i = None
+    best = [None] * len(knn_chunks)       # (d2, ids) of each k-NN chunk
     for i0 in range(0, db.n_rows, block):
         i1 = min(i0 + block, db.n_rows)
-        d2 = _d2(zq, _prepare(db.block(i0, i1), precision), precision)
-        if rng_rows.size:
-            sub = d2[torch.as_tensor(rng_rows, device=dev)]
-            qi, ri = torch.nonzero(sub <= lim2.to(sub.dtype), as_tuple=True)
-            hits.append((qi.cpu().numpy(), (ri + i0).cpu().numpy(),
-                         sub[qi, ri].double().cpu().numpy()))
-        if knn_rows.size:
-            sub = d2[torch.as_tensor(knn_rows, device=dev)].double()
-            kk = min(kf, i1 - i0)
-            vals, idx = torch.topk(sub, kk, dim=-1, largest=False)
-            idx = idx + i0
-            if best_d is not None:
-                vals = torch.cat([best_d, vals], dim=-1)
-                idx = torch.cat([best_i, idx], dim=-1)
-                # Ties to the lowest id: order by (d², id) before cutting.
-                order = np.lexsort((idx.cpu().numpy(), vals.cpu().numpy()))
-                order = torch.as_tensor(order[:, :kf], device=dev)
-                vals = torch.gather(vals, -1, order)
-                idx = torch.gather(idx, -1, order)
-            best_d, best_i = vals, idx
-        del d2
+        zx = _prepare(db.block(i0, i1), precision)
+        for c in rng_chunks:
+            d2 = _d2(zr[c], zx, precision)
+            qi, ri = torch.nonzero(d2 <= lim2[c].to(d2.dtype),
+                                   as_tuple=True)
+            hits.append(((qi + c.start).cpu().numpy(),
+                         (ri + i0).cpu().numpy(),
+                         d2[qi, ri].double().cpu().numpy()))
+            del d2
+        for j, c in enumerate(knn_chunks):
+            d2 = _d2(zk[c], zx, precision).double()
+            best[j] = _fold_nearest(best[j], d2, i0, kf)
+            del d2
+        del zx
     out: list = [None] * M
     if rng_rows.size:
         qi = np.concatenate([h[0] for h in hits])
@@ -159,11 +164,33 @@ def scan(db, queries: np.ndarray, is_knn, eps, fetch: int, tau: float,
             sl = slice(cuts[j], cuts[j + 1])
             out[q] = (ri[sl].astype(np.int64), dd[sl])
     if knn_rows.size:
-        bd, bi = best_d.cpu().numpy(), best_i.cpu().numpy()
+        bd = np.concatenate([b[0].cpu().numpy() for b in best])
+        bi = np.concatenate([b[1].cpu().numpy() for b in best])
         for j, q in enumerate(knn_rows):
             order = np.lexsort((bi[j], bd[j]))
             out[q] = (bi[j][order].astype(np.int64), bd[j][order])
     return out
+
+
+def _chunks(m: int) -> list:
+    """Slices of at most ``QUERY_CHUNK`` over ``m`` queries."""
+    return [slice(c, min(c + QUERY_CHUNK, m))
+            for c in range(0, m, QUERY_CHUNK)]
+
+
+def _fold_nearest(best, d2: torch.Tensor, i0: int, kf: int) -> tuple:
+    """``best`` (the ``kf`` nearest so far, or None) with the block of
+    rows from ``i0`` on, whose d² is ``d2``, folded in."""
+    vals, idx = torch.topk(d2, min(kf, d2.shape[1]), dim=-1, largest=False)
+    idx = idx + i0
+    if best is None:
+        return vals, idx
+    vals = torch.cat([best[0], vals], dim=-1)
+    idx = torch.cat([best[1], idx], dim=-1)
+    # Ties to the lowest id: order by (d², id) before cutting.
+    order = np.lexsort((idx.cpu().numpy(), vals.cpu().numpy()))
+    order = torch.as_tensor(order[:, :kf], device=vals.device)
+    return torch.gather(vals, -1, order), torch.gather(idx, -1, order)
 
 
 def distances_sq(db, query: np.ndarray, ids: np.ndarray) -> np.ndarray:
