@@ -37,10 +37,24 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    run needs).
 5. The full-precision slice: with the launch counts set to 0, 64 requests
    from 16 closed-loop clients (k-NN fraction 0.5, k = 5, ε = 2); both
-   kernels must have launched.  Every request is replayed alone
-   (``check_exactness``: 0 mismatches), and 16 of them are checked
+   kernels and the compaction's two (``compact_count`` once a pass,
+   ``compact_write``) must have launched.  Every request is replayed
+   alone (``check_exactness``: 0 mismatches), and 16 of them are checked
    against an f64 brute force on the card.
-6. Where the time of one served micro-batch goes.
+6. Where the time of one served micro-batch goes: the fused pass's
+   steps, its compaction, the copy of the compact answers and the host's
+   replies.  Then the compaction at the benchmark cells' pass shapes
+   (``[compact]`` lines): a real fused pass over 2^22 random walks of
+   length 256 made on the card (Q = 32, k = 5, range at ε 1 and 2) and
+   over the 2^22 windows of 16 random walks (Q = 4, 1-NN, range at ε 3);
+   ``compact_count`` and ``compact_write`` on its answers equal their
+   plain versions and ``engine.compact_dense`` bit for bit; each
+   kernel's device time, its plain version's, a library call's
+   (``Tensor.sum``, ``torch.nonzero``) and its least bytes over
+   3.35 TB/s (``cost_model.compact_step_bytes``).  The torch engine's
+   dense fallback at the synth shape, compacted as served beside the
+   dense copy, in turns (``[compact-dense-fallback]``: host ms, peak
+   memory, bytes; every compacted row equal to its dense row).
 7. The quantized resident tier: ``SearchService.from_series`` with
    ``quantization="int8"`` over the same series, and a bf16 tier of the
    same host index.  The quantized kernels (``fused_quant_range``,
@@ -856,8 +870,10 @@ def brute_force_check(series, workload, result, n_check: int,
 def breakdown(torch, engine, fq, service, queries,
               label: str = "breakdown") -> dict:
     """Where one served micro-batch (Q = 32, k bucket 8, half k-NN) spends
-    its time: the steps of ``engine.mixed_query_fused`` timed with CUDA
-    events, then the device-to-host copy and the host ``_finish``."""
+    its time: the steps of ``engine.mixed_query_fused`` and the
+    compaction of its answers (``engine.compact_dense``, the counts' read
+    included) timed with CUDA events, then the device-to-host copy of the
+    compact answers and the host ``_finish`` over their rows."""
     from repro_torch.serve.batcher import KIND_KNN, KIND_RANGE, Request
     index, cfg = service.backend.index, service.cfg
     dev = index.device
@@ -891,28 +907,30 @@ def breakdown(torch, engine, fq, service, queries,
             **engine._fused_inputs(index, qr, index.residuals,
                                    engine._cascade_eps(eps, knn_col)),
             block_q=rq, block_b=rb)
-        idx = torch.arange(index.size, dtype=torch.int32,
-                           device=dev)[None, :].expand(Q, index.size)
+        overflow = torch.zeros((Q,), dtype=torch.bool, device=dev)
         ev[4].record()
-        return idx, ans, d2, idxp
+        count, idx, d2c = engine.compact_dense(ans, d2)
+        ev[5].record()
+        return count, idx, d2c, overflow, idxp
 
-    evs = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     run(evs)
     torch.cuda.synchronize()
-    reps, acc = 5, np.zeros(4)
+    reps, acc = 5, np.zeros(5)
     for _ in range(reps):
-        idx, ans, d2, idxp = run(evs)
+        count, idx, d2c, overflow, idxp = run(evs)
         torch.cuda.synchronize()
-        acc += [evs[j].elapsed_time(evs[j + 1]) for j in range(4)]
+        acc += [evs[j].elapsed_time(evs[j + 1]) for j in range(5)]
     acc /= reps
     t0 = time.perf_counter()
-    host = [t.cpu().numpy() for t in (idx, ans, d2)]
+    host = [t.cpu().numpy() for t in (idx, d2c, overflow)]
     t_copy = (time.perf_counter() - t0) * 1e3
+    slots = np.arange(host[0].shape[1])
     reqs = [Request(kind=KIND_KNN if is_knn[i] else KIND_RANGE, query=qs[i],
                     epsilon=float(eps_np[i]), k=5) for i in range(Q)]
     t0 = time.perf_counter()
     for i, req in enumerate(reqs):
-        service._finish(req, host[0][i], host[1][i], host[2][i],
+        service._finish(req, host[0][i], slots < count[i], host[1][i],
                         service._ids)
     t_finish = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
@@ -922,14 +940,226 @@ def breakdown(torch, engine, fq, service, queries,
     out = {
         "queries_and_seed_ms": acc[0], "fused_topk_ms": acc[1],
         "reverify_gather_ms": acc[2], "fused_range_ms": acc[3],
+        "compact_ms": acc[4], "compact_C": int(host[0].shape[1]),
         "d2h_copy_ms": t_copy, "host_finish_ms": t_finish,
         "dispatch_total_ms": t_dispatch,
-        "d2h_bytes": int(sum(a.nbytes for a in host)),
+        "d2h_bytes": int(sum(a.nbytes for a in host) + count.nbytes),
         "reverify_gather_bytes": int(idxp.numel() * n * 4),
         "topk_partials_per_query": int(idxp.shape[1]),
     }
     log(f"[{label}] " + json.dumps(out, sort_keys=True))
     return out
+
+
+# The benchmark cells' pass shapes (portbench/configs): synth-rw256-4M's
+# saturated batches (Q = 32 over 2^22 random walks of length 256, k = 5,
+# range at ε 1 and 2) and rw-subseq-4M's light ones (Q = 4 over the
+# W = 2^22 windows of 16 random walks, 1-NN, range at ε 3), half k-NN.
+COMPACT_CELLS = {
+    "synth": dict(rows=1 << 22, length=256, Q=32, k=5, eps=(1.0, 2.0)),
+    "subseq": dict(streams=16, stream_len=262_271, window=128, Q=4, k=1,
+                   eps=(3.0,)),
+}
+
+
+def compact_cell_index(torch, engine, ss, name: str, seed: int):
+    """A cell's index on the card, its rows made from ``seed`` as the
+    benchmark makes them (cumulative sums of N(0, 1) steps): ``(index,
+    queries (Q, n) on the card)``, the queries rows or windows plus noise
+    of 0.05."""
+    from repro_torch.core.fastsax import FastSAXConfig
+    c = COMPACT_CELLS[name]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if name == "synth":
+        x = torch.cumsum(torch.randn((c["rows"], c["length"]), generator=g,
+                                     device="cuda"), dim=1)
+        index = engine.build_device_index(x, (8, 16), 10)
+        del x
+    else:
+        rng = np.random.default_rng(seed)
+        streams = np.cumsum(rng.standard_normal(
+            (c["streams"], c["stream_len"]), dtype=np.float32), axis=1)
+        hidx = ss.build_subseq_index(streams,
+                                     FastSAXConfig(n_segments=(8, 16)),
+                                     c["window"], 1)
+        index = ss.subseq_device_index(hidx).index
+    rows = torch.randint(index.size, (c["Q"],), generator=g, device="cuda")
+    q = index.series[rows] + 0.05 * torch.randn(
+        (c["Q"], index.n), generator=g, device="cuda")
+    return index, q
+
+
+def compact_figures(torch, engine, fq, ref, answer, d2, label: str) -> dict:
+    """The compaction kernels on one pass's (Q, B) answers: bit for bit
+    against their plain versions (and ``engine.compact_dense``), then the
+    kernels' device time back to back (C known, so no read between
+    them), the step as the engine runs it (the counts read to size C),
+    the plain versions', ``torch.nonzero``'s (one library call that
+    finds the same slots, without their d² or a row layout) and the
+    least bytes the step moves over 3.35 TB/s."""
+    from repro_torch.core.cost_model import compact_step_bytes
+    Q, B = answer.shape
+    tiles, count = fq.compact_count(answer)
+    C = int(count.max())
+    idx, out = fq.compact_write(answer, d2, tiles, count, C)
+    want_tiles, want_count = ref.compact_count_ref(answer, fq.COMPACT_TILE)
+    check(torch.equal(tiles, want_tiles) and torch.equal(count, want_count),
+          f"{label}: compact_count differs from its plain version")
+    want_idx, want_out = ref.compact_write_ref(answer, d2, C)
+    check(torch.equal(idx, want_idx)
+          and torch.equal(out.view(torch.int32), want_out.view(torch.int32)),
+          f"{label}: compact_write differs from its plain version")
+    check(int(count.sum()) == int(answer.sum()),
+          f"{label}: the counts miss answers")
+    e_count, e_idx, e_out = engine.compact_dense(answer, d2)
+    check(np.array_equal(e_count, count.cpu().numpy())
+          and torch.equal(e_idx, idx)
+          and torch.equal(e_out.view(torch.int32), out.view(torch.int32)),
+          f"{label}: engine.compact_dense differs from the kernels")
+    del want_tiles, want_count, want_idx, want_out, e_idx, e_out
+
+    def kernels():
+        t, c = fq.compact_count(answer)
+        fq.compact_write(answer, d2, t, c, C)
+
+    # The step's least bytes, split: the count reads the mask and writes
+    # the tiles' counts; the row counts' read to the host is neither
+    # kernel's; the write moves the rest.
+    nbytes = compact_step_bytes(tiles.cpu().numpy(), B, fq.COMPACT_TILE, C)
+    count_bytes = Q * B + tiles.numel() * 4
+    write_bytes = nbytes - count_bytes - Q * 4
+    ms = device_ms(torch, kernels, 20)
+    count_ms = device_ms(torch, lambda: fq.compact_count(answer), 20)
+    out = {"Q": Q, "B": B, "C": C, "answers": int(count.sum()),
+           "answer_tiles": int((tiles != 0).sum()),
+           "tiles": int(tiles.numel()), "ms": ms,
+           "step_ms": cuda_ms(torch, lambda: engine.compact_dense(answer, d2),
+                              20),
+           "plain_ms": cuda_ms(torch, lambda: (
+               ref.compact_count_ref(answer, fq.COMPACT_TILE),
+               ref.compact_write_ref(answer, d2, C)), 3),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "kernels": {
+               "compact_count": {
+                   "ms": count_ms,
+                   "plain_ms": cuda_ms(torch, lambda: ref.compact_count_ref(
+                       answer, fq.COMPACT_TILE), 3),
+                   "library_ms": cuda_ms(
+                       torch, lambda: answer.sum(dim=1, dtype=torch.int32),
+                       10),
+                   "bytes": count_bytes},
+               "compact_write": {
+                   "ms": device_ms(torch, lambda: fq.compact_write(
+                       answer, d2, tiles, count, C), 20),
+                   "plain_ms": cuda_ms(torch, lambda: ref.compact_write_ref(
+                       answer, d2, C), 3),
+                   "library_ms": cuda_ms(torch, lambda: torch.nonzero(answer),
+                                         10),
+                   "bytes": write_bytes}}}
+    out["share"] = out["bound_ms"] / ms
+    for f in out["kernels"].values():
+        f.update(bound_ms=f["bytes"] / HBM_BYTES_PER_S * 1e3,
+                 bound_by="bytes", max_abs_err=0.0)
+        f["share"] = f["bound_ms"] / f["ms"]
+    torch.cuda.empty_cache()
+    log(f"[compact] {label}: " + json.dumps(out, sort_keys=True))
+    return out
+
+
+def dense_fallback(torch, engine, index, q, eps, is_knn, k: int) -> dict:
+    """The torch engine's dense fallback (``mixed_query_dense``) through
+    ``_SingleBackend`` as the service runs it (compacted, then copied),
+    beside the same pass with its dense (Q, B) triple copied as it is,
+    in turns: host ms a pass, the card's peak memory above what was held
+    before, the bytes copied; each compacted row equals its dense row."""
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.service import _DENSE, _SingleBackend
+    backend = _SingleBackend(index, ServeConfig(backend="torch"))
+    backend._cap = _DENSE
+    q_np = q.cpu().numpy()
+
+    def compacted():
+        return backend.dispatch(q_np, eps, is_knn, k)
+
+    def dense():
+        qr = engine.represent_queries(torch.as_tensor(q_np, device="cuda"),
+                                      index.levels, index.alphabet)
+        return tuple(t.cpu().numpy() for t in engine.mixed_query_dense(
+            index, qr, torch.as_tensor(eps, device="cuda"),
+            torch.as_tensor(is_knn, device="cuda"), k))
+
+    runs = {"compacted": [], "dense": []}
+    peak, outs = {}, {}
+    for name in ("dense", "compacted", "compacted", "dense", "dense",
+                 "compacted"):
+        torch.cuda.synchronize()
+        outs.pop(name, None)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs[name] = compacted() if name == "compacted" else dense()
+        runs[name].append((time.perf_counter() - t0) * 1e3)
+        peak[name] = max(peak.get(name, 0),
+                         torch.cuda.max_memory_allocated() - base)
+    c_idx, c_ans, c_d2 = outs["compacted"]
+    d_ans, d_d2 = outs["dense"][1:3]
+    equal = 0
+    for i in range(len(q_np)):
+        s = np.flatnonzero(d_ans[i])
+        n = int(c_ans[i].sum())
+        equal += int(n == s.size and np.array_equal(c_idx[i][:n], s)
+                     and np.array_equal(c_d2[i][:n].view(np.int32),
+                                        d_d2[i][s].view(np.int32)))
+    check(equal == len(q_np), f"dense fallback: {equal} of {len(q_np)} "
+          f"compacted rows equal their dense rows")
+    out = {"Q": len(q_np), "B": index.size, "C": int(c_idx.shape[1]),
+           "compacted_ms": runs["compacted"], "dense_copy_ms": runs["dense"],
+           "compacted_peak_bytes": peak["compacted"],
+           "dense_copy_peak_bytes": peak["dense"],
+           "compacted_d2h_bytes": backend.last_d2h_bytes,
+           "dense_d2h_bytes": int(sum(a.nbytes for a in outs["dense"])),
+           "compacted_stages_device_ms": {
+               n: dev * 1e3 for n, _, _, dev in backend.last_stages},
+           "rows_equal": equal}
+    del outs, c_idx, c_ans, c_d2, d_ans, d_d2, backend
+    torch.cuda.empty_cache()
+    log("[compact-dense-fallback] " + json.dumps(out, sort_keys=True))
+    return out
+
+
+def compact_phase(torch, engine, fq, ref, report) -> dict:
+    """Phase 6's second part: the compaction at the benchmark cells' pass
+    shapes, on the answers of a real fused pass over an index made as
+    each cell makes it, and the torch engine's dense fallback at the
+    synth cell's shape; everything freed at the end."""
+    from repro_torch.core import subseq as ss
+    t0 = time.perf_counter()
+    figures = {}
+    for name, seed in (("synth", 35_001), ("subseq", 35_002)):
+        c = COMPACT_CELLS[name]
+        index, q = compact_cell_index(torch, engine, ss, name, seed)
+        qr = engine.represent_queries(q, index.levels, index.alphabet)
+        is_knn = np.arange(c["Q"]) % 2 == 0
+        eps = np.array([0.0 if is_knn[i] else
+                        c["eps"][(i // 2) % len(c["eps"])]
+                        for i in range(c["Q"])], np.float32)
+        _, answer, d2, _ = engine.mixed_query_fused(
+            index, qr, torch.as_tensor(eps, device="cuda"),
+            torch.as_tensor(is_knn, device="cuda"), c["k"])
+        label = f"{name} Q={c['Q']} B={index.size}"
+        figures[name] = compact_figures(torch, engine, fq, ref, answer, d2,
+                                        label)
+        del answer, d2, qr
+        if name == "synth":
+            figures["dense_fallback"] = dense_fallback(
+                torch, engine, index, q, eps, is_knn, c["k"])
+        del index, q
+        torch.cuda.empty_cache()
+    figures["seconds"] = time.perf_counter() - t0
+    report["compact"] = figures
+    log(f"[compact] phase in {figures['seconds']:.1f}s")
+    return figures
 
 
 # ---------------------------------------------------------------------------
@@ -6398,7 +6628,9 @@ def main() -> int:
     snap = service.stats.snapshot()
     check(result.served == len(workload),
           f"served {result.served} of {len(workload)}")
-    check(launches["fused_range"] > 0 and launches["fused_topk"] > 0,
+    check(launches["fused_range"] > 0 and launches["fused_topk"] > 0
+          and launches["compact_count"] >= snap["batches"] > 0
+          and launches["compact_write"] > 0,
           f"a kernel of the path did not launch: {launches}")
     mismatches, t_replay = replay_check(service, workload, result, "serve")
     bf = brute_force_check(service.backend.index.series.cpu().numpy(),
@@ -6418,6 +6650,7 @@ def main() -> int:
         f"bytes in the last batch")
 
     report["breakdown"] = breakdown(torch, engine, fq, service, queries)
+    compact = compact_phase(torch, engine, fq, ref, report)
     log(f"[time] phases 1-6 in {time.perf_counter() - t_start:.1f}s")
 
     # ---- 7. the quantized resident tier: index and kernels
@@ -6610,6 +6843,19 @@ def main() -> int:
                         "replaces": REPLACES[name],
                         "launches": slaunches[name] + plaunches[name],
                         "max_abs_err": max(errs),
+                        "ms": main["ms"], "plain_ms": main["plain_ms"],
+                        "bound_ms": main["bound_ms"],
+                        "bound_by": main["bound_by"],
+                        "library_ms": main["library_ms"]})
+    # The compaction (no TPU kernel: the reference copies the dense
+    # layout): launches from phase 5's serving run and phases 14-17's;
+    # times at the synth cell's pass shape (phase 6), C the pass's own.
+    for name in ("compact_count", "compact_write"):
+        main = compact["synth"]["kernels"][name]
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+                        "replaces": None,
+                        "launches": launches[name] + plaunches.get(name, 0),
+                        "max_abs_err": main["max_abs_err"],
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"],

@@ -294,3 +294,19 @@ def subseq_pass_estimate(Q: int, n_windows: int, window: int, stride: int,
     t_compute = flops / (F32_TFLOPS * 1e12) / wave_eff
     return dict(bytes_hbm=float(bytes_hbm), flops=flops, t_mem_s=t_mem,
                 t_compute_s=t_compute, t_est_s=max(t_mem, t_compute))
+
+
+def compact_step_bytes(tile_counts, B: int, tile: int, C: int) -> int:
+    """The least bytes the compaction of a dense (Q, B) answer pair moves
+    (``compact_count`` then ``compact_write``, ``kernels/csrc/
+    fused_query.cu``), from the count's (Q, ⌈B/tile⌉) ``tile_counts`` on
+    the host: the mask read once; the tiles' counts written, then read
+    back; the row counts read to the host; the tiles that hold answers
+    read again, with the d² at each answer; Q·C ids and d² written."""
+    rows = [list(map(int, r)) for r in tile_counts]
+    Q, T = len(rows), len(rows[0]) if rows else 0
+    last = B - (T - 1) * tile
+    reread = sum((last if t == T - 1 else tile)
+                 for r in rows for t, c in enumerate(r) if c)
+    answers = sum(map(sum, rows))
+    return Q * B + 2 * Q * T * 4 + Q * 4 + reread + answers * 4 + Q * C * 8

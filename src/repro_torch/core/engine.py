@@ -947,6 +947,21 @@ def compact_answers(answer: torch.Tensor, d2: torch.Tensor, capacity: int):
     return idx.to(torch.int32), valid, d2c, answer.sum(dim=-1) > capacity
 
 
+def compact_dense(answer: torch.Tensor, d2: torch.Tensor):
+    """A dense (Q, B) answer pair in the compact layout, on its device, by
+    the compaction kernels (``fused_query.compact_count`` and
+    ``compact_write``): ``(count (Q,) int32 on the host, idx (Q, C) int32,
+    d2 (Q, C) float32)``.  Row i holds its answer slots ascending in its
+    first ``count[i]`` slots, each with its d² as the dense pair held it,
+    −1 / +inf after; C is the largest count, so nothing overflows.  The
+    counts are read to the host to size C: the one sync."""
+    tiles, count = _fused.compact_count(answer)
+    count_host = count.cpu().numpy()
+    C = int(count_host.max(initial=0))
+    idx, d2c = _fused.compact_write(answer, d2, tiles, count, C)
+    return count_host, idx, d2c
+
+
 def range_query_backend(index: DeviceIndex, qr: QueryReprDev, epsilon,
                         options: SearchOptions | None = None, **legacy):
     """Backend-dispatched dense range query: ``(answers, d2)``.  Keywords

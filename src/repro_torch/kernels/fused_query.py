@@ -10,6 +10,10 @@ level (C9, C10) and the Euclidean verify — on the quantized tier the
 widened screen over dequantized rows; for subsequences over windows
 built from stream segments — for a batch of queries while each database
 tile is resident (design and bound in the ``.cu`` file's header).
+Beside them, two kernels of the port's own with no Pallas counterpart,
+:func:`compact_count` and :func:`compact_write`, turn a range pass's
+dense (Q, B) answers into the compact (Q, C) layout before they are
+copied to the host.
 
 Each wrapper checks its inputs, then
 
@@ -73,6 +77,11 @@ def _lib():
         lib.fused_query_stages.restype = ci
         lib.fused_query_div_check.argtypes = [vp, vp, vp, vp, ci, vp]
         lib.fused_query_div_check.restype = ci
+        lib.compact_count_launch.argtypes = [vp, ci, ci, vp, vp, vp]
+        lib.compact_count_launch.restype = ci
+        lib.compact_write_launch.argtypes = [vp, vp, ci, ci, vp, vp, ci, vp,
+                                             vp, vp]
+        lib.compact_write_launch.restype = ci
         lib.fused_query_error.argtypes = [ci]
         lib.fused_query_error.restype = ctypes.c_char_p
         lib._typed = True
@@ -666,8 +675,83 @@ def fused_quant_subseq_range(streams, mu, sd, norms_sq, qmeta, q, q_words,
     return ans, d2
 
 
+# ---------------------------------------------------------------------------
+# Compaction of a dense answer, the serving pass's step before its copy.
+# ---------------------------------------------------------------------------
+
+#: Mask slots one block of the compaction kernels covers (csrc CT_TILE).
+COMPACT_TILE = 8192
+
+
+def _check_answer(answer):
+    if not isinstance(answer, torch.Tensor) or answer.ndim != 2:
+        raise ValueError("answer must be a (Q, B) tensor")
+    Q, B = answer.shape
+    _check("answer", answer, torch.bool, (Q, B), answer.device)
+    if not 1 <= Q <= 65535 or B < 1:
+        raise ValueError(f"answer must have 1 to 65535 rows and at least "
+                         f"one column, got {tuple(answer.shape)}")
+    return Q, B, answer.device
+
+
+def compact_count(answer):
+    """The answers of a dense (Q, B) bool mask per tile of
+    :data:`COMPACT_TILE` slots and per row: ``(tile_counts (Q, ⌈B/tile⌉)
+    int32, count (Q,) int32)``, on the mask's device."""
+    Q, B, dev = _check_answer(answer)
+    if dev.type == "cpu":
+        return ref.compact_count_ref(answer, COMPACT_TILE)
+    tiles = torch.empty((Q, -(-B // COMPACT_TILE)), dtype=torch.int32,
+                        device=dev)
+    count = torch.zeros((Q,), dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.compact_count_launch(answer.data_ptr(), Q, B,
+                                        tiles.data_ptr(), count.data_ptr(),
+                                        stream)
+    _raise_on(lib, code, "compact_count")
+    with _count_lock:
+        compact_count.launches += 1
+    return tiles, count
+
+
+def compact_write(answer, d2, tile_counts, count, C: int):
+    """The compact layout of a dense answer pair, from
+    :func:`compact_count`'s counts: ``(idx (Q, C) int32, d2 (Q, C)
+    float32)``, row i's answer slots ascending in its first ``count[i]``
+    slots, each with its d² as ``d2`` (Q, B) float32 held it, −1 / +inf
+    after.  ``C`` is at least the largest count; at C = 0 nothing is
+    launched."""
+    Q, B, dev = _check_answer(answer)
+    _check("d2", d2, torch.float32, (Q, B), dev)
+    _check("tile_counts", tile_counts, torch.int32,
+           (Q, -(-B // COMPACT_TILE)), dev)
+    _check("count", count, torch.int32, (Q,), dev)
+    C = int(C)
+    if not 0 <= C <= B:
+        raise ValueError(f"C must be in [0, B={B}], got {C}")
+    if dev.type == "cpu":
+        return ref.compact_write_ref(answer, d2, C)
+    idx = torch.empty((Q, C), dtype=torch.int32, device=dev)
+    out = torch.empty((Q, C), dtype=torch.float32, device=dev)
+    if C == 0:
+        return idx, out
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.compact_write_launch(
+            answer.data_ptr(), d2.data_ptr(), Q, B, tile_counts.data_ptr(),
+            count.data_ptr(), C, idx.data_ptr(), out.data_ptr(), stream)
+    _raise_on(lib, code, "compact_write")
+    with _count_lock:
+        compact_write.launches += 1
+    return idx, out
+
+
 KERNELS = (fused_range, fused_topk, fused_quant_range, fused_quant_topk,
-           fused_subseq_range, fused_subseq_topk, fused_quant_subseq_range)
+           fused_subseq_range, fused_subseq_topk, fused_quant_subseq_range,
+           compact_count, compact_write)
 for _kernel in KERNELS:
     _kernel.launches = 0
 

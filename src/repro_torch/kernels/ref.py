@@ -1,8 +1,9 @@
 """Plain PyTorch versions of every CUDA kernel and of the top-k merge.
 
 Counterpart of ``repro/kernels/ref.py``: the fused whole-series,
-quantized and streaming subsequence forms (``csrc/fused_query.cu``) and
-the per-level operations (``csrc/level_ops.cu``: ``paa_ref``,
+quantized and streaming subsequence forms and the compaction of a dense
+answer (``csrc/fused_query.cu``) and the per-level operations
+(``csrc/level_ops.cu``: ``paa_ref``,
 ``linfit_residual_sq_ref``, ``mindist_sq_level_ref``, ``sqdist_ref``,
 ``prune_level_ref``).  Each function computes what its kernel computes:
 the wrappers in ``fused_query.py`` and ``level_ops.py`` run these on CPU
@@ -286,6 +287,33 @@ def merge_topk_partials(idx, d2, k: int):
     out = torch.where(torch.isfinite(d2s[:, :k]), idxs[:, :k],
                       torch.full_like(idxs[:, :k], -1))
     return out, d2s[:, :k]
+
+
+def compact_count_ref(answer, tile: int):
+    """A dense (Q, B) answer mask's answers per tile of ``tile`` slots and
+    per row: ``(tile_counts (Q, ⌈B/tile⌉) int32, count (Q,) int32)``."""
+    Q, B = answer.shape
+    T = -(-B // tile)
+    flat = torch.zeros((Q, T * tile), dtype=torch.int32, device=answer.device)
+    flat[:, :B] = answer != 0
+    tiles = flat.reshape(Q, T, tile).sum(dim=-1, dtype=torch.int32)
+    return tiles, tiles.sum(dim=-1, dtype=torch.int32)
+
+
+def compact_write_ref(answer, d2, C: int):
+    """The compact layout of a dense (Q, B) answer pair: ``(idx (Q, C)
+    int32, d2 (Q, C) float32)``, row i's answer slots ascending in its
+    first count[i] slots with their d², −1 / +inf after (C ≥ the largest
+    count)."""
+    Q = answer.shape[0]
+    rows, slots = torch.nonzero(answer, as_tuple=True)
+    pos = torch.cumsum(answer != 0, dim=-1)[rows, slots] - 1
+    idx = torch.full((Q, C), -1, dtype=torch.int32, device=answer.device)
+    out = torch.full((Q, C), math.inf, dtype=torch.float32,
+                     device=answer.device)
+    idx[rows, pos] = slots.to(torch.int32)
+    out[rows, pos] = d2[rows, slots]
+    return idx, out
 
 
 # ---------------------------------------------------------------------------

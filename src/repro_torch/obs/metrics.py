@@ -15,8 +15,9 @@ to the request path; every family exists (with clean zeros) from the
 first scrape because the snapshot has every key from construction.
 ``REQUIRED_FAMILIES`` is the contract a scrape is checked against.
 :func:`build_stage_registry` adds the port's serving-path stage,
-device-to-host byte and select-slot counters (``STAGE_FAMILIES``), which
-the service renders after the reference's families, at full precision.
+device-to-host byte, answer-slot and select-slot counters
+(``STAGE_FAMILIES``), which the service renders after the reference's
+families, at full precision.
 ``/healthz`` answers when a ``health_fn`` is given (the launcher passes
 ``SearchService.health``): 200 when ready, 503 when not, the detail as
 JSON; without one it answers 404.
@@ -50,11 +51,12 @@ REQUIRED_FAMILIES = (
 )
 
 # The serving path's stage counters (``serve.stats``: the snapshot's
-# ``stages``, ``d2h_bytes`` and ``select_slots``).
+# ``stages``, ``d2h_bytes``, ``answer_slots`` and ``select_slots``).
 STAGE_FAMILIES = (
     "repro_stage_seconds_total",
     "repro_stage_events_total",
     "repro_d2h_bytes_total",
+    "repro_answer_slots_total",
     "repro_select_slots_total",
 )
 
@@ -189,7 +191,8 @@ def build_registry(snapshot: dict, calibration: dict | None = None,
 def build_stage_registry(snapshot: dict) -> MetricsRegistry:
     """The stage families of a stats snapshot: seconds per stage and clock
     (``host``, ``device``), events per stage, the bytes the device
-    passes copied to the host and the slots the select steps read;
+    passes copied to the host, the answer slots their compaction kept and
+    the slots the select steps read;
     counters, rendered with 17 significant digits so that a rate over
     them is not rounded away.  Every stage of the snapshot renders, with
     zeros before traffic."""
@@ -209,6 +212,9 @@ def build_stage_registry(snapshot: dict) -> MetricsRegistry:
     reg.add("repro_d2h_bytes_total", snapshot.get("d2h_bytes", 0),
             kind="counter",
             help_text="Bytes of answers copied from the device to the host")
+    reg.add("repro_answer_slots_total", snapshot.get("answer_slots", 0),
+            kind="counter",
+            help_text="Answer slots the device passes' compaction kept")
     reg.add("repro_select_slots_total", snapshot.get("select_slots", 0),
             kind="counter",
             help_text="Candidate slots the replies' select steps read")

@@ -41,13 +41,15 @@ batch maps one generation's positions through another's ids.
 Stages (always on, ``stats.snapshot()["stages"]`` and ``["d2h_bytes"]``):
 every device pass of ``_SingleBackend`` and ``_QuantizedBackend`` times
 ``represent`` (the queries' upload and representation), ``engine`` (the
-engine, up to the copy) and ``copy`` (the answers to the host) on the host
-clock and, on a card, with CUDA events on the current stream read after
-the copy's own sync (a traced dispatch's counting pass falls between
-them, in no stage).  The service records every pass of every backend,
-with its bytes, certificates and requests, before it replies to any of
-them; every served request adds ``queue``, ``reply_wait``, ``reply.knn`` /
-``reply.range`` (the select step of :meth:`_finish`) and
+engine, up to the copy), ``compact`` (a dense pass's answers compacted on
+the device, ``_SingleBackend`` only) and ``copy`` (the answers to the
+host) on the host clock and, on a card, with CUDA events on the current
+stream read after the copy's own sync (a traced dispatch's counting pass
+falls between them, in no stage).  The service records every pass of
+every backend, with its bytes, the answer slots its compaction kept
+(``answer_slots``), its certificates and its requests, before it replies
+to any of them; every served request adds ``queue``, ``reply_wait``,
+``reply.knn`` / ``reply.range`` (the select step of :meth:`_finish`) and
 ``postprocess``, and the candidate slots its select step read to
 ``select_slots``.  While a ``torch.profiler`` records, each stage that is
 work on the dispatcher thread (all but the two waits) is also a
@@ -77,7 +79,7 @@ import torch
 
 from ..core.cost_model import fused_pass_estimate
 from ..core.engine import (_SEED_EPS_MAX, DeviceIndex, TieredIndex,
-                           build_device_index,
+                           build_device_index, compact_dense,
                            device_index_from_host,
                            device_trace_bytes, mixed_query,
                            mixed_dense_trace, mixed_query_dense,
@@ -303,19 +305,31 @@ def _trace_to_host(backend, trace) -> None:
     backend.last_trace = None if trace is None else to_host(trace)
 
 
-def _to_host(backend, out: tuple, clock: Optional[_PassClock] = None):
+def _to_host(backend, out: tuple, clock: Optional[_PassClock] = None,
+             count: Optional[np.ndarray] = None):
     """Copy a dispatch's ``(idx, answer, d2, overflow)`` to the host, close
     the pass's ``clock`` (its ``copy`` stage open) into ``last_stages``,
     note the bytes in ``last_d2h_bytes`` and the per-query certificates in
     ``last_certified`` (a query is exact when no buffer of it overflowed:
     ``overflow`` is (Q,), or (Q, P) over shards), return ``(idx, answer,
-    d2)``.  The service records the pass in its stats."""
-    out = tuple(t.cpu().numpy() for t in out)
+    d2)``.  A compacted pass hands ``(idx, d2, overflow)`` and its (Q,)
+    host answer ``count``: the mask does not cross, slot j of row i is an
+    answer when j < count[i], and the counts' bytes and slots are noted
+    too (``last_answer_slots``).  The service records the pass in its
+    stats."""
+    out = [t.cpu().numpy() for t in out]
     backend.last_stages = clock.close() if clock is not None else ()
-    backend.last_d2h_bytes = sum(a.nbytes for a in out)
+    nbytes = sum(a.nbytes for a in out)
+    backend.last_answer_slots = 0
+    if count is not None:
+        idx, d2, overflow = out
+        out = [idx, np.arange(idx.shape[-1]) < count[:, None], d2, overflow]
+        nbytes += count.nbytes
+        backend.last_answer_slots = int(count.sum())
+    backend.last_d2h_bytes = nbytes
     bad = out[3].reshape(out[3].shape[0], -1).any(axis=-1)
     backend.last_certified = (int(bad.size - bad.sum()), int(bad.size))
-    return out[:3]
+    return tuple(out[:3])
 
 
 class _SingleBackend:
@@ -327,7 +341,10 @@ class _SingleBackend:
     ``mixed_query`` runs with sticky capacity escalation, switching for
     good to ``mixed_query_dense`` once the learned capacity passes
     ``dense_fallback_frac``·B, so a direct replay takes the same path as
-    the batch that served it.  An index with a stack beyond the paper
+    the batch that served it.  A dense pass is compacted on the device
+    (``compact_dense``: each row's answer slots ascending, C the batch's
+    largest answer count) before its copy, so the host receives the
+    answers and not Q × B slots.  An index with a stack beyond the paper
     pair serves the same way: the kernels answer with the paper pair's
     cascade, the torch engine applies the extras too.
     """
@@ -338,11 +355,12 @@ class _SingleBackend:
         self.backend = resolve_backend(cfg.backend, index.device)
         self._cap: Optional[int] = None   # learned capacity or _DENSE
         self.stats: Optional[StatsTracker] = None   # set by SearchService
-        # Bytes the last dispatch copied from the device to the host, its
-        # stages ((name, t0, t1, device_s), _PassClock), its certificates
-        # (exact, total) and its trace (host counters) when it was asked
-        # for one.
+        # Bytes the last dispatch copied from the device to the host, the
+        # answer slots its compaction kept, its stages ((name, t0, t1,
+        # device_s), _PassClock), its certificates (exact, total) and its
+        # trace (host counters) when it was asked for one.
         self.last_d2h_bytes = 0
+        self.last_answer_slots = 0
         self.last_stages = ()
         self.last_certified = None
         self.last_trace = None
@@ -444,6 +462,11 @@ class _SingleBackend:
                                        answer) if dense else
                      mixed_trace(self.index, qr, eps_t, knn_t, k, answer, d2))
         _trace_to_host(self, trace)
+        if fused or dense:
+            clock.next("compact")
+            count, idx, d2 = compact_dense(answer, d2)
+            clock.next("copy")
+            return _to_host(self, (idx, d2, overflow), clock, count)
         clock.next("copy")
         return _to_host(self, (idx, answer, d2, overflow), clock)
 
@@ -469,6 +492,7 @@ class _QuantizedBackend:
         # compaction capacity it reached, its stages, its certificates and
         # its trace when asked for.
         self.last_d2h_bytes = 0
+        self.last_answer_slots = 0     # no dense pass compacted
         self.last_capacity = 0
         self.last_stages = ()
         self.last_certified = None
@@ -576,6 +600,7 @@ class _ShardedBackend:
         self._cap: Optional[int] = None   # learned per-shard capacity
         self.stats: Optional[StatsTracker] = None   # set by SearchService
         self.last_d2h_bytes = 0
+        self.last_answer_slots = 0     # no dense pass compacted
         self.last_stages = ()          # no stages timed
         self.last_certified = None
         self.last_trace = None
@@ -666,6 +691,7 @@ class _DistQuantizedBackend:
         self._cap: Optional[int] = None
         self.stats: Optional[StatsTracker] = None   # set by SearchService
         self.last_d2h_bytes = 0
+        self.last_answer_slots = 0     # no dense pass compacted
         self.last_stages = ()          # no stages timed
         self.last_certified = None
         self.last_trace = None
@@ -717,6 +743,7 @@ class _FailoverBackend:
         self._stats: Optional[StatsTracker] = None
         self.last_coverage = None
         self.last_d2h_bytes = 0
+        self.last_answer_slots = 0     # no dense pass compacted
         self.last_stages = ()          # no stages timed
         self.last_certified = None
         self.last_trace = None
@@ -1027,13 +1054,15 @@ class SearchService:
     def _record_pass(self, requests: int) -> tuple:
         """Record the backend's last device pass in the stats, under one
         lock: its stages, the bytes it copied to the host, its
-        certificates and the ``requests`` it answered; return its stages
-        ``((name, t0, t1, device_s), ...)``."""
+        certificates, the ``requests`` it answered and the answer slots
+        its compaction kept; return its stages ``((name, t0, t1,
+        device_s), ...)``."""
         b = self.backend
         stages = b.last_stages
         self.stats.on_pass(
             [(name, t1 - t0, dev) for name, t0, t1, dev in stages],
-            b.last_d2h_bytes, b.last_certified, requests)
+            b.last_d2h_bytes, b.last_certified, requests,
+            b.last_answer_slots)
         return stages
 
     # --- submission ---------------------------------------------------------

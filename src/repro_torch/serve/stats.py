@@ -26,10 +26,12 @@ Always on, beside the request counters: the serving path's **stages**
 (``snapshot()["stages"]``: per stage ``count``, ``host_s``, ``device_s``,
 unrounded seconds) and the bytes the device passes copied to the host
 (``d2h_bytes``) with the requests those passes answered
-(``d2h_requests``, padding rows left out).  A device pass adds its stages
-(:data:`PASS_STAGES`, ``device_s`` from CUDA events on a card, the host's
-seconds on a CPU), bytes, requests and certificates under one lock
-(:meth:`StatsTracker.on_pass`), before any of its requests is replied to;
+(``d2h_requests``, padding rows left out) and the answer slots their
+compaction kept (``answer_slots``, C's padding left out).  A device pass
+adds its stages (:data:`PASS_STAGES`, ``device_s`` from CUDA events on a
+card, the host's seconds on a CPU), bytes, requests, answer slots and
+certificates under one lock (:meth:`StatsTracker.on_pass`), before any of
+its requests is replied to;
 a batch adds its served requests' latencies and stages
 (:data:`REQUEST_STAGES`, host work and waits, ``device_s`` 0) and the
 candidate slots their select steps read (``select_slots``) under one lock
@@ -53,12 +55,12 @@ CASCADE_KEYS = ("queries", "rows_screened", "after_c9", "after_c10",
                 "verified", "answers", "bytes_screen", "bytes_verify")
 
 # The serving path's stages.  Per device pass: the queries' upload and
-# representation, the engine up to the copy, the copy of the answers to the
-# host.  Per served request: the wait in the queue to its batch's
+# representation, the engine up to the copy, the compaction of a dense
+# pass's answers on the device, the copy of the answers to the host.  Per served request: the wait in the queue to its batch's
 # formation, the wait from the end of the device pass to the start of its
 # own reply, the reply's select step by request kind, and the
 # answer-shaping hook (the subsequence exclusion zone).
-PASS_STAGES = ("represent", "engine", "copy")
+PASS_STAGES = ("represent", "engine", "compact", "copy")
 REQUEST_STAGES = ("queue", "reply_wait", "reply.knn", "reply.range",
                   "postprocess")
 STAGE_KEYS = PASS_STAGES + REQUEST_STAGES
@@ -114,6 +116,7 @@ class StatsTracker:
         self._stages = {k: [0, 0.0, 0.0] for k in STAGE_KEYS}
         self.d2h_bytes = 0
         self.d2h_requests = 0
+        self.answer_slots = 0
         self.select_slots = 0
         self._latency = collections.deque(maxlen=_RING)
         self._occupancy = collections.deque(maxlen=_RING)
@@ -173,11 +176,13 @@ class StatsTracker:
                     post[1] += r.t_post - r.t_selected
 
     def on_pass(self, stages=(), d2h_bytes: int = 0,
-                certified: tuple | None = None, requests: int = 0) -> None:
+                certified: tuple | None = None, requests: int = 0,
+                answer_slots: int = 0) -> None:
         """One device pass, under one lock: its stages as ``(name,
         host_s, device_s)``, the bytes of its answers copied to the host,
-        its certificate outcomes ``(exact, total)`` and the requests it
-        answered (the bytes' denominator, kept in the same record)."""
+        its certificate outcomes ``(exact, total)``, the requests it
+        answered (the bytes' denominator, kept in the same record) and the
+        answer slots its compaction kept."""
         with self._lock:
             for name, host_s, device_s in stages:
                 acc = self._stages[name]
@@ -186,6 +191,7 @@ class StatsTracker:
                 acc[2] += device_s
             self.d2h_bytes += int(d2h_bytes)
             self.d2h_requests += int(requests)
+            self.answer_slots += int(answer_slots)
             if certified is not None:
                 self.certified_exact += int(certified[0])
                 self.certified_total += int(certified[1])
@@ -287,6 +293,7 @@ class StatsTracker:
                            for k, (c, h, d) in self._stages.items()},
                 "d2h_bytes": self.d2h_bytes,
                 "d2h_requests": self.d2h_requests,
+                "answer_slots": self.answer_slots,
                 "select_slots": self.select_slots,
             }
         out["latency_ms"] = {

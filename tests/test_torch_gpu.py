@@ -163,10 +163,16 @@ def test_batch_and_replay_are_bit_equal_on_card(cuda):
         assert torch.equal(one.q[0], full.q[i])
         assert all(torch.equal(a[0], b[i]) for a, b in
                    zip(one.residuals + one.words, full.residuals + full.words))
-        _, a1, d1 = svc.backend.dispatch(qs[i:i + 1], eps[i:i + 1],
-                                         is_knn[i:i + 1], 8)
-        np.testing.assert_array_equal(a1[0], ans[i])
-        np.testing.assert_array_equal(d1[0], d2[i])
+        # The rows come compacted, C the pass's largest answer count: a
+        # row is compared over its answer slots, and past them holds none.
+        i1, a1, d1 = svc.backend.dispatch(qs[i:i + 1], eps[i:i + 1],
+                                          is_knn[i:i + 1], 8)
+        c = int(a1[0].sum())
+        assert c > 0 and a1.shape[1] == c and int(ans[i].sum()) == c
+        np.testing.assert_array_equal(a1[0], ans[i][:c])
+        np.testing.assert_array_equal(i1[0], idx[i][:c])
+        np.testing.assert_array_equal(d1[0], d2[i][:c])
+        assert not ans[i][c:].any() and np.isinf(d2[i][c:]).all()
 
 
 def test_masked_rows_and_huge_seed_radius_on_card(cuda):
@@ -235,11 +241,23 @@ def test_service_on_card_is_exact_and_uses_the_kernels(cuda):
     assert result.served == len(wl)
 
 
-def test_service_stages_on_card_from_cuda_events(cuda, tmp_path):
+def test_service_stages_on_card_from_cuda_events(cuda, tmp_path,
+                                                 monkeypatch):
+    from repro_torch.serve import service as service_mod
+
     db = make_wafer_like(1 << 16, 128, seed=2)
     svc = SearchService.from_series(
         db, ServeConfig(trace=True, profile_dir=str(tmp_path / "prof")))
     svc.warmup(qs=(8,))
+    counts = []
+    inner = service_mod.compact_dense
+
+    def compact(answer, d2):
+        out = inner(answer, d2)
+        counts.append(out[0])
+        return out
+
+    monkeypatch.setattr(service_mod, "compact_dense", compact)
     before = svc.stats.snapshot()
     wl = make_workload(make_queries(db, 16, seed=3),
                        WorkloadSpec(n_requests=32, k=5, epsilon=2.0))
@@ -250,11 +268,11 @@ def test_service_stages_on_card_from_cuda_events(cuda, tmp_path):
     st = {k: {f: v[f] - before["stages"][k][f] for f in v}
           for k, v in snap["stages"].items()}
     passes = snap["batches"]
-    for name in ("represent", "engine", "copy"):
+    for name in ("represent", "engine", "compact", "copy"):
         assert st[name]["count"] == passes, name
         assert 0 < st[name]["device_s"], name
-    # The copy's device time is the dense answers' D2H; it cannot outlast
-    # its stage on the host, which waits for it.
+    # The copy's device time is the compact answers' D2H; it cannot
+    # outlast its stage on the host, which waits for it.
     assert st["copy"]["device_s"] <= st["copy"]["host_s"] * 1.05
     spans = svc.tracer.snapshot()
     disp = [s for s in spans if s.name == "dispatch"]
@@ -264,14 +282,147 @@ def test_service_stages_on_card_from_cuda_events(cuda, tmp_path):
     cal = svc.calibration.snapshot()
     eng = [s.attrs["device_s"] for s in spans if s.name == "engine"]
     assert [c.measured_s for c in cal] == eng
+    # Per query a count, C ids and C d² (C the pass's largest count) and
+    # an overflow flag.
+    assert [c.size for c in counts] == [s.attrs["bucket"] for s in disp]
     assert snap["d2h_bytes"] - before["d2h_bytes"] == sum(
-        s.attrs["bucket"] * (len(db) * 9 + 1) for s in disp)
+        c.size * (4 + 8 * int(c.max()) + 1) for c in counts)
+    assert snap["answer_slots"] - before["answer_slots"] == sum(
+        int(c.sum()) for c in counts) > 0
     assert snap["d2h_requests"] - before["d2h_requests"] == len(wl)
     names = set()
     for path in (tmp_path / "prof").glob("dispatch_*.json"):
         names |= {e.get("name") for e in
                   json.loads(path.read_text())["traceEvents"]}
-    assert {"repro.represent", "repro.engine", "repro.copy"} <= names
+    assert {"repro.represent", "repro.engine", "repro.compact",
+            "repro.copy"} <= names
+
+
+# ---------------------------------------------------------------------------
+# The compaction of a dense answer: compact_count / compact_write.
+# ---------------------------------------------------------------------------
+
+
+def compact_on_card(answer, d2):
+    """The kernels' compact layout of a dense pair, the counts read once
+    as the engine reads them."""
+    tiles, count = fq.compact_count(answer)
+    C = int(count.max()) if count.numel() else 0
+    idx, out = fq.compact_write(answer, d2, tiles, count, C)
+    return tiles, count, idx, out
+
+
+def assert_compact_equals_plain(answer, d2):
+    tiles, count, idx, out = compact_on_card(answer, d2)
+    want_tiles, want_count = ref.compact_count_ref(answer, fq.COMPACT_TILE)
+    assert torch.equal(tiles, want_tiles) and torch.equal(count, want_count)
+    want_idx, want_out = ref.compact_write_ref(answer, d2, idx.shape[1])
+    assert torch.equal(idx, want_idx)
+    # Bit for bit, +inf padding and any NaN included.
+    assert torch.equal(out.view(torch.int32), want_out.view(torch.int32))
+    return count, idx
+
+
+def sparse_pair(Q, B, density, device, seed=7):
+    g = torch.Generator(device=device).manual_seed(seed)
+    answer = torch.rand((Q, B), generator=g, device=device) < density
+    d2 = torch.rand((Q, B), generator=g, device=device) * 7.0
+    return answer, d2
+
+
+@pytest.mark.parametrize("Q,B", [(32, 1 << 22), (7, 50_001), (5, 3 * 8192 + 100),
+                                 (3, 48), (2, 37), (1, 1)])
+@pytest.mark.parametrize("density", [0.0, 1e-4, 0.3])
+def test_compact_kernels_equal_plain_versions(cuda, Q, B, density):
+    answer, d2 = sparse_pair(Q, B, density, cuda)
+    answer[0, B - 1] = density > 0      # the last slot of a row
+    launches = (fq.compact_count.launches, fq.compact_write.launches)
+    count, _ = assert_compact_equals_plain(answer, d2)
+    assert fq.compact_count.launches == launches[0] + 1
+    # No write is launched when no row has an answer (C = 0).
+    assert fq.compact_write.launches == launches[1] + bool(count.any())
+
+
+@pytest.mark.parametrize("Q,B", [(32, 1 << 22), (4, 50_001)])
+def test_compact_kernels_on_an_all_true_mask(cuda, Q, B):
+    answer = torch.ones((Q, B), dtype=torch.bool, device=cuda)
+    d2 = torch.rand((Q, B), device=cuda)
+    count, idx = assert_compact_equals_plain(answer, d2)
+    assert bool((count == B).all()) and idx.shape == (Q, B)
+    del answer, d2, idx
+    torch.cuda.empty_cache()
+
+
+def test_compact_kernels_on_misaligned_rows(cuda):
+    # Rows that start off a 16-byte boundary take the byte loads.
+    Q, B = 6, 4096 + 16
+    buf = torch.zeros(Q * B + 1, dtype=torch.bool, device=cuda)
+    answer = buf[1:].view(Q, B)
+    assert answer.data_ptr() % 16
+    answer.copy_(sparse_pair(Q, B, 0.01, cuda, seed=9)[0])
+    answer[:, [0, 31, 32, B - 1]] = True
+    assert_compact_equals_plain(answer, torch.rand((Q, B), device=cuda))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_compact_kernels_on_a_fused_pass(cuda, masked):
+    # The answers of a real fused pass (test_mixed_fused_d2_finite_only_
+    # on_answers' shape), compacted: the plain version's bits, and each
+    # row's select over its compact row equals the one over its dense row.
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.service import _select
+
+    index, qr, _ = kernel_args((33, 1000, (8, 16), 10), cuda)
+    vmask = None
+    if masked:
+        vmask = torch.ones(1000, dtype=torch.bool, device=cuda)
+        vmask[::7] = False
+    eps = torch.linspace(1.0, 3.0, 33, device=cuda)
+    knn = torch.arange(33, device=cuda) % 2 == 0
+    _, answer, d2, _ = engine.mixed_query_fused(index, qr, eps, knn, 5,
+                                                valid_mask=vmask)
+    assert_compact_equals_plain(answer, d2)
+    count, idx, out = engine.compact_dense(answer, d2)
+    idx, out = idx.cpu().numpy(), out.cpu().numpy()
+    dense_a, dense_d2 = answer.cpu().numpy(), d2.cpu().numpy()
+    np.testing.assert_array_equal(count, dense_a.sum(axis=1))
+    rows = np.arange(dense_a.shape[1], dtype=np.int32)
+    for i in range(33):
+        kind = "knn" if i % 2 == 0 else "range"
+        got = _select(Request(kind=kind, query=None, k=5), idx[i],
+                      np.arange(idx.shape[1]) < count[i], out[i])
+        want = _select(Request(kind=kind, query=None, k=5), rows,
+                       dense_a[i], dense_d2[i])
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_compact_step_time_on_card(cuda):
+    # The step alone at the synth cell's pass shape: the count, the read of
+    # the counts, the write, against its bound: the bytes it must move
+    # (the mask once, the tiles holding answers again, the slots written).
+    Q, B = 32, 1 << 22
+    answer, d2 = sparse_pair(Q, B, 1e-6, cuda, seed=11)
+    answer[torch.arange(Q), torch.arange(Q) * 4099] = True
+    for _ in range(3):
+        engine.compact_dense(answer, d2)
+    torch.cuda.synchronize()
+    reps = 50
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        count, idx, out = engine.compact_dense(answer, d2)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / reps
+    tiles, _ = fq.compact_count(answer)
+    nbytes = cost_model.compact_step_bytes(tiles.cpu().numpy(), B,
+                                           fq.COMPACT_TILE, idx.shape[1])
+    bound_ms = nbytes / 3.35e12 * 1e3
+    print(f"[compact] {torch.cuda.get_device_name(0)} Q={Q} B={B} "
+          f"C={idx.shape[1]}: {ms:.4f} ms a step, bound {bound_ms:.4f} ms "
+          f"({nbytes} bytes at 3.35 TB/s), share {bound_ms / ms:.1%}")
+    assert int(count.sum()) == int(answer.sum())
 
 
 # ---------------------------------------------------------------------------

@@ -229,7 +229,9 @@ def test_refresh_settings_take_effect(db, tmp_path, name, value):
 def test_batch_and_replay_take_the_same_float_path(db):
     # The fused engine's (query, row) results do not depend on the batch:
     # a query alone and inside a batch of 16 give bit-equal rows, the
-    # query normalisation included.
+    # query normalisation included.  The rows come compacted, C slots
+    # wide with C the pass's largest answer count, so a row is compared
+    # over its answer slots, and past them it holds none.
     svc = SearchService.from_series(db, ServeConfig(backend="cuda"),
                                     normalize=False, device="cpu")
     qs = make_queries(db, 16, seed=9).astype(np.float32)
@@ -239,8 +241,12 @@ def test_batch_and_replay_take_the_same_float_path(db):
     for i in (0, 1, 15):
         i1, a1, d1 = svc.backend.dispatch(qs[i:i + 1], eps[i:i + 1],
                                           is_knn[i:i + 1], 8)
-        np.testing.assert_array_equal(a1[0], ans[i])
-        np.testing.assert_array_equal(d1[0], d2[i])
+        c = int(a1[0].sum())
+        assert c > 0 and a1.shape[1] == c and int(ans[i].sum()) == c
+        np.testing.assert_array_equal(a1[0], ans[i][:c])
+        np.testing.assert_array_equal(i1[0], idx[i][:c])
+        np.testing.assert_array_equal(d1[0], d2[i][:c])
+        assert not ans[i][c:].any() and np.isinf(d2[i][c:]).all()
 
 
 def test_launcher_serve_on_cpu(capsys):

@@ -6,10 +6,11 @@ pass is dense) and a small ``SubseqSearchService``:
 
   * **counters**: ``stats.snapshot()["stages"]`` has every stage with
     zeros before traffic; after it, ``represent`` / ``engine`` / ``copy``
-    count the device passes, ``queue`` / ``reply_wait`` /
-    ``postprocess`` the served requests and ``reply.knn`` /
-    ``reply.range`` them by kind; ``d2h_bytes`` is Q_bucket × B × 9 +
-    Q_bucket a dense pass;
+    count the device passes, ``compact`` the dense ones, ``queue`` /
+    ``reply_wait`` / ``postprocess`` the served requests and
+    ``reply.knn`` / ``reply.range`` them by kind; a dense pass copies its
+    compacted answers, ``d2h_bytes`` = 4 Q + 8 Q C + Q bytes with C its
+    largest answer count, and ``answer_slots`` counts them;
   * **no counting pass** with tracing off (the stages need none);
   * **spans** share a request id across ``enqueue``, ``reply_wait``,
     ``reply.<kind>`` and ``postprocess``, and a batch id with the
@@ -59,6 +60,22 @@ def service(db, **kw):
     return SearchService.from_series(db, cfg, normalize=False, device="cpu")
 
 
+def count_compactions(monkeypatch) -> list:
+    """Note the (Q,) answer counts of every compacted pass, each held to
+    the dense mask it compacted."""
+    counts = []
+    inner = service_mod.compact_dense
+
+    def compact(answer, d2):
+        out = inner(answer, d2)
+        np.testing.assert_array_equal(out[0], answer.sum(dim=-1).numpy())
+        counts.append(out[0])
+        return out
+
+    monkeypatch.setattr(service_mod, "compact_dense", compact)
+    return counts
+
+
 def count_passes(svc) -> list:
     """Wrap the backend's dispatch (as the benchmark does) to note each
     pass's Q bucket."""
@@ -80,16 +97,21 @@ def test_every_stage_present_with_zeros_before_traffic():
     for acc in snap["stages"].values():
         assert acc == {"count": 0, "host_s": 0.0, "device_s": 0.0}
     assert snap["d2h_bytes"] == snap["d2h_requests"] == 0
+    assert snap["answer_slots"] == 0
+    assert PASS_STAGES == ("represent", "engine", "compact", "copy")
     text = build_stage_registry(snap).render()
     for fam in STAGE_FAMILIES:
         assert f"# TYPE {fam} counter" in text
     assert 'repro_stage_events_total{stage="reply.knn"} 0' in text
+    assert 'repro_stage_events_total{stage="compact"} 0' in text
     assert "repro_d2h_bytes_total 0" in text
+    assert "repro_answer_slots_total 0" in text
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
 def test_stage_counts_equal_passes_and_served_requests(db, workload,
-                                                       backend):
+                                                       backend, monkeypatch):
+    counts = count_compactions(monkeypatch)
     svc = service(db, backend=backend)
     buckets = count_passes(svc)
     with svc:
@@ -98,8 +120,11 @@ def test_stage_counts_equal_passes_and_served_requests(db, workload,
     snap = svc.stats.snapshot()
     st = snap["stages"]
     assert len(buckets) == snap["batches"] >= 3
+    # Every fused pass is dense; the torch engine's are once it switched.
+    assert len(counts) == len(buckets) or backend == "torch"
     for name in PASS_STAGES:
-        assert st[name]["count"] == len(buckets), name
+        assert st[name]["count"] == (len(counts) if name == "compact"
+                                     else len(buckets)), name
         assert st[name]["host_s"] > 0
         # On a CPU device the device seconds are the host's.
         assert st[name]["device_s"] == st[name]["host_s"]
@@ -114,15 +139,24 @@ def test_stage_counts_equal_passes_and_served_requests(db, workload,
     assert snap["events"]["certified_total"] == sum(buckets)
 
 
-def test_d2h_bytes_sum_over_dense_passes(db, workload):
+def test_d2h_bytes_sum_over_dense_passes(db, workload, monkeypatch):
+    counts = count_compactions(monkeypatch)
     svc = service(db, backend="cuda")
     buckets = count_passes(svc)
     with svc:
         run_saturated(svc, workload)
         svc.direct_query(KIND_RANGE, workload[0][1], epsilon=2.0)
-    # An int32 id, a bool and an f32 d² per (query, row), a bool per query.
+    # Every pass is dense and compacted before its copy: per query an
+    # int32 count, C int32 ids and C f32 d² (C the pass's largest count)
+    # and a bool; the mask stays on the device.
+    assert [c.size for c in counts] == buckets
     snap = svc.stats.snapshot()
-    assert snap["d2h_bytes"] == sum(qb * B * 9 + qb for qb in buckets) > 0
+    assert snap["d2h_bytes"] == sum(
+        c.size * 4 + c.size * int(c.max()) * 8 + c.size for c in counts)
+    assert snap["d2h_bytes"] < sum(qb * B for qb in buckets)
+    assert snap["answer_slots"] == sum(int(c.sum()) for c in counts) > 0
+    assert f"repro_answer_slots_total {snap['answer_slots']}" in \
+        svc.metrics_text()
     assert buckets[-1] == 1   # the direct pass counted too
     # The requests those bytes answered, padding left out, in the same
     # record as the bytes.
@@ -205,7 +239,7 @@ def test_spans_share_request_and_batch_ids(db, workload):
         sel = next(s for s in got if s.name == "reply." + req.kind)
         assert wait.t0 <= wait.t1 == sel.t0 <= sel.t1 <= req.t_done
     batch_ids = {r.batch_id for r in res.requests}
-    for name in ("represent", "engine", "copy"):
+    for name in PASS_STAGES:
         stage = [s for s in spans if s.name == name]
         assert {s.attrs["batch_id"] for s in stage} == batch_ids
         assert all(s.attrs["parent"] == "dispatch" for s in stage)
@@ -213,9 +247,9 @@ def test_spans_share_request_and_batch_ids(db, workload):
     for d in (s for s in spans if s.name == "dispatch"):
         st = [s for s in spans if s.attrs.get("batch_id") ==
               d.attrs["batch_id"] and s.attrs.get("parent") == "dispatch"]
-        assert [s.name for s in st] == ["represent", "engine", "copy"]
+        assert [s.name for s in st] == list(PASS_STAGES)
         assert d.t0 <= st[0].t0 and st[-1].t1 <= d.t1
-        assert st[0].t1 <= st[1].t0 and st[1].t1 <= st[2].t0
+        assert all(a.t1 <= b.t0 for a, b in zip(st, st[1:]))
     assert "verify" not in svc.tracer.counts()
     assert svc.tracer.counts()["cascade_count"] == \
         svc.stats.snapshot()["batches"]
@@ -230,7 +264,8 @@ def test_profile_on_the_dispatcher_thread_holds_stage_ranges(db, workload,
     for path in sorted((tmp_path / "prof").glob("dispatch_*.json")):
         names |= {e.get("name") for e in
                   json.loads(path.read_text())["traceEvents"]}
-    assert {"repro.represent", "repro.engine", "repro.copy"} <= names
+    assert {"repro.represent", "repro.engine", "repro.compact",
+            "repro.copy"} <= names
     # The replies run outside the per-dispatch capture.
     assert "repro.reply.knn" not in names
 
@@ -245,8 +280,8 @@ def test_reply_ranges_recorded_while_a_profiler_records(db):
         svc.direct_query(KIND_KNN, q, k=3)
         svc.direct_query(KIND_RANGE, q, epsilon=1.0)
     names = {e.key for e in prof.key_averages()}
-    assert {"repro.represent", "repro.engine", "repro.copy",
-            "repro.reply.knn", "repro.reply.range",
+    assert {"repro.represent", "repro.engine", "repro.compact",
+            "repro.copy", "repro.reply.knn", "repro.reply.range",
             "repro.postprocess"} <= names
 
 
@@ -354,7 +389,8 @@ def test_one_lock_a_batch_for_served_requests():
         reqs.append(r)
     st.on_served_batch(reqs)
     st.on_pass([("represent", 0.1, 0.05), ("engine", 0.2, 0.2),
-                ("copy", 0.3, 0.3)], 100, (3, 4), 32)
+                ("compact", 0.01, 0.01), ("copy", 0.3, 0.3)], 100, (3, 4),
+               32, 7)
     assert len(calls) == 2
     snap = st.snapshot()
     assert snap["served"] == 32 and snap["latency_ms"]["p50"] == 4000.0
@@ -364,5 +400,7 @@ def test_one_lock_a_batch_for_served_requests():
     assert s["reply.knn"] == {"count": 16, "host_s": 8.0, "device_s": 0.0}
     assert s["postprocess"]["host_s"] == 8.0
     assert s["represent"] == {"count": 1, "host_s": 0.1, "device_s": 0.05}
+    assert s["compact"] == {"count": 1, "host_s": 0.01, "device_s": 0.01}
     assert snap["d2h_bytes"] == 100 and snap["d2h_requests"] == 32
+    assert snap["answer_slots"] == 7
     assert snap["events"]["certified_exact"] == 3
